@@ -85,6 +85,8 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: deep chaos/property sweeps; deselect with "
         '-m "not slow"')
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips where none is visible")
 
 
 if HAVE_HYPOTHESIS:
