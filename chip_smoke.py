@@ -13,7 +13,10 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with
   3. holds each kernel byte for byte against its plain PyTorch version on
      the card, at edge shapes (P = 0, E = 0/1/127/128/129, nevents 0/1,
      duplicate codes and dates, both codecs with and without the fused
-     duration; H = 1..24 with SENTINEL ids present);
+     duration; H = 1..24 with SENTINEL ids present); ``tspm_fused`` against
+     ``fused_table_ref`` and ``block_bucket_counts`` for both codecs at
+     H = 1/8/12/15/16/20/24, including a one-code cohort whose ids collide
+     everywhere;
   4. drives the main path — ``MiningSession(...).fit(db)`` then
      ``frame.screen().collect()`` — on the paper's Table 1 cohort (4,985
      patients at ~471 events, first-occurrence filter) with
@@ -22,13 +25,24 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with
      the row count against ``count_sequences``, the hash table's sum
      against the distinct (patient, id) pairs, and that the exact screen's
      kept set lies inside the hash screen's;
+     then runs the ``chunked`` and ``files`` engines on the same cohort at
+     one ``budget_bytes`` and requires the same rows in the same order and
+     the same bucket table (no host sort: both visit the same chunks);
   5. holds the session on the card against the session on the CPU (plain
-     versions) on the first 256 patients, byte for byte;
+     versions) on the first 256 patients, byte for byte, for every engine
+     (batch, chunked, files) under every screen (sorted, hash, fused);
   6. times each kernel at the main path's full-size shapes with CUDA
      events, beside its bound, its plain version and a library call, times
      the histogram's shared-memory and global-atomics paths against each
      other on the same ids hashed to 2^12 buckets, and times the phases of
-     the fit.
+     the fit;
+  7. drives the paper's Table 2 cohort (35,000 patients at ~318 events,
+     E = 240) through ``MiningSession(engine='chunked', screen='hash')``
+     and ``MiningSession(screen='fused')`` at the same ``budget_bytes``,
+     and requires the fused table to equal the chunked engine's merged
+     table, the fused survivors to equal the chunked rows that the table
+     keeps, in the same order, and the corpus-free counting pass alone to
+     peak under 1 GB of device memory; it times ``tspm_fused`` there.
 
 Every failed check raises, so the script exits non-zero.  The last three
 lines of its output are the ``nvidia-smi`` line, the ``kernels`` JSON line
@@ -37,6 +51,7 @@ and the result line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -48,7 +63,12 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 N_PATIENTS, AVG_EVENTS, SEED = 4985, 471, 0   # the paper's Table 1 cohort
+TABLE2_PATIENTS, TABLE2_EVENTS = 35000, 318   # the paper's Table 2 cohort
 THRESHOLD = 5
+H_DEFAULT = 20                 # MiningConfig.n_buckets_log2
+BUDGET_BYTES = 4 << 30         # budget_bytes of the chunked/files/fused runs
+CHECK_BUDGET_BYTES = 64 << 20  # ... of the card-vs-CPU runs (several chunks)
+FUSED_PASS_LIMIT = 10**9       # the corpus-free counting pass's peak (1 GB)
 CHECK_PATIENTS = 256
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 INT_OPS_PER_S = 67e12          # H100 SXM non-tensor 32-bit rate (data sheet fp32)
@@ -106,6 +126,70 @@ def pairgen_edge_cases():
         np.array([64, 40], np.int32)
 
 
+def random_cohort(rng, n_patients: int, max_events: int, n_codes: int,
+                  date_range: int = 400):
+    """(phenx, date, nevents) drawn as tests/conftest.py::random_dbmart
+    draws them, so a seed gives the reference tests' cohort."""
+    nevents = rng.integers(0, max_events + 1, n_patients).astype(np.int32)
+    e_pad = -(-max(int(nevents.max(initial=1)), 1) // 8) * 8
+    phenx = rng.integers(0, n_codes, (n_patients, e_pad)).astype(np.int32)
+    date = np.sort(rng.integers(0, date_range, (n_patients, e_pad)).astype(np.int32),
+                   axis=1)
+    for p in range(n_patients):
+        n = int(nevents[p])
+        if n < e_pad:
+            date[p, n:] = date[p, n - 1] if n else 0
+    return phenx, date, nevents
+
+
+def fused_edge_cases():
+    """E on and around 128, duplicate codes, rows of 0 and 1 events, and
+    the hash adversary of tests/test_kernels_fused.py (one code, H = 1/2)."""
+    rng = np.random.default_rng(2)
+    for P, E, V in [(5, 127, 9), (5, 128, 9), (4, 129, 9), (3, 8, 3), (64, 304, 40)]:
+        phenx = rng.integers(0, V, (P, E)).astype(np.int32)
+        date = np.sort(rng.integers(0, 400, (P, E)), axis=1).astype(np.int32)
+        nevents = rng.integers(2, E + 1, P).astype(np.int32)
+        nevents[:2] = [0, 1]
+        yield phenx, date, nevents
+    yield random_cohort(np.random.default_rng(31), 6, 12, 1)
+
+
+def check_fused_kernel(torch, dev) -> tuple[float, int]:
+    """Phase 3 for ``tspm_fused``: the kernel against the plain version of
+    its own algorithm on the card and against the contract
+    (``block_bucket_counts``, materializing) on the CPU; and the
+    fused-duration route (pair generation + histogram per block)."""
+    from repro_torch.core import encoding
+    from repro_torch.kernels.tspm_fused import ops as fused_ops, ref as fused_ref
+
+    err, n = 0.0, 0
+    for phenx, date, nevents in fused_edge_cases():
+        cpu = [torch.from_numpy(a) for a in (phenx, date, nevents)]
+        x, d, nev = (a.to(dev) for a in cpu)
+        for codec in encoding.CODECS:
+            for H in (1, 2, 8, 12, 15, 16, 20, 24):
+                got = fused_ops.fused_bucket_counts(x, d, nev, codec=codec,
+                                                    n_buckets_log2=H)
+                err = max(err, max_abs_err(torch, [got], [
+                    fused_ref.fused_table_ref(x, nev, H, codec)]))
+                err = max(err, max_abs_err(torch, [got], [
+                    fused_ref.block_bucket_counts(*cpu, codec, n_buckets_log2=H)]))
+                n += 2
+            got = fused_ops.fused_bucket_counts(x, d, nev, codec=codec,
+                                                fuse_duration=True,
+                                                n_buckets_log2=12, block_patients=2)
+            err = max(err, max_abs_err(torch, [got], [fused_ref.fused_bucket_counts_ref(
+                *cpu, codec, True, 30, 12)]))
+            n += 1
+    empty = fused_ops.fused_bucket_counts(*(torch.zeros((0, 8), dtype=torch.int32,
+                                                        device=dev),) * 2,
+                                          torch.zeros(0, dtype=torch.int32, device=dev),
+                                          n_buckets_log2=4)
+    require(empty.shape == (16,) and int(empty.sum()) == 0, "empty fused table")
+    return err, n
+
+
 def check_kernels(torch, dev) -> dict:
     """Phase 3: every kernel against its plain version on the card."""
     from repro_torch.core import encoding, sparsity
@@ -149,6 +233,8 @@ def check_kernels(torch, dev) -> dict:
     empty = hist_ops.hist(torch.zeros(0, dtype=torch.int32, device=dev),
                           torch.zeros(0, dtype=torch.bool, device=dev), 16)
     require(empty.shape == (16,) and int(empty.sum()) == 0, "empty histogram")
+    err["tspm_fused"], n_fused = check_fused_kernel(torch, dev)
+    n += n_fused
     torch.cuda.synchronize()
     print(f"phase 3: {n} kernel comparisons byte-identical", flush=True)
     return err
@@ -172,31 +258,65 @@ def distinct_pairs(seq: np.ndarray, patient: np.ndarray) -> int:
     return int(1 + np.count_nonzero((seq[1:] != seq[:-1]) | (patient[1:] != patient[:-1])))
 
 
-def run_main_path(torch, db, screen: str, device) -> dict:
-    """Phase 4: one fit through the entry points, counts zeroed before and
-    read after; returns the frame, its screened keep mask and times."""
-    from repro_torch.api import MiningConfig, MiningSession
+def launch_counters() -> dict:
+    """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from repro_torch.kernels.seq_hist import ops as hist_ops
+    from repro_torch.kernels.tspm_fused import ops as fused_ops
     from repro_torch.kernels.tspm_pairgen import ops as pg_ops
 
-    session = MiningSession(MiningConfig(threshold=THRESHOLD, screen=screen),
-                            device=device)
+    return {"tspm_pairgen": pg_ops.pairgen, "seq_hist": hist_ops.hist,
+            "tspm_fused": fused_ops.fused_bucket_counts}
+
+
+def zero_launches() -> None:
+    for fn in launch_counters().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in launch_counters().items()}
+
+
+def fit_engine(torch, db, device, **config) -> dict:
+    """One ``MiningSession.fit`` with the launch counts zeroed just before
+    and read just after, its host wall (ended by a synchronize) and the
+    peak device memory of the fit."""
+    from repro_torch.api import MiningConfig, MiningSession
+
+    session = MiningSession(MiningConfig(**config), device=device)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    pg_ops.pairgen.launches = hist_ops.hist.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     frame = session.fit(db)
     torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    return dict(frame=frame, plan=session.plan(), launches=read_launches(),
+                fit_s=fit_s, peak_device_bytes=torch.cuda.max_memory_allocated())
+
+
+def engine_rows(frame):
+    """The frame's rows in the order the engine produced them, before the
+    canonical host sort (which this must not trigger)."""
+    raw = frame._corpus._raw
+    require(raw is not None, "frame was canonicalized before its rows were read")
+    return raw
+
+
+def run_main_path(torch, db, screen: str, device) -> dict:
+    """Phase 4: one fit through the entry points, counts zeroed before and
+    read after; returns the frame, its screened keep mask and times."""
+    r = fit_engine(torch, db, device, threshold=THRESHOLD, screen=screen)
+    frame = r["frame"]
     t1 = time.perf_counter()
-    peak = torch.cuda.max_memory_allocated()
     seq, dur, patient, _ = frame.arrays()          # canonical order
     t2 = time.perf_counter()
     result = frame.screen().collect()
     t3 = time.perf_counter()
-    launches = {"tspm_pairgen": pg_ops.pairgen.launches,
-                "seq_hist": hist_ops.hist.launches}
     return dict(frame=frame, seq=seq, dur=dur, patient=patient, result=result,
-                keep=frame.screen().keep_mask(), launches=launches,
-                peak_device_bytes=peak, fit_s=t1 - t0, canonicalize_s=t2 - t1, screen_collect_s=t3 - t2)
+                keep=frame.screen().keep_mask(), launches=r["launches"],
+                peak_device_bytes=r["peak_device_bytes"], fit_s=r["fit_s"],
+                canonicalize_s=t2 - t1, screen_collect_s=t3 - t2)
 
 
 def check_main_path(torch, db, device) -> dict:
@@ -236,22 +356,144 @@ def check_main_path(torch, db, device) -> dict:
 
 
 def check_card_vs_cpu(torch, db, device) -> dict:
-    """Phase 5: the session on the card equals the session on the CPU."""
+    """Phase 5: the session on the card equals the session on the CPU, for
+    every engine under every screen."""
     from repro_torch.api import MiningConfig, MiningSession
 
     small = db.slice_patients(0, CHECK_PATIENTS)
-    rows = 0
-    for screen in ("hash", "sorted"):
-        frames = [MiningSession(MiningConfig(threshold=THRESHOLD, screen=screen),
-                                device=d).fit(small) for d in (device, "cpu")]
-        for f in (lambda fr: fr.collect(), lambda fr: fr.screen().collect()):
-            got, want = f(frames[0]), f(frames[1])
-            for g, w in zip(got, want):
-                require(g.dtype == w.dtype and g.tobytes() == w.tobytes(),
-                        f"{screen}: card and CPU frames differ")
-        rows = len(frames[0])
-    print(f"phase 5: card == CPU on {CHECK_PATIENTS} patients ({rows} rows)", flush=True)
+    rows = {}
+    for engine in ("batch", "chunked", "files"):
+        for screen in ("sorted", "hash", "fused"):
+            cfg = MiningConfig(engine=engine, screen=screen, threshold=THRESHOLD,
+                               budget_bytes=CHECK_BUDGET_BYTES)
+            frames = [MiningSession(cfg, device=d).fit(small) for d in (device, "cpu")]
+            for f in (lambda fr: fr.collect(), lambda fr: fr.screen().collect()):
+                got, want = f(frames[0]), f(frames[1])
+                for g, w in zip(got, want):
+                    require(g.dtype == w.dtype and g.tobytes() == w.tobytes(),
+                            f"{engine}/{screen}: card and CPU frames differ")
+            rows[f"{engine}/{screen}"] = len(frames[0])
+    print(f"phase 5: card == CPU on {CHECK_PATIENTS} patients, every engine and "
+          f"screen ({json.dumps(rows)})", flush=True)
     return {"patients": CHECK_PATIENTS, "rows": rows}
+
+
+def check_files_vs_chunked(torch, db, device) -> dict:
+    """Phase 4b: the files and chunked engines at one budget visit the same
+    chunks, so their rows agree in order, with the same bucket table; the
+    spill goes to a temporary directory that the session removes."""
+    import tempfile
+
+    def spills():
+        return {n for n in os.listdir(tempfile.gettempdir()) if n.startswith("tspm_spill_")}
+
+    before = spills()
+    runs, out = {}, {}
+    for engine in ("chunked", "files"):
+        r = fit_engine(torch, db, device, engine=engine, screen="hash",
+                       threshold=THRESHOLD, budget_bytes=BUDGET_BYTES)
+        require(r["launches"]["tspm_pairgen"] > 0 and r["launches"]["seq_hist"] > 0,
+                f"{engine}: a kernel of the path never launched")
+        runs[engine] = r
+        out[engine] = {"fit_s": r["fit_s"], "launches": r["launches"],
+                       "n_chunks": r["plan"].n_chunks, "rows": len(r["frame"]),
+                       "peak_device_bytes": r["peak_device_bytes"]}
+        print(f"phase 4b ({engine}): {json.dumps(out[engine])}", flush=True)
+    require(spills() == before, "the files engine left its spill directory behind")
+    c, f = runs["chunked"]["frame"], runs["files"]["frame"]
+    require(runs["files"]["plan"].n_chunks > 1, "files: the budget gave one chunk")
+    for name, a, b in zip(("seq", "dur", "patient"), engine_rows(c), engine_rows(f)):
+        require(a.dtype == b.dtype and np.array_equal(a, b),
+                f"files and chunked rows differ in {name}")
+    require(np.array_equal(c._corpus.counts(), f._corpus.counts()),
+            "files and chunked bucket tables differ")
+    out["budget_bytes"] = BUDGET_BYTES
+    return out
+
+
+def host_keep(torch, seq: np.ndarray, counts: np.ndarray, device,
+              piece: int = 1 << 26) -> np.ndarray:
+    """The hash screen's keep mask of host rows, computed on the card a
+    piece at a time."""
+    from repro_torch.core import sparsity
+
+    keep = np.empty(len(seq), bool)
+    table = torch.from_numpy(counts).to(device)
+    for s in range(0, len(seq), piece):
+        ids = torch.from_numpy(seq[s:s + piece]).to(device)
+        keep[s:s + piece] = sparsity.screen_hash_from_counts(
+            ids, torch.ones_like(ids, dtype=torch.bool), table, THRESHOLD,
+            H_DEFAULT).cpu().numpy()
+    return keep
+
+
+def check_table2(torch, db, device) -> dict:
+    """Phase 7: the paper's Table 2 cohort through the chunked hash screen
+    and the corpus-free fused screen, compared row for row."""
+    from repro_torch.core import mining
+    from repro_torch.kernels.tspm_fused import ops as fused_ops
+
+    n_seq = int(mining.count_sequences(db.nevents))
+    out = {"patients": db.n_patients, "max_events": db.max_events, "rows": n_seq,
+           "budget_bytes": BUDGET_BYTES}
+    ch = fit_engine(torch, db, device, engine="chunked", screen="hash",
+                    threshold=THRESHOLD, budget_bytes=BUDGET_BYTES)
+    require(ch["plan"].n_chunks >= 4, f"chunked: {ch['plan'].n_chunks} chunks, not >= 4")
+    require(ch["launches"]["tspm_pairgen"] > 0 and ch["launches"]["seq_hist"] > 0,
+            "chunked: a kernel of the path never launched")
+    c_rows = engine_rows(ch["frame"])
+    require(len(c_rows[0]) == n_seq, f"chunked: {len(c_rows[0])} rows != {n_seq}")
+    c_counts = ch["frame"]._corpus.counts()
+    keep = host_keep(torch, c_rows[0], c_counts, device)
+    out["chunked"] = {"engine": ch["plan"].engine, "n_chunks": ch["plan"].n_chunks,
+                      "fit_s": ch["fit_s"], "rows": n_seq, "kept_rows": int(keep.sum()),
+                      "peak_device_bytes": ch["peak_device_bytes"],
+                      "launches": ch["launches"]}
+    print(f"phase 7 (chunked, hash): {json.dumps(out['chunked'])}", flush=True)
+
+    fu = fit_engine(torch, db, device, screen="fused", threshold=THRESHOLD,
+                    budget_bytes=BUDGET_BYTES)
+    require(fu["launches"]["tspm_fused"] >= 1, "fused: tspm_fused never launched")
+    require(fu["launches"]["tspm_pairgen"] > 0, "fused: the re-mine never launched")
+    f_rows = engine_rows(fu["frame"])
+    f_counts = fu["frame"]._corpus.counts()
+    require(f_counts.dtype == c_counts.dtype and np.array_equal(f_counts, c_counts),
+            "fused table != the chunked engine's merged table")
+    require(len(f_rows[0]) == int(keep.sum()), "fused survivors != chunked kept rows")
+    whole = bool(keep.all())
+    for name, a, b in zip(("seq", "dur", "patient"), f_rows, c_rows):
+        require(a.dtype == b.dtype and np.array_equal(a, b if whole else b[keep]),
+                f"fused survivors differ from the chunked kept rows in {name}")
+    out["fused"] = {"engine": fu["plan"].engine, "fit_s": fu["fit_s"],
+                    "rows": len(f_rows[0]), "kept_rows": len(f_rows[0]),
+                    "peak_device_bytes": fu["peak_device_bytes"],
+                    "launches": fu["launches"]}
+    out["table_sum"] = int(c_counts.astype(np.int64).sum())
+    print(f"phase 7 (fused): {json.dumps(out['fused'])}", flush=True)
+    launches = fu["launches"]
+    del ch, fu, c_rows, f_rows, keep
+
+    # the corpus-free counting pass alone: the cohort and the table
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    args = [torch.from_numpy(a).to(device) for a in (db.phenx, db.date, db.nevents)]
+    counts = fused_ops.fused_bucket_counts(*args, n_buckets_log2=H_DEFAULT)
+    torch.cuda.synchronize()
+    pass_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    require(np.array_equal(counts.cpu().numpy(), c_counts),
+            "the counting pass alone gives another table")
+    require(peak < FUSED_PASS_LIMIT,
+            f"fused counting pass peaked at {peak} B of device memory, not < 1 GB")
+    out["fused_counting_pass"] = {"seconds": pass_s, "peak_device_bytes": peak,
+                                  "limit_bytes": FUSED_PASS_LIMIT}
+    print(f"phase 7 (fused counting pass alone): "
+          f"{json.dumps(out['fused_counting_pass'])}", flush=True)
+    del args, counts
+    torch.cuda.empty_cache()
+    return out, launches
 
 
 def hist_bound(n: int, counted: int, n_buckets: int) -> dict:
@@ -325,22 +567,48 @@ def time_kernels(torch, db, dev, err: dict, launches: dict):
     del h, first, weights, lib, table
     torch.cuda.empty_cache()
 
-    def row(name, replaces, ms, plain, bound, lib_ms, shape):
-        by = max(bound, key=bound.get)
-        return {"name": name, "route": "cuda",
-                "source": f"src/repro_torch/csrc/{name}.cu", "replaces": replaces,
-                "launches": launches[name], "max_abs_err": err[name],
-                "ms": ms, "plain_ms": plain, "bound_ms": bound[by], "bound_by": by,
-                "library_ms": lib_ms, "shape": shape}
-
     print(f"seq_hist paths at H=12: {json.dumps(paths)}", flush=True)
     return paths, [
-        row("tspm_pairgen", "src/repro/kernels/tspm_pairgen/pairgen.py:29",
-            pg_ms, pg_plain, pg_bound, None, f"P={P} E={E}"),
-        row("seq_hist", "src/repro/kernels/seq_hist/seq_hist.py:25",
-            hs_ms, hs_plain, hs_bound, hs_lib,
-            f"N={n} H={H} counted={counted}"),
+        kernel_row("tspm_pairgen", "src/repro/kernels/tspm_pairgen/pairgen.py:29",
+                   launches, err, pg_ms, pg_plain, pg_bound, None, f"P={P} E={E}"),
+        kernel_row("seq_hist", "src/repro/kernels/seq_hist/seq_hist.py:25",
+                   launches, err, hs_ms, hs_plain, hs_bound, hs_lib,
+                   f"N={n} H={H} counted={counted}"),
     ]
+
+
+def kernel_row(name, replaces, launches, err, ms, plain, bound, lib_ms, shape):
+    by = max(bound, key=bound.get)
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu", "replaces": replaces,
+            "launches": launches[name], "max_abs_err": err[name],
+            "ms": ms, "plain_ms": plain, "bound_ms": bound[by], "bound_by": by,
+            "library_ms": lib_ms, "shape": shape}
+
+
+def time_fused(torch, db, dev, err: dict) -> dict:
+    """``tspm_fused`` at a cohort's full size and H = 20, beside its bound
+    and the plain version of its algorithm, with CUDA events.  The bound
+    reads the cohort once and writes the table once (bytes), or does one
+    64-bit multiply-shift and one add per counted pair (operations)."""
+    from repro_torch.kernels.tspm_fused import ops as fused_ops, ref as fused_ref
+
+    x, nev = (torch.from_numpy(a).to(dev) for a in (db.phenx, db.nevents))
+    P, E = x.shape
+    got = fused_ops.fused_table(x, nev, H_DEFAULT)
+    err["tspm_fused"] = max(err["tspm_fused"], max_abs_err(
+        torch, [got], [fused_ref.fused_table_ref(x, nev, H_DEFAULT)]))
+    n = db.nevents.astype(np.int64)
+    counted = int(np.sum(n * (n - 1) // 2))   # every code is distinct in a row
+    require(int(got.sum()) == counted, "tspm_fused counted another number of pairs")
+    ms = cuda_ms(torch, lambda: fused_ops.fused_table(x, nev, H_DEFAULT), 10)
+    plain = cuda_ms(torch, lambda: fused_ref.fused_table_ref(x, nev, H_DEFAULT), 2)
+    bound = {"bytes": (P * E * 4 + P * 4 + 4 * (1 << H_DEFAULT)) / HBM_BYTES_PER_S * 1e3,
+             "operations": 2 * counted / INT_OPS_PER_S * 1e3}
+    del x, nev, got
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain, "bound": bound,
+            "shape": f"P={P} E={E} H={H_DEFAULT} counted={counted}"}
 
 
 def time_fit_phases(torch, db, device) -> dict:
@@ -381,6 +649,7 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import _build
 
+    t_start = time.perf_counter()
     name, card = torch.cuda.get_device_name(0), smi()
     print(f"device: {name} | nvidia-smi: {card} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
@@ -397,16 +666,35 @@ def main() -> int:
           f"{db.total_events} events, built in {time.perf_counter() - t0:.1f} s",
           flush=True)
     main_path = check_main_path(torch, db, dev)
+    files_vs_chunked = check_files_vs_chunked(torch, db, dev)
     card_vs_cpu = check_card_vs_cpu(torch, db, dev)
     hist_paths, kernels = time_kernels(torch, db, dev, err,
                                        main_path["hash"]["launches"])
+    fused_t1 = time_fused(torch, db, dev, err)
     phases = time_fit_phases(torch, db, dev)
     phases.update(canonicalize_s=main_path["hash"]["canonicalize_s"],
                   fit_s=main_path["hash"]["fit_s"],
                   screen_collect_s=main_path["hash"]["screen_collect_s"])
-    print(json.dumps({"fit_phases": phases, "main_path": main_path,
-                      "card_vs_cpu": card_vs_cpu, "seq_hist_paths": hist_paths}),
+    del db
+
+    t0 = time.perf_counter()
+    db2 = make_cohort(TABLE2_PATIENTS, TABLE2_EVENTS)
+    print(f"cohort: {db2.n_patients} patients, E={db2.max_events}, "
+          f"{db2.total_events} events, built in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    table2, fused_launches = check_table2(torch, db2, dev)
+    fused_t2 = time_fused(torch, db2, dev, err)
+    kernels.append(kernel_row(
+        "tspm_fused", "src/repro/kernels/tspm_fused/fused.py:134", fused_launches,
+        err, fused_t2["ms"], fused_t2["plain_ms"], fused_t2["bound"], None,
+        fused_t2["shape"]))
+    kernels[-1]["table1"] = {"ms": fused_t1["ms"], "plain_ms": fused_t1["plain_ms"],
+                             "bound_ms": max(fused_t1["bound"].values()),
+                             "shape": fused_t1["shape"]}
+    print(json.dumps({"fit_phases": phases, "main_path": main_path,
+                      "files_vs_chunked": files_vs_chunked, "card_vs_cpu": card_vs_cpu,
+                      "seq_hist_paths": hist_paths, "table2": table2,
+                      "wall_s": time.perf_counter() - t_start}), flush=True)
     print(f"nvidia-smi: {smi()}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

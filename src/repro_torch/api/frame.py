@@ -1,7 +1,7 @@
 """SequenceFrame: the façade's unified mining result.
 
-Every engine (the port has the batch engine so far; the reference also
-has chunked, file-based, streaming and sharded ones) lands in the same
+Every engine (the port has the batch, chunked and file-based ones; the
+reference also has streaming and sharded ones) lands in the same
 place: a flat (seq, dur, patient) corpus in a *canonical order*
 (lexicographic by sequence id, then patient, then duration), with padding
 rows already dropped.  That canonicalization is what makes the conformance

@@ -1,12 +1,21 @@
 """MiningSession: config-driven dispatch over the execution engines.
 
 ``fit(dbmart)`` runs the planner (``plan()`` shows the decision; a
-``MiningConfig.engine`` override forces it) and dispatches.  The port has
-the ``batch`` engine — one mine (core.mining) of the whole cohort on the
-session's device, the hash-screen bucket counts when ``screen='hash'``
-(core.sparsity), then a flatten — with ``screen='sorted'`` or ``'hash'``.
-The planner refuses every other engine with ``NotImplementedError``.  The
-result lands in a :class:`~repro_torch.api.frame.SequenceFrame`.
+``MiningConfig.engine`` override forces it) and dispatches:
+
+  * ``batch``   — one mine (core.mining) of the whole cohort on the
+    session's device, the hash-screen bucket counts when ``screen='hash'``
+    (core.sparsity), then a flatten;
+  * ``chunked`` — adaptive patient chunks under ``budget_bytes``
+    (core.chunking.mine_chunked);
+  * ``files``   — chunk spill to .npz + merged bucket-count table
+    (mine_to_files / load_files);
+
+with ``screen='sorted'``, ``'hash'`` or ``'fused'`` (corpus-free counting,
+then survivors only: core.chunking.mine_fused, on every engine).  The
+planner refuses the streaming and sharded engines with
+``NotImplementedError``.  The result lands in a
+:class:`~repro_torch.api.frame.SequenceFrame`.
 
 The session runs on the card unless the caller asks for the CPU:
 ``device='cuda'`` is the default, and raises when no CUDA device is
@@ -23,12 +32,17 @@ Quickstart::
 """
 from __future__ import annotations
 
+import os
+import shutil
+import tempfile
+
+import numpy as np
 import torch
 
 from repro_torch.api import planner
 from repro_torch.api.config import MiningConfig, Plan
 from repro_torch.api.frame import SequenceFrame
-from repro_torch.core import mining, sparsity
+from repro_torch.core import chunking, mining, sparsity
 from repro_torch.core.encoding import Vocab
 from repro_torch.data.dbmart import DBMart
 
@@ -96,8 +110,27 @@ class MiningSession:
             n_buckets_log2=c.n_buckets_log2, screen_mode=c.screen,
             threshold=c.threshold)
 
+    def _chunk_kw(self) -> dict:
+        c = self.config
+        return dict(budget_bytes=c.budget_bytes or (1 << 28), codec=c.codec,
+                    backend=c.backend, n_buckets_log2=c.n_buckets_log2,
+                    fuse_duration=c.fuse_duration, bucket_days=c.bucket_days,
+                    device=self.device)
+
+    def _fit_fused(self, db: DBMart) -> SequenceFrame:
+        """screen='fused': corpus-free counting pass, survivors-only
+        materialization (chunking.mine_fused) — the only pair-allocating
+        path is one re-mine chunk at a time plus the survivors."""
+        out = chunking.mine_fused(db, threshold=self.config.threshold,
+                                  **self._chunk_kw())
+        return self._frame(out["seq"], out["dur"], out["patient"],
+                           counts=out["counts"], vocab=db.vocab,
+                           n_patients=db.n_patients)
+
     def _fit_batch(self, db: DBMart) -> SequenceFrame:
         c = self.config
+        if c.screen == "fused":
+            return self._fit_fused(db)
 
         def on_device(a):
             return torch.as_tensor(a, dtype=torch.int32).to(self.device)
@@ -112,3 +145,42 @@ class MiningSession:
         seq, dur, pat, msk = mining.flatten(mined)
         return self._frame(seq, dur, pat, msk, counts=counts,
                            vocab=db.vocab, n_patients=db.n_patients)
+
+    def _fit_chunked(self, db: DBMart) -> SequenceFrame:
+        if self.config.screen == "fused":
+            return self._fit_fused(db)
+        out = chunking.mine_chunked(db, with_counts=self.config.screen == "hash",
+                                    **self._chunk_kw())
+        # every row is real (chunks are compacted on the device): no mask
+        return self._frame(out["seq"], out["dur"], out["patient"],
+                           counts=out.get("counts"), vocab=db.vocab,
+                           n_patients=db.n_patients)
+
+    def _fit_files(self, db: DBMart) -> SequenceFrame:
+        c = self.config
+        if c.screen == "fused":
+            # corpus-free screen first; only survivors ever hit the disk,
+            # keeping the spill-directory contract (chunk .npz + merged
+            # bucket_counts.npy) intact
+            out = chunking.mine_fused(db, threshold=c.threshold,
+                                      **self._chunk_kw())
+            if c.spill_dir:
+                os.makedirs(c.spill_dir, exist_ok=True)
+                np.save(os.path.join(c.spill_dir, "bucket_counts.npy"),
+                        out["counts"])
+                np.savez(os.path.join(c.spill_dir, "chunk_00000.npz"),
+                         seq=out["seq"], dur=out["dur"],
+                         patient=out["patient"])
+            return self._frame(out["seq"], out["dur"], out["patient"],
+                               counts=out["counts"], vocab=db.vocab,
+                               n_patients=db.n_patients)
+        out_dir = c.spill_dir or tempfile.mkdtemp(prefix="tspm_spill_")
+        try:
+            chunking.mine_to_files(db, out_dir, **self._chunk_kw())
+            out = chunking.load_files(out_dir)
+        finally:
+            if c.spill_dir is None:   # we made the dir; don't leak a corpus
+                shutil.rmtree(out_dir, ignore_errors=True)
+        return self._frame(out["seq"], out["dur"], out["patient"],
+                           counts=out["counts"], vocab=db.vocab,
+                           n_patients=db.n_patients)

@@ -27,6 +27,9 @@ import torch
 from repro_torch.core.encoding import SENTINEL, as_tensor
 from repro_torch.kernels.seq_hist import ops as hist_ops
 
+# ids per patient block of local_bucket_counts' row sort (512 MB of int64)
+BLOCK_ELEMENTS = 1 << 26
+
 # multiply-shift hash constant (odd; splitmix64's golden-gamma), as the
 # signed int64 whose bits are 0x9E3779B97F4A7C15
 _HASH_K = -7046029254386353131
@@ -148,17 +151,28 @@ def local_bucket_counts(seq, mask, n_buckets_log2: int) -> torch.Tensor:
 
     Rows are patients; dedupes (patient, sequence) by a row-wise sort before
     counting, matching the paper's distinct-patient support semantics.  The
-    count itself is ``kernels/seq_hist`` (the CUDA kernel on the card).
+    rows are sorted, flagged and counted in patient blocks of at most
+    ``BLOCK_ELEMENTS`` ids, so the sort's scratch is one block, not the
+    whole slab; counts add over disjoint patients, so the table does not
+    depend on the block.  The count itself is ``kernels/seq_hist`` (the
+    CUDA kernel on the card, one launch per block).
     """
     seq = as_tensor(seq, torch.int64)
     mask = as_tensor(mask, torch.bool)
     P = seq.shape[0]
-    flat = torch.where(mask, seq, SENTINEL).reshape(P, -1)
-    srt = torch.sort(flat, dim=1).values
-    first = row_first_flags(srt)
-    del flat
-    return hist_ops.hist(hash_bucket(srt, n_buckets_log2), first,
-                         1 << n_buckets_log2)
+    n_buckets = 1 << n_buckets_log2
+    counts = torch.zeros(n_buckets, dtype=torch.int32, device=seq.device)
+    if P == 0:
+        return counts
+    seq, mask = seq.reshape(P, -1), mask.reshape(P, -1)
+    blk = max(1, BLOCK_ELEMENTS // max(seq.shape[1], 1))
+    for s in range(0, P, blk):
+        flat = torch.where(mask[s:s + blk], seq[s:s + blk], SENTINEL)
+        srt = torch.sort(flat, dim=1).values
+        del flat
+        counts += hist_ops.hist(hash_bucket(srt, n_buckets_log2),
+                                row_first_flags(srt), n_buckets)
+    return counts
 
 
 def screen_hash(seq, mask, threshold, n_buckets_log2: int = 20) -> torch.Tensor:
@@ -179,7 +193,31 @@ def merge_bucket_counts(*counts):
 
 def screen_hash_from_counts(seq, mask, counts, threshold,
                             n_buckets_log2: int) -> torch.Tensor:
-    """Apply a pre-merged global bucket-count table to a chunk."""
-    counts = as_tensor(counts, torch.int32)
+    """Apply a pre-merged global bucket-count table to a chunk (on the
+    device of ``seq``)."""
+    seq = as_tensor(seq, torch.int64)
+    counts = as_tensor(counts, torch.int32).to(seq.device)
     h = hash_bucket(seq, n_buckets_log2).to(torch.int64)
-    return (counts[h] >= threshold) & as_tensor(mask, torch.bool)
+    return (counts[h] >= threshold) & as_tensor(mask, torch.bool).to(seq.device)
+
+
+def screen_survivors(seq, dur, patient, counts, threshold,
+                     n_buckets_log2: int, mask=None):
+    """Host-compacted survivors of the hash screen (corpus-free path).
+
+    The materialization half of ``screen="fused"``: given the global
+    bucket-count table from the corpus-free counting pass, keep only the
+    rows (of ``mask``, default: every non-SENTINEL id) whose bucket clears
+    ``threshold``, select them on the tensors' own device and copy only
+    them to host numpy arrays.  Keeping is per-id, so supports, re-screens
+    and the canonical order of the survivors are byte-identical to
+    screening the materialized corpus with the same table.
+    """
+    seq = as_tensor(seq, torch.int64).reshape(-1)
+    mask = (seq != SENTINEL if mask is None
+            else as_tensor(mask, torch.bool).reshape(-1))
+    keep = screen_hash_from_counts(seq, mask, counts, threshold, n_buckets_log2)
+    idx = torch.nonzero(keep).squeeze(1)
+    return tuple(as_tensor(a, dt).reshape(-1)[idx].cpu().numpy()
+                 for a, dt in ((seq, torch.int64), (dur, torch.int32),
+                               (patient, torch.int32)))

@@ -16,6 +16,8 @@ from repro_torch.core import encoding, mining, sparsity
 from repro_torch.data import dbmart, synthea
 from repro_torch.kernels.seq_hist import ops as hist_ops
 from repro_torch.kernels.seq_hist import ref as hist_ref
+from repro_torch.kernels.tspm_fused import ops as fused_ops
+from repro_torch.kernels.tspm_fused import ref as fused_ref
 from repro_torch.kernels.tspm_pairgen import ops as pg_ops
 from repro_torch.kernels.tspm_pairgen import ref as pg_ref
 
@@ -118,3 +120,63 @@ def test_session_on_card_matches_cpu(cuda_device, screen, codec, fuse):
         for g, w in zip(f(card), f(cpu)):
             assert_same(g, w, screen)
     assert card.screen().decode(limit=20) == cpu.screen().decode(limit=20)
+
+
+def _fused_inputs():
+    """(phenx, date, nevents): E on and around 128, duplicate codes, rows
+    of 0 and 1 events, and a one-code cohort that collides everywhere."""
+    rng = np.random.default_rng(7)
+    for P, E, V in [(5, 127, 9), (5, 128, 9), (4, 129, 9), (6, 40, 1), (3, 8, 3)]:
+        phenx = rng.integers(0, V, (P, E)).astype(np.int32)
+        date = np.sort(rng.integers(0, 400, (P, E)), axis=1).astype(np.int32)
+        nevents = rng.integers(2, E + 1, P).astype(np.int32)
+        nevents[:2] = [0, 1]
+        yield phenx, date, nevents
+
+
+@pytest.mark.parametrize("codec", ["bit", "paper"])
+@pytest.mark.parametrize("H", [1, 8, 12, 15, 16, 20, 24])
+def test_fused_kernel_matches_plain_versions(cuda_device, codec, H):
+    for phenx, date, nevents in _fused_inputs():
+        x, d, n = (torch.from_numpy(a) for a in (phenx, date, nevents))
+        before = fused_ops.fused_bucket_counts.launches
+        got = fused_ops.fused_bucket_counts(x.to(cuda_device), d.to(cuda_device),
+                                            n.to(cuda_device), codec=codec,
+                                            n_buckets_log2=H)
+        torch.cuda.synchronize()
+        assert fused_ops.fused_bucket_counts.launches == before + 1
+        assert_same(got, fused_ref.fused_table_ref(x, n, H, codec), f"table {H}")
+        assert_same(got, fused_ref.block_bucket_counts(x, d, n, codec,
+                                                       n_buckets_log2=H),
+                    f"contract {H}")
+
+
+def test_fused_duration_ids_take_the_blocked_kernels(cuda_device):
+    phenx, date, nevents = next(_fused_inputs())
+    args = [torch.from_numpy(a) for a in (phenx, date, nevents)]
+    before = (fused_ops.fused_bucket_counts.launches, pg_ops.pairgen.launches)
+    got = fused_ops.fused_bucket_counts(*(a.to(cuda_device) for a in args),
+                                        fuse_duration=True, n_buckets_log2=12,
+                                        block_patients=2)
+    assert fused_ops.fused_bucket_counts.launches == before[0]
+    assert pg_ops.pairgen.launches == before[1] + 3
+    assert_same(got, fused_ref.fused_bucket_counts_ref(
+        *args, fuse_duration=True, n_buckets_log2=12), "fused ids")
+    with pytest.raises(ValueError):
+        fused_ops.fused_bucket_counts(*(a.to(cuda_device) for a in args),
+                                      backend="torch")
+
+
+@pytest.mark.parametrize("screen", ["sorted", "hash", "fused"])
+@pytest.mark.parametrize("engine", ["chunked", "files"])
+def test_engines_on_card_match_cpu(cuda_device, engine, screen):
+    pats, dates, phx, _ = synthea.generate_cohort(n_patients=40, avg_events=30,
+                                                  seed=2)
+    db = dbmart.from_rows(pats, dates, phx)
+    cfg = MiningConfig(engine=engine, screen=screen, threshold=3,
+                       budget_bytes=1 << 20)
+    card = MiningSession(cfg, device=cuda_device).fit(db)
+    cpu = MiningSession(cfg, device="cpu").fit(db)
+    for f in (lambda fr: fr.collect(), lambda fr: fr.screen().collect()):
+        for g, w in zip(f(card), f(cpu)):
+            assert_same(g, w, f"{engine} {screen}")

@@ -1,6 +1,7 @@
-"""Port parity of the whole slice: MiningSession.fit (batch engine) and
-every SequenceFrame terminal and chained mask, plus core/msmr and
-core/postcovid, against the reference package on the CPU."""
+"""Port parity of the whole slice: MiningSession.fit (the batch, chunked
+and files engines under the sorted, hash and fused screens) and every
+SequenceFrame terminal and chained mask, plus core/msmr and core/postcovid,
+against the reference package on the CPU."""
 import dataclasses
 import os
 import re
@@ -173,19 +174,114 @@ def test_config_and_planner_refuse_what_is_not_ported():
     with pytest.raises(TypeError):
         MiningConfig.from_dict({"no_such_knob": 1})
     nev = np.full(10, 40)
-    cases = [dict(budget_bytes=1 << 10), dict(spill_bytes=10), dict(n_shards=2),
-             dict(screen="fused", threshold=2), dict(telemetry=True),
-             dict(engine="stream"), dict(engine="chunked")]
-    for kw in cases:
+    ported = [dict(budget_bytes=1 << 10), dict(spill_bytes=10),
+              dict(screen="fused", threshold=2), dict(engine="chunked")]
+    for kw in ported:                 # the reference's engine, on the CPU
+        plan = t_planner.make_plan(MiningConfig(**kw), nev, device="cpu")
+        assert plan.engine == j_planner.make_plan(JConfig(**kw), nev).engine, kw
+        assert plan.corpus_free == (kw.get("screen") == "fused")
+    for kw in [dict(n_shards=2), dict(telemetry=True), dict(engine="stream")]:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            t_planner.make_plan(MiningConfig(**kw), nev)
-    plan = t_planner.make_plan(MiningConfig(budget_bytes=1 << 30), nev)
+            t_planner.make_plan(MiningConfig(**kw), nev, device="cpu")
+    plan = t_planner.make_plan(MiningConfig(budget_bytes=1 << 30), nev, device="cpu")
     jplan = j_planner.make_plan(JConfig(budget_bytes=1 << 30), nev)
     assert (plan.engine, plan.working_set_bytes, plan.corpus_bytes) == \
         (jplan.engine, jplan.working_set_bytes, jplan.corpus_bytes)
+    # the planner's default device is the card, as the session's: 'auto'
+    # then prices the kernel's dense layout, twice the triangular bytes
+    dense = t_planner.make_plan(MiningConfig(budget_bytes=1 << 30), nev)
+    assert dense.working_set_bytes == 2 * plan.working_set_bytes
     session = MiningSession(MiningConfig(), device="cpu")
     with pytest.raises(NotImplementedError):
         session.plan()            # the incremental engine is not ported
+
+
+def test_fused_plan_is_corpus_free():
+    """Twin of the reference's test: under screen='fused' the working set
+    is one patient block + the table, so a budget that forces chunking on
+    the materializing path stays 'batch' on the fused one."""
+    pats, dates, phx, _ = j_synthea.generate_cohort(n_patients=1024,
+                                                    avg_events=16, seed=9)
+    db = j_dbmart.from_rows(pats, dates, phx)
+    budget = 1 << 24
+    plans = {}
+    for name, kw in (("dense", dict(screen="hash")),
+                     ("fused", dict(threshold=3, screen="fused",
+                                    n_buckets_log2=12))):
+        plans[name] = MiningSession(MiningConfig(budget_bytes=budget, **kw),
+                                    device="cpu").plan(port_db(db))
+        jplan = JSession(JConfig(budget_bytes=budget, **kw)).plan(db)
+        assert (plans[name].engine, plans[name].corpus_free) == \
+            (jplan.engine, jplan.corpus_free), name
+    dense, fused = plans["dense"], plans["fused"]
+    assert dense.engine == "chunked" and not dense.corpus_free
+    assert fused.engine == "batch" and fused.corpus_free
+    assert fused.working_set_bytes < dense.working_set_bytes
+    assert "corpus-free" in str(fused)
+
+
+@pytest.fixture(scope="module")
+def engine_cohort():
+    pats, dates, phx, _ = j_synthea.generate_cohort(n_patients=32, avg_events=14,
+                                                    seed=21)
+    return j_dbmart.from_rows(pats, dates, phx)
+
+
+_ENGINE_REF = {}
+
+
+@pytest.mark.parametrize("screen", ["sorted", "hash", "fused"])
+@pytest.mark.parametrize("engine", ["batch", "chunked", "files"])
+def test_engines_match_reference(tmp_path, engine_cohort, engine, screen):
+    """Every ported engine x screen: collect() and screen().collect()
+    arrays byte-identical to the reference session's, with a budget that
+    cuts the cohort into several chunks."""
+    cfg = dict(engine=engine, screen=screen, threshold=3, n_buckets_log2=12,
+               budget_bytes=48 << 10)
+    key = (engine, screen)
+    if key not in _ENGINE_REF:
+        f = JSession(JConfig(**cfg)).fit(engine_cohort)
+        _ENGINE_REF[key] = (f.collect(), f.screen().collect(), len(f))
+    want_all, want_kept, want_len = _ENGINE_REF[key]
+    if engine == "files":
+        cfg["spill_dir"] = str(tmp_path / "spill")
+    session = MiningSession(MiningConfig.from_dict(
+        dataclasses.asdict(JConfig(**cfg))), device="cpu")
+    frame = session.fit(port_db(engine_cohort))
+    plan = session.plan()
+    assert (plan.engine, plan.corpus_free) == (engine, screen == "fused")
+    assert plan.n_chunks > 1
+    assert len(frame) == want_len
+    _assert_result(frame.collect(), want_all, f"{engine} {screen}")
+    _assert_result(frame.screen().collect(), want_kept, f"{engine} {screen} kept")
+    if engine == "files":
+        names = sorted(os.listdir(cfg["spill_dir"]))
+        assert "bucket_counts.npy" in names
+        assert "chunk_00000.npz" in names
+
+
+def test_fused_duration_engines_match_reference(engine_cohort):
+    cfg = dict(screen="fused", threshold=2, n_buckets_log2=12,
+               budget_bytes=48 << 10, fuse_duration=True)
+    want = JSession(JConfig(**cfg)).fit(engine_cohort).screen().collect()
+    for engine in ("batch", "chunked", "files"):
+        got = MiningSession(MiningConfig(engine=engine, **cfg),
+                            device="cpu").fit(port_db(engine_cohort))
+        _assert_result(got.screen().collect(), want, engine)
+
+
+def test_files_engine_cleans_tmp_spill(tmp_path, monkeypatch):
+    import tempfile as tf
+
+    monkeypatch.setattr(tf, "tempdir", str(tmp_path))
+    db = port_db(random_dbmart(np.random.default_rng(5), n_patients=6,
+                               max_events=10))
+    MiningSession(MiningConfig(engine="files", threshold=1), device="cpu").fit(db)
+    assert not [d for d in os.listdir(tmp_path) if d.startswith("tspm_spill_")]
+    keep = tmp_path / "keep"
+    MiningSession(MiningConfig(engine="files", threshold=1, spill_dir=str(keep)),
+                  device="cpu").fit(db)
+    assert (keep / "bucket_counts.npy").exists()
 
 
 def test_cuda_device_without_a_card_raises():
@@ -249,7 +345,8 @@ _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|repro)(?:\.|\s|$)", re.M)
 def test_port_imports_neither_jax_nor_reference():
     code = ("import sys, repro_torch.api, repro_torch.core.msmr, "
             "repro_torch.core.postcovid, repro_torch.core.queries, "
-            "repro_torch.kernels._build; "
+            "repro_torch.core.chunking, repro_torch.analysis.roofline, "
+            "repro_torch.kernels.tspm_fused.ops, repro_torch.kernels._build; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "assert not bad, bad")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
