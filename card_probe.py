@@ -1,0 +1,304 @@
+"""Measurements of the PyTorch/CUDA port on one NVIDIA GPU that the smoke
+test (``chip_smoke.py``) does not take.
+
+Run from the root of a checkout, with one visible CUDA device:
+
+    python3 card_probe.py [idle] [share] [price] [scratch]
+
+(all four when none is named).  Each prints one JSON line:
+
+  idle   the device's idle share on the streaming path at the paper's
+         Table 1 cohort: a ``torch.profiler`` trace (CUDA activity only) of
+         the stream fit and of the 8-wave replay, the union of the device's
+         kernel, copy and memset intervals against the host wall of the run,
+         with device seconds by category and the ten longest kernels;
+  share  the split of a chunk's card budget between the slab and the scratch
+         of one piece (``chunking.CARD_SCRATCH_SHARE``) at the Table 2
+         cohort and a 4 GiB budget: chunks, piece launches, peak device
+         memory, the device passes of every chunk (mine, hash counts,
+         compaction, ended by a synchronize) and the whole ``fit``;
+  price  each chunked fit's peak device memory against the priciest
+         chunk's price (``ChunkPlan.chunk_bytes``) and the budget, at several
+         budgets, with each pass's peak over that chunk run alone;
+  scratch the device bytes each pass of a chunk takes beyond what it is
+         given, at pieces of 1 to 64 Table 1 patient rows: the mine (per
+         slot of the chunk), the hash counts, the compaction and the
+         survivors' screen (per slot of the piece), with a line fitted
+         through them (bytes = fixed + per_slot * slots).
+
+The last line is ``nvidia-smi``'s name and power limit of the card.
+"""
+from __future__ import annotations
+
+import json
+import os
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+import chip_smoke as smoke
+
+SHARES = (0.25, 0.5, 0.125, 0.0625)     # visited forward, then backward
+PRICE_BUDGETS = (64 << 20, 128 << 20, 512 << 20, 1 << 30, 4 << 30)
+
+
+def device_intervals(trace_path: str) -> dict:
+    """Device activity of a Chrome trace: (start, end) microseconds of each
+    kernel, memcpy and memset, by category, plus kernel time by name."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    spans, by_cat, by_kernel = [], {}, {}
+    for e in events:
+        cat = e.get("cat", "")
+        if e.get("ph") != "X" or cat not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        ts, dur = float(e["ts"]), float(e.get("dur", 0.0))
+        spans.append((ts, ts + dur))
+        key = e["name"] if cat == "gpu_memcpy" else cat
+        by_cat[key] = by_cat.get(key, 0.0) + dur
+        if cat == "kernel":
+            by_kernel[e["name"]] = by_kernel.get(e["name"], 0.0) + dur
+    return {"spans": spans, "by_cat": by_cat, "by_kernel": by_kernel}
+
+
+def union_us(spans: list) -> float:
+    busy, end = 0.0, -np.inf
+    for a, b in sorted(spans):
+        if b <= end:
+            continue
+        busy += b - max(a, end)
+        end = b
+    return busy
+
+
+def profiled_stream(torch, db, waves):
+    """One stream run through the entry points under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import MiningConfig, MiningSession
+
+    session = MiningSession(MiningConfig(engine="stream", threshold=smoke.THRESHOLD,
+                                         screen="hash"), device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        frame = session.fit(db) if waves is None else \
+            smoke.replay_waves(db, session, waves)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = len(frame)
+    del frame, session
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        dev = device_intervals(path)
+    busy = union_us(dev["spans"]) / 1e6
+    top = sorted(dev["by_kernel"].items(), key=lambda kv: -kv[1])[:10]
+    return {"wall_s": wall, "rows": rows, "device_events": len(dev["spans"]),
+            "device_busy_s": busy,
+            "idle_share": (1.0 - busy / wall) if dev["spans"] else None,
+            "device_s_by_category": {k: v / 1e6 for k, v in dev["by_cat"].items()},
+            "top_kernels_s": [[k, v / 1e6] for k, v in top]}
+
+
+def probe_idle(torch) -> dict:
+    db = smoke.make_cohort()
+    out = {"fit": profiled_stream(torch, db, None)}
+    torch.cuda.empty_cache()
+    out["replay"] = profiled_stream(torch, db, smoke.STREAM_WAVES)
+    torch.cuda.empty_cache()
+    return out
+
+
+def device_passes(torch, db, plan, H: int) -> float:
+    """Seconds of every chunk's mine, hash counts and compaction on the
+    card, without the copy to the host, ended by a synchronize."""
+    from repro_torch.core import chunking
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for ch in plan.chunks:
+        mined = chunking._mine_chunk(db, ch, "cuda", "bit", "auto", False, 30)
+        chunking._counts(mined, ch, plan, H)
+        for piece in chunking.real_pieces(mined, ch, plan):
+            del piece
+        del mined
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def probe_share(torch) -> dict:
+    from repro_torch.core import chunking
+
+    db = smoke.make_cohort(smoke.TABLE2_PATIENTS, smoke.TABLE2_EVENTS)
+    H, budget = smoke.H_DEFAULT, smoke.BUDGET_BYTES
+    default = chunking.CARD_SCRATCH_SHARE
+    out = {}
+    try:
+        for share in SHARES + SHARES[::-1]:
+            chunking.CARD_SCRATCH_SHARE = share
+            plan = chunking.plan_card_chunks(db.nevents, budget, H)
+            r = out.setdefault(str(share), {"chunks": len(plan.chunks),
+                                            "piece_slots": plan.piece_slots,
+                                            "passes_s": [], "fit_s": []})
+            r["passes_s"].append(device_passes(torch, db, plan, H))
+            if len(r["fit_s"]) == 0:
+                fit = smoke.fit_engine(torch, db, "cuda", engine="chunked", screen="hash",
+                                       threshold=smoke.THRESHOLD, budget_bytes=budget)
+                r["fit_s"].append(fit["fit_s"])
+                r.update(launches=fit["launches"],
+                         peak_device_bytes=fit["peak_device_bytes"])
+                del fit
+            torch.cuda.empty_cache()
+    finally:
+        chunking.CARD_SCRATCH_SHARE = default
+    return out
+
+
+def chunk_passes(torch, db, plan, H: int) -> dict:
+    """Peak device bytes of each pass over the priciest chunk of ``plan``,
+    above an empty cache holding one merged [2^H] table, in the order
+    ``chunking.mine_chunked`` and ``mine_fused`` run them."""
+    from repro_torch.core import chunking, sparsity
+
+    ch = max(plan.chunks, key=plan.chunk_bytes)
+    e = ch.max_events
+    torch.cuda.empty_cache()
+    merged = torch.zeros(1 << H, dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    peaks = {}
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() - base
+        return out
+
+    mined = run("mine", lambda: chunking._mine_chunk(db, ch, "cuda", "bit", "auto",
+                                                     False, 30))
+    held = torch.cuda.memory_allocated() - base
+    c = run("counts", lambda: chunking._counts(mined, ch, plan, H))
+    merged = sparsity.merge_bucket_counts(merged, c)
+    del c
+
+    def compaction():
+        for part in chunking.host_rows(mined, ch, plan):
+            del part
+
+    def survivors():
+        for seq, dur, pat in chunking.real_pieces(mined, ch, plan):
+            sparsity.screen_survivors(seq, dur, pat, merged, smoke.THRESHOLD, H,
+                                      mask=torch.ones_like(seq, dtype=torch.bool))
+            del seq, dur, pat
+
+    run("compaction", compaction)
+    run("survivors", survivors)
+    del mined, merged
+    torch.cuda.empty_cache()
+    return {"patients": ch.n_patients, "E": e, "piece_rows": plan.piece_rows(ch),
+            "slab_and_planes_bytes": held,
+            "slab_and_planes_price": ch.n_patients * (e * e * chunking.CARD_SLAB_BYTES
+                                                      + 8 * e + 4),
+            "piece_scratch_price": plan.piece_rows(ch) * e * e
+            * chunking.CARD_SCRATCH_BYTES,
+            "chunk_price": plan.chunk_bytes(ch), "peaks": peaks}
+
+
+def probe_price(torch) -> dict:
+    from repro_torch.core import chunking
+
+    out = {}
+    db = smoke.make_cohort()
+    for budget in PRICE_BUDGETS:
+        plan = chunking.plan_card_chunks(db.nevents, budget, smoke.H_DEFAULT)
+        priced = max(plan.chunk_bytes(ch) for ch in plan.chunks)
+        out[f"{budget >> 20}MiB/passes"] = chunk_passes(torch, db, plan, smoke.H_DEFAULT)
+        for screen in ("hash", "fused"):
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            fit = smoke.fit_engine(torch, db, "cuda", engine="chunked", screen=screen,
+                                   threshold=smoke.THRESHOLD, budget_bytes=budget)
+            peak = fit["peak_device_bytes"] - base
+            out[f"{budget >> 20}MiB/{screen}"] = {
+                "chunks": len(plan.chunks), "peak_bytes": peak,
+                "priced_bytes": priced,
+                "under_price": priced - peak, "under_budget": budget - peak,
+                "fit_s": fit["fit_s"]}
+            del fit
+    return out
+
+
+def peak_over(torch, fn):
+    """(result, device bytes ``fn`` allocated above what was live before)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def probe_scratch(torch) -> dict:
+    from repro_torch.core import chunking, sparsity
+
+    db = smoke.make_cohort()
+    H, rows = 10, (1, 4, 16, 64)       # [2^10] tables: 4 KiB, out of the way
+    ch = chunking.Chunk(0, max(rows), int(db.max_events))
+    T = ch.max_events ** 2
+    torch.cuda.empty_cache()
+    mined, mine_b = peak_over(torch, lambda: chunking._mine_chunk(
+        db, ch, "cuda", "bit", "auto", False, 30))
+    counts = sparsity.local_bucket_counts(mined.seq, mined.mask, H)
+    out = {"E": ch.max_events, "mine_bytes_per_chunk_slot": mine_b / (ch.n_patients * T),
+           "pieces": {}}
+    for r in rows:
+        piece = chunking._piece(mined, 0, r)
+        _, counts_b = peak_over(torch, lambda: sparsity.local_bucket_counts(
+            piece.seq, piece.mask, H, block_elements=r * T))
+        real, compact_b = peak_over(torch, lambda: chunking.real_rows(piece))
+        _, surv_b = peak_over(torch, lambda: sparsity.screen_survivors(
+            *real, counts, smoke.THRESHOLD, H,
+            mask=torch.ones_like(real[0], dtype=torch.bool)))
+        out["pieces"][r] = {"slots": r * T, "real_rows": int(real[0].numel()),
+                            "counts_bytes": counts_b, "compaction_bytes": compact_b,
+                            "survivors_bytes": surv_b}
+        del real, piece
+    slots = np.array([v["slots"] for v in out["pieces"].values()], float)
+    for k in ("counts_bytes", "compaction_bytes", "survivors_bytes"):
+        b = np.array([v[k] for v in out["pieces"].values()], float)
+        per_slot, fixed = np.polyfit(slots, b, 1)
+        out[k.replace("_bytes", "_fit")] = {"per_slot": per_slot, "fixed": fixed}
+    del mined, counts
+    torch.cuda.empty_cache()
+    return out
+
+
+def main(argv: list[str]) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("card_probe: no CUDA device is visible", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(smoke.SRC))
+    from repro_torch.kernels import _build
+
+    _build.build_all()
+    probes = {"idle": probe_idle, "share": probe_share, "price": probe_price,
+              "scratch": probe_scratch}
+    for name in argv or list(probes):
+        t0 = time.perf_counter()
+        result = probes[name](torch)
+        print(json.dumps({"probe": name, "seconds": time.perf_counter() - t0,
+                          "result": result}), flush=True)
+    print(f"nvidia-smi: {smoke.smi()}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

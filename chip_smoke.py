@@ -16,7 +16,11 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with
      duration; H = 1..24 with SENTINEL ids present); ``tspm_fused`` against
      ``fused_table_ref`` and ``block_bucket_counts`` for both codecs at
      H = 1/8/12/15/16/20/24, including a one-code cohort whose ids collide
-     everywhere;
+     everywhere; ``tspm_delta`` against ``delta_mine_torch`` for both codecs
+     with and without the fused duration (P/E/D = 0, E and D at
+     127/128/129, rows with no delta, an empty delta window, a single-event
+     history, a history at full plane capacity), and the identity "pairs
+     before the delta + the delta slab = the full mine";
   4. drives the main path — ``MiningSession(...).fit(db)`` then
      ``frame.screen().collect()`` — on the paper's Table 1 cohort (4,985
      patients at ~471 events, first-occurrence filter) with
@@ -26,11 +30,15 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with
      against the distinct (patient, id) pairs, and that the exact screen's
      kept set lies inside the hash screen's;
      then runs the ``chunked`` and ``files`` engines on the same cohort at
-     one ``budget_bytes`` and requires the same rows in the same order and
-     the same bucket table (no host sort: both visit the same chunks);
+     one ``budget_bytes``, and the ``chunked`` engine again at 512 MiB, and
+     requires the same rows in the same order, the same bucket table (no
+     host sort: rows come in patient order) and each fit's peak device
+     memory within its ``budget_bytes``;
   5. holds the session on the card against the session on the CPU (plain
      versions) on the first 256 patients, byte for byte, for every engine
-     (batch, chunked, files) under every screen (sorted, hash, fused);
+     (batch, chunked, files) under every screen (sorted, hash, fused), and
+     for a 3-wave stream replay under a budget that evicts through the
+     host and disk tiers (same rows, table and tier placement);
   6. times each kernel at the main path's full-size shapes with CUDA
      events, beside its bound, its plain version and a library call, times
      the histogram's shared-memory and global-atomics paths against each
@@ -41,8 +49,18 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with
      and ``MiningSession(screen='fused')`` at the same ``budget_bytes``,
      and requires the fused table to equal the chunked engine's merged
      table, the fused survivors to equal the chunked rows that the table
-     keeps, in the same order, and the corpus-free counting pass alone to
-     peak under 1 GB of device memory; it times ``tspm_fused`` there.
+     keeps, in the same order, both fits to peak within ``budget_bytes``,
+     and the corpus-free counting pass alone to peak under 1 GB of device
+     memory; it times ``tspm_fused`` there;
+  8. drives the streaming path at Table 1 (between phases 6 and 7): the
+     stream fit, an 8-wave replay through ``session.submit``/``run``, the
+     same replay of the cohort's first 1,248 patients under a 1 GiB budget
+     (eviction, host-tier restores) and the fused screen on the stream
+     engine, each with the launch counts zeroed just before and read just
+     after (``tspm_delta`` launches = ticks); the sketch table must equal
+     the batch engine's and the rows the batch rows as multisets (sorted on
+     the card), the evicting replay the plain replay's rows of its patients
+     row for row; and times ``tspm_delta`` at the fit's largest slab.
 
 Every failed check raises, so the script exits non-zero.  The last three
 lines of its output are the ``nvidia-smi`` line, the ``kernels`` JSON line
@@ -67,7 +85,16 @@ TABLE2_PATIENTS, TABLE2_EVENTS = 35000, 318   # the paper's Table 2 cohort
 THRESHOLD = 5
 H_DEFAULT = 20                 # MiningConfig.n_buckets_log2
 BUDGET_BYTES = 4 << 30         # budget_bytes of the chunked/files/fused runs
+SMALL_BUDGET_BYTES = 512 << 20  # ... of a second chunked run (many small chunks)
 CHECK_BUDGET_BYTES = 64 << 20  # ... of the card-vs-CPU runs (several chunks)
+CHECK_DISK_BYTES = 32 << 20    # disk_bytes of the card-vs-CPU stream run
+STREAM_WAVES = 8               # deltas a patient in the replays of phase 8
+STREAM_BUDGET_BYTES = 1 << 30  # budget_bytes of phase 8's evicting replay
+# patients of the evicting replay (the cohort's first quarter, 78 ticks a
+# wave): 1 GiB of the store's cost model holds ~445 whole Table 1 histories
+# (padded to 304 events, 2.4 MB each), so the replay still spills and
+# restores through the host tier
+STREAM_BUDGET_PATIENTS = 1248
 FUSED_PASS_LIMIT = 10**9       # the corpus-free counting pass's peak (1 GB)
 CHECK_PATIENTS = 256
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
@@ -190,6 +217,82 @@ def check_fused_kernel(torch, dev) -> tuple[float, int]:
     return err, n
 
 
+def delta_edge_cases():
+    """(phenx, date, n_old, n_new, new_phenx, new_date) at the cases of
+    tests/test_kernels_delta.py: P/E/D = 0, E and D at 127/128/129, rows
+    with no delta, an empty delta window, a single-event history and a
+    history at full plane capacity."""
+    rng = np.random.default_rng(3)
+
+    def draw(P, E, D):
+        phenx = rng.integers(0, 9, (P, E)).astype(np.int32)      # duplicate codes
+        date = np.sort(rng.integers(-40, 400, (P, E)), axis=1).astype(np.int32)
+        new_ph = rng.integers(0, 9, (P, D)).astype(np.int32)
+        new_dt = np.sort(rng.integers(400, 900, (P, D)), axis=1).astype(np.int32)
+        return phenx, date, new_ph, new_dt
+
+    for P, E, D in [(0, 8, 8), (3, 0, 4), (3, 8, 0)]:
+        phenx, date, new_ph, new_dt = draw(P, E, D)
+        yield phenx, date, np.zeros(P, np.int32), np.zeros(P, np.int32), new_ph, new_dt
+    for P, E, D in [(3, 16, 8), (2, 127, 129), (2, 128, 128), (3, 129, 127),
+                    (2, 127, 127), (2, 129, 129)]:
+        phenx, date, new_ph, new_dt = draw(P, E, D)
+        n_old = rng.integers(0, E + 1, P).astype(np.int32)
+        n_new = rng.integers(0, D + 1, P).astype(np.int32)
+        n_new[1] = 0                                            # a row with no delta
+        yield phenx, date, n_old, n_new, new_ph, new_dt
+    phenx, date, new_ph, new_dt = draw(4, 16, 4)
+    yield phenx, date, np.full(4, 16, np.int32), np.zeros(4, np.int32), new_ph, new_dt
+    phenx, date, new_ph, new_dt = draw(3, 8, 5)                  # single-event history
+    yield phenx, date, np.array([1, 1, 0], np.int32), np.array([5, 1, 2], np.int32), \
+        new_ph, new_dt
+    phenx, date, _, _ = draw(3, 16, 4)                           # planes exactly full
+    yield phenx, date, np.full(3, 12, np.int32), np.full(3, 4, np.int32), \
+        phenx[:, 12:].copy(), date[:, 12:].copy()
+
+
+def check_delta_kernel(torch, dev) -> tuple[float, int]:
+    """Phase 3 for ``tspm_delta``: the kernel against ``delta_mine_torch``
+    on the card, byte for byte, and the streaming identity: the pairs
+    before a delta plus the delta slab are the full ``mine_dense``."""
+    from repro_torch.core import encoding, mining
+    from repro_torch.kernels.tspm_delta import ops as delta_ops
+    from repro_torch.stream import delta as stream_delta
+
+    err, n = 0.0, 0
+    for case in delta_edge_cases():
+        cuda = [torch.from_numpy(a).to(dev) for a in case]
+        for codec in encoding.CODECS:
+            for fuse in (False, True):
+                got = delta_ops.delta_pairgen(*cuda, codec=codec, fuse_duration=fuse)
+                want = stream_delta.delta_mine_torch(*cuda, codec, fuse, 30)
+                err = max(err, max_abs_err(torch, got, want))
+                n += 1
+    phenx, date, nevents = random_cohort(np.random.default_rng(4), 6, 40, 9)
+    n_old = (nevents * 0.4).astype(np.int32)
+    n_new = nevents - n_old
+    D = int(n_new.max())
+    new_ph = np.zeros((6, D), np.int32)
+    new_dt = np.zeros((6, D), np.int32)
+    for p in range(6):
+        new_ph[p, :n_new[p]] = phenx[p, n_old[p]:nevents[p]]
+        new_dt[p, :n_new[p]] = date[p, n_old[p]:nevents[p]]
+    x, d = torch.from_numpy(phenx).to(dev), torch.from_numpy(date).to(dev)
+
+    def rows(mined):
+        seq, dur, pat, msk = mining.flatten(mined)
+        return list(zip(*(a[msk].cpu().numpy().tolist() for a in (pat, seq, dur))))
+
+    old = rows(mining.mine(x, d, torch.from_numpy(n_old).to(dev)))
+    new = rows(delta_ops.delta_pairgen(x, d, *(torch.from_numpy(a).to(dev) for a in
+                                               (n_old, n_new, new_ph, new_dt))))
+    full = rows(mining.mine(x, d, torch.from_numpy(nevents).to(dev)))
+    require(new and sorted(old + new) == sorted(full),
+            "pairs before the delta + the delta slab != the full mine_dense")
+    n += 1
+    return err, n
+
+
 def check_kernels(torch, dev) -> dict:
     """Phase 3: every kernel against its plain version on the card."""
     from repro_torch.core import encoding, sparsity
@@ -235,6 +338,8 @@ def check_kernels(torch, dev) -> dict:
     require(empty.shape == (16,) and int(empty.sum()) == 0, "empty histogram")
     err["tspm_fused"], n_fused = check_fused_kernel(torch, dev)
     n += n_fused
+    err["tspm_delta"], n_delta = check_delta_kernel(torch, dev)
+    n += n_delta
     torch.cuda.synchronize()
     print(f"phase 3: {n} kernel comparisons byte-identical", flush=True)
     return err
@@ -261,11 +366,13 @@ def distinct_pairs(seq: np.ndarray, patient: np.ndarray) -> int:
 def launch_counters() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from repro_torch.kernels.seq_hist import ops as hist_ops
+    from repro_torch.kernels.tspm_delta import ops as delta_ops
     from repro_torch.kernels.tspm_fused import ops as fused_ops
     from repro_torch.kernels.tspm_pairgen import ops as pg_ops
 
     return {"tspm_pairgen": pg_ops.pairgen, "seq_hist": hist_ops.hist,
-            "tspm_fused": fused_ops.fused_bucket_counts}
+            "tspm_fused": fused_ops.fused_bucket_counts,
+            "tspm_delta": delta_ops.delta_pairgen}
 
 
 def zero_launches() -> None:
@@ -373,15 +480,53 @@ def check_card_vs_cpu(torch, db, device) -> dict:
                     require(g.dtype == w.dtype and g.tobytes() == w.tobytes(),
                             f"{engine}/{screen}: card and CPU frames differ")
             rows[f"{engine}/{screen}"] = len(frames[0])
+    rows["stream/hash"] = check_stream_card_vs_cpu(small, device)
     print(f"phase 5: card == CPU on {CHECK_PATIENTS} patients, every engine and "
           f"screen ({json.dumps(rows)})", flush=True)
     return {"patients": CHECK_PATIENTS, "rows": rows}
 
 
+def check_stream_card_vs_cpu(db, device) -> dict:
+    """Phase 5 for the stream engine: a 3-wave replay through
+    ``session.submit``/``run`` under a budget that evicts, with the disk
+    tier on (its codec and blockstore under the card's store); the card
+    and the CPU give the same rows, table and tier placement."""
+    import tempfile
+
+    from repro_torch.api import MiningConfig, MiningSession
+
+    with tempfile.TemporaryDirectory(prefix="tspm_disk_") as tmp:
+        sessions = []
+        for d in (device, "cpu"):
+            cfg = MiningConfig(screen="hash", threshold=THRESHOLD,
+                               budget_bytes=CHECK_BUDGET_BYTES,
+                               disk_bytes=CHECK_DISK_BYTES,
+                               disk_dir=os.path.join(tmp, str(d).replace(":", "")))
+            session = MiningSession(cfg, device=d)
+            replay_waves(db, session, 3)
+            sessions.append(session)
+        (card, cpu), tiers = sessions, []
+        for f in (lambda fr: engine_rows(fr), lambda fr: fr.screen().collect()):
+            for g, w in zip(f(card.frame()), f(cpu.frame())):
+                require(g.dtype == w.dtype and g.tobytes() == w.tobytes(),
+                        "stream: card and CPU frames differ")
+        require(np.array_equal(card.frame()._corpus.counts(), cpu.frame()._corpus.counts()),
+                "stream: card and CPU tables differ")
+        for session in sessions:
+            store = session.service.store
+            tiers.append({k: store.tier_of(k) for k in store.pids})
+        require(tiers[0] == tiers[1], "stream: card and CPU tier placement differ")
+        placed = {t: list(tiers[0].values()).count(t) for t in ("device", "host", "disk")}
+        require(placed["host"] and placed["disk"], f"stream: tiers not all used {placed}")
+        return {"rows": len(card.frame()), "placement": placed}
+
+
 def check_files_vs_chunked(torch, db, device) -> dict:
     """Phase 4b: the files and chunked engines at one budget visit the same
     chunks, so their rows agree in order, with the same bucket table; the
-    spill goes to a temporary directory that the session removes."""
+    spill goes to a temporary directory that the session removes.  The
+    chunked engine at a smaller budget (more, smaller chunks) gives the
+    same rows in the same order.  Every fit peaks within its budget."""
     import tempfile
 
     def spills():
@@ -389,24 +534,30 @@ def check_files_vs_chunked(torch, db, device) -> dict:
 
     before = spills()
     runs, out = {}, {}
-    for engine in ("chunked", "files"):
+    for name, engine, budget in (("chunked", "chunked", BUDGET_BYTES),
+                                 ("files", "files", BUDGET_BYTES),
+                                 ("chunked_small", "chunked", SMALL_BUDGET_BYTES)):
         r = fit_engine(torch, db, device, engine=engine, screen="hash",
-                       threshold=THRESHOLD, budget_bytes=BUDGET_BYTES)
+                       threshold=THRESHOLD, budget_bytes=budget)
         require(r["launches"]["tspm_pairgen"] > 0 and r["launches"]["seq_hist"] > 0,
-                f"{engine}: a kernel of the path never launched")
-        runs[engine] = r
-        out[engine] = {"fit_s": r["fit_s"], "launches": r["launches"],
-                       "n_chunks": r["plan"].n_chunks, "rows": len(r["frame"]),
-                       "peak_device_bytes": r["peak_device_bytes"]}
-        print(f"phase 4b ({engine}): {json.dumps(out[engine])}", flush=True)
+                f"{name}: a kernel of the path never launched")
+        runs[name] = r
+        out[name] = {"fit_s": r["fit_s"], "launches": r["launches"],
+                     "n_chunks": r["plan"].n_chunks, "rows": len(r["frame"]),
+                     "peak_device_bytes": r["peak_device_bytes"], "budget_bytes": budget}
+        print(f"phase 4b ({name}): {json.dumps(out[name])}", flush=True)
+        require(r["peak_device_bytes"] <= budget,
+                f"{name}: peak {r['peak_device_bytes']} B > budget_bytes {budget}")
     require(spills() == before, "the files engine left its spill directory behind")
-    c, f = runs["chunked"]["frame"], runs["files"]["frame"]
+    c = runs["chunked"]["frame"]
     require(runs["files"]["plan"].n_chunks > 1, "files: the budget gave one chunk")
-    for name, a, b in zip(("seq", "dur", "patient"), engine_rows(c), engine_rows(f)):
-        require(a.dtype == b.dtype and np.array_equal(a, b),
-                f"files and chunked rows differ in {name}")
-    require(np.array_equal(c._corpus.counts(), f._corpus.counts()),
-            "files and chunked bucket tables differ")
+    for other in ("files", "chunked_small"):
+        f = runs[other]["frame"]
+        for col, a, b in zip(("seq", "dur", "patient"), engine_rows(c), engine_rows(f)):
+            require(a.dtype == b.dtype and np.array_equal(a, b),
+                    f"{other} and chunked rows differ in {col}")
+        require(np.array_equal(c._corpus.counts(), f._corpus.counts()),
+                f"{other} and chunked bucket tables differ")
     out["budget_bytes"] = BUDGET_BYTES
     return out
 
@@ -450,6 +601,8 @@ def check_table2(torch, db, device) -> dict:
                       "peak_device_bytes": ch["peak_device_bytes"],
                       "launches": ch["launches"]}
     print(f"phase 7 (chunked, hash): {json.dumps(out['chunked'])}", flush=True)
+    require(ch["peak_device_bytes"] <= BUDGET_BYTES,
+            f"chunked: peak {ch['peak_device_bytes']} B > budget_bytes {BUDGET_BYTES}")
 
     fu = fit_engine(torch, db, device, screen="fused", threshold=THRESHOLD,
                     budget_bytes=BUDGET_BYTES)
@@ -464,12 +617,15 @@ def check_table2(torch, db, device) -> dict:
     for name, a, b in zip(("seq", "dur", "patient"), f_rows, c_rows):
         require(a.dtype == b.dtype and np.array_equal(a, b if whole else b[keep]),
                 f"fused survivors differ from the chunked kept rows in {name}")
-    out["fused"] = {"engine": fu["plan"].engine, "fit_s": fu["fit_s"],
-                    "rows": len(f_rows[0]), "kept_rows": len(f_rows[0]),
+    out["fused"] = {"engine": fu["plan"].engine, "n_chunks": fu["plan"].n_chunks,
+                    "fit_s": fu["fit_s"], "rows": len(f_rows[0]),
+                    "kept_rows": len(f_rows[0]),
                     "peak_device_bytes": fu["peak_device_bytes"],
                     "launches": fu["launches"]}
     out["table_sum"] = int(c_counts.astype(np.int64).sum())
     print(f"phase 7 (fused): {json.dumps(out['fused'])}", flush=True)
+    require(fu["peak_device_bytes"] <= BUDGET_BYTES,
+            f"fused: peak {fu['peak_device_bytes']} B > budget_bytes {BUDGET_BYTES}")
     launches = fu["launches"]
     del ch, fu, c_rows, f_rows, keep
 
@@ -494,6 +650,182 @@ def check_table2(torch, db, device) -> dict:
     del args, counts
     torch.cuda.empty_cache()
     return out, launches
+
+
+def wave_cuts(db, n_waves: int, seed: int = 0) -> list:
+    """Each patient's history cut into ~``n_waves`` chronological deltas,
+    as the reference's ``launch/stream.replay_waves`` cuts it (copied: the
+    launcher is not ported)."""
+    rng = np.random.default_rng(seed)
+    cuts = []
+    for p in range(db.n_patients):
+        n = int(db.nevents[p])
+        k = min(n_waves, max(n, 1))
+        edges = (np.sort(rng.choice(np.arange(1, n), size=k - 1, replace=False))
+                 if n > 1 and k > 1 else np.zeros(0, np.int64))
+        cuts.append(np.concatenate([[0], edges, [n]]).astype(np.int64))
+    return cuts
+
+
+def replay_waves(db, session, n_waves: int, seed: int = 0):
+    """Submit the deltas wave after wave (wave-major, as encounters
+    arrive), draining the queue with ``session.run()`` after each wave;
+    returns the live frame."""
+    cuts = wave_cuts(db, n_waves, seed)
+    for w in range(n_waves):
+        for p in range(db.n_patients):
+            c = cuts[p]
+            if w + 1 < len(c) and c[w] < c[w + 1]:
+                lo, hi = int(c[w]), int(c[w + 1])
+                session.submit(p, db.date[p, lo:hi], db.phenx[p, lo:hi])
+        session.run()
+    return session.frame()
+
+
+def run_stream(torch, db, device, waves: int | None = None, **config):
+    """One stream-engine run through the entry points (``fit``, or a wave
+    replay through ``submit``/``run``) with telemetry on, the launch
+    counts zeroed just before and read just after; returns the frame and
+    what the run measured."""
+    from repro_torch.api import MiningConfig, MiningSession
+
+    session = MiningSession(MiningConfig(engine="stream", threshold=THRESHOLD,
+                                         telemetry=True, **config), device=device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    frame = session.fit(db) if waves is None else replay_waves(db, session, waves)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    m = session.metrics()
+    out = {"wall_s": wall, "ticks": m["stream.ticks"], "launches": launches,
+           "dispatch_s": m["stream.tick.dispatch_s"]["sum"],
+           "device_s": m["stream.tick.device_s"]["sum"],
+           "collect_s": m["stream.tick.collect_s"]["sum"],
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "seqset_columns": m["sketch.set_columns"],
+           "evictions": m["store.evictions"],
+           "host_restores": m.get("storage.restores{tier=host}", 0),
+           "jit.retraces": m["jit.retraces"], "rows": len(frame)}
+    require(launches["tspm_delta"] == out["ticks"] > 0,
+            f"tspm_delta launched {launches['tspm_delta']} times in {out['ticks']} ticks")
+    require(launches["seq_hist"] >= out["ticks"], "the sketch fold skipped seq_hist")
+    return frame, out
+
+
+def card_sorted(torch, rows, device):
+    """(seq, dur, patient) rows sorted on the card by (seq, patient, dur)."""
+    from repro_torch.core import sparsity
+
+    seq, dur, pat = (torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in rows)
+    order = sparsity.stable_order(seq, pat, dur)
+    return seq[order], dur[order], pat[order]
+
+
+def require_same_multiset(torch, got_rows, want_sorted, device, what: str) -> None:
+    got = card_sorted(torch, got_rows, device)
+    require(all(torch.equal(g, w) for g, w in zip(got, want_sorted)),
+            f"{what}: rows differ from the batch rows as multisets")
+
+
+def check_stream(torch, db, device) -> tuple[dict, dict]:
+    """Phase 8: the streaming path at Table 1 on the card — (a) the stream
+    fit, (b) an 8-wave replay, (c) the same replay of the first
+    ``STREAM_BUDGET_PATIENTS`` patients under a 1 GiB budget
+    (eviction and restores through the host tier), (d) the fused screen
+    on the stream engine; every check on the card, no host sort."""
+    batch = fit_engine(torch, db, device, engine="batch", screen="hash",
+                       threshold=THRESHOLD)
+    b_rows, b_table = engine_rows(batch["frame"]), batch["frame"]._corpus.counts()
+    del batch
+    want = card_sorted(torch, b_rows, device)
+    out = {}
+
+    fa, out["a_fit"] = run_stream(torch, db, device, screen="hash")
+    require(np.array_equal(fa._corpus.counts(), b_table),
+            "stream sketch table != the batch engine's local_bucket_counts")
+    require_same_multiset(torch, engine_rows(fa), want, device, "stream fit")
+    print(f"phase 8 (a, fit): {json.dumps(out['a_fit'])}", flush=True)
+    launches = out["a_fit"]["launches"]
+    del fa
+
+    fb, out["b_waves"] = run_stream(torch, db, device, waves=STREAM_WAVES, screen="hash")
+    rows_b = engine_rows(fb)
+    require(np.array_equal(fb._corpus.counts(), b_table), "8-wave table != batch table")
+    require_same_multiset(torch, rows_b, want, device, "8-wave replay")
+    print(f"phase 8 (b, {STREAM_WAVES} waves): {json.dumps(out['b_waves'])}", flush=True)
+
+    # (c) on the first STREAM_BUDGET_PATIENTS patients: the same wave cuts
+    # (wave_cuts draws patient after patient), and each wave's ticks take
+    # the queue in patient order, so its rows are (b)'s rows of those
+    # patients, in (b)'s order
+    n_c = STREAM_BUDGET_PATIENTS
+    sub = db.slice_patients(0, n_c)
+    fc, out["c_budget"] = run_stream(torch, sub, device, waves=STREAM_WAVES, screen="hash",
+                                     budget_bytes=STREAM_BUDGET_BYTES)
+    out["c_budget"].update(budget_bytes=STREAM_BUDGET_BYTES, patients=n_c)
+    print(f"phase 8 (c, {STREAM_WAVES} waves, {n_c} patients, budget): "
+          f"{json.dumps(out['c_budget'])}", flush=True)
+    mine_c = rows_b[2] < n_c
+    for name, a, b in zip(("seq", "dur", "patient"), engine_rows(fc), rows_b):
+        require(a.dtype == b.dtype and np.array_equal(a, b[mine_c]),
+                f"evicting replay differs from the replay in {name}")
+    sub_batch = fit_engine(torch, sub, device, engine="batch", screen="hash",
+                           threshold=THRESHOLD)
+    require(np.array_equal(fc._corpus.counts(), sub_batch["frame"]._corpus.counts()),
+            "evicting replay's table != the batch table of its patients")
+    require(out["c_budget"]["evictions"] > 0 and out["c_budget"]["host_restores"] > 0,
+            "the 1 GiB budget spilled or restored nothing")
+    del fb, fc, rows_b, mine_c, sub_batch
+
+    fd, out["d_fused"] = run_stream(torch, db, device, screen="fused")
+    keep = host_keep(torch, b_rows[0], b_table, device)
+    kept = want if keep.all() else card_sorted(torch, [a[keep] for a in b_rows], device)
+    require_same_multiset(torch, engine_rows(fd), kept, device, "stream fused survivors")
+    require(np.array_equal(fd._corpus.counts(), b_table), "stream fused table")
+    out["d_fused"]["kept_rows"] = int(keep.sum())
+    print(f"phase 8 (d, fused): {json.dumps(out['d_fused'])}", flush=True)
+    del fd, want, kept, b_rows
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def time_delta(torch, db, dev, err: dict) -> dict:
+    """``tspm_delta`` at the stream fit's largest slab: the 16 patients
+    with the longest histories admitted in one tick (B = 16, Ew = D = 512),
+    beside its bound (13 B of stores a slot plus the inputs read once)
+    and its plain version, with CUDA events.  The kernel is timed by its
+    launch alone into allocated outputs; the wrapper's time per call
+    (checks, three allocations, the launch) is printed beside it."""
+    from repro_torch.kernels.tspm_delta import ops as delta_ops
+    from repro_torch.stream import delta as stream_delta
+
+    top = np.argsort(-db.nevents, kind="stable")[:16]
+    n_new = db.nevents[top].astype(np.int32)
+    W = 512                                   # _pow2_bucket(301, 8)
+    new_ph = np.zeros((16, W), np.int32)
+    new_dt = np.zeros((16, W), np.int32)
+    for i, p in enumerate(top):
+        new_ph[i, :n_new[i]] = db.phenx[p, :n_new[i]]
+        new_dt[i, :n_new[i]] = db.date[p, :n_new[i]]
+    args = [torch.from_numpy(a).to(dev) for a in
+            (new_ph, new_dt, np.zeros(16, np.int32), n_new, new_ph, new_dt)]
+    got = delta_ops.delta_pairgen(*args)
+    err["tspm_delta"] = max(err["tspm_delta"], max_abs_err(
+        torch, got, stream_delta.delta_mine_torch(*args)))
+    outs = tuple(torch.empty_like(a) for a in got)
+    ms = cuda_ms(torch, lambda: delta_ops._launch(args, outs, 0, 0, 30), 200)
+    require(all(torch.equal(a, b) for a, b in zip(outs, got)), "tspm_delta launch alone")
+    wrapper = cuda_ms(torch, lambda: delta_ops.delta_pairgen(*args), 50)
+    plain = cuda_ms(torch, lambda: stream_delta.delta_mine_torch(*args), 10)
+    slots = 16 * W * W
+    bound = {"bytes": (slots * 13 + 4 * 16 * W * 4 + 2 * 16 * 4) / HBM_BYTES_PER_S * 1e3,
+             "operations": slots / INT_OPS_PER_S * 1e3}
+    del got, args, outs
+    return {"ms": ms, "wrapper_ms": wrapper, "plain_ms": plain, "bound": bound,
+            "shape": f"B=16 Ew={W} D={W} real={int(np.sum(n_new * (n_new - 1) // 2))}"}
 
 
 def hist_bound(n: int, counted: int, n_buckets: int) -> dict:
@@ -659,31 +991,54 @@ def main() -> int:
           f"({json.dumps(per_source)})", flush=True)
 
     dev = torch.device("cuda", 0)
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        """Seconds since the previous lap, kept under ``name``."""
+        now = time.perf_counter()
+        laps[name], t_lap[0] = now - t_lap[0], now
+
     err = check_kernels(torch, dev)
+    lap("3_kernel_checks")
     t0 = time.perf_counter()
     db = make_cohort()
     print(f"cohort: {db.n_patients} patients, E={db.max_events}, "
           f"{db.total_events} events, built in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    lap("table1_cohort")
     main_path = check_main_path(torch, db, dev)
+    lap("4_main_path")
     files_vs_chunked = check_files_vs_chunked(torch, db, dev)
+    lap("4b_chunked_files")
     card_vs_cpu = check_card_vs_cpu(torch, db, dev)
+    lap("5_card_vs_cpu")
     hist_paths, kernels = time_kernels(torch, db, dev, err,
                                        main_path["hash"]["launches"])
     fused_t1 = time_fused(torch, db, dev, err)
     phases = time_fit_phases(torch, db, dev)
+    lap("6_timing")
     phases.update(canonicalize_s=main_path["hash"]["canonicalize_s"],
                   fit_s=main_path["hash"]["fit_s"],
                   screen_collect_s=main_path["hash"]["screen_collect_s"])
+    stream, delta_launches = check_stream(torch, db, dev)
+    lap("8_stream")
+    delta_t = time_delta(torch, db, dev, err)
+    kernels.append(kernel_row(
+        "tspm_delta", "src/repro/kernels/tspm_delta/delta.py:32", delta_launches, err,
+        delta_t["ms"], delta_t["plain_ms"], delta_t["bound"], None, delta_t["shape"]))
+    kernels[-1]["wrapper_ms"] = delta_t["wrapper_ms"]
     del db
+    lap("6_delta_timing")
 
     t0 = time.perf_counter()
     db2 = make_cohort(TABLE2_PATIENTS, TABLE2_EVENTS)
     print(f"cohort: {db2.n_patients} patients, E={db2.max_events}, "
           f"{db2.total_events} events, built in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    lap("table2_cohort")
     table2, fused_launches = check_table2(torch, db2, dev)
     fused_t2 = time_fused(torch, db2, dev, err)
+    lap("7_table2")
     kernels.append(kernel_row(
         "tspm_fused", "src/repro/kernels/tspm_fused/fused.py:134", fused_launches,
         err, fused_t2["ms"], fused_t2["plain_ms"], fused_t2["bound"], None,
@@ -693,8 +1048,10 @@ def main() -> int:
                              "shape": fused_t1["shape"]}
     print(json.dumps({"fit_phases": phases, "main_path": main_path,
                       "files_vs_chunked": files_vs_chunked, "card_vs_cpu": card_vs_cpu,
-                      "seq_hist_paths": hist_paths, "table2": table2,
-                      "wall_s": time.perf_counter() - t_start}), flush=True)
+                      "seq_hist_paths": hist_paths, "table2": table2, "stream": stream,
+                      "phase_s": laps, "wall_s": time.perf_counter() - t_start}),
+          flush=True)
+    print(f"phase seconds: {json.dumps(laps)}", flush=True)
     print(f"nvidia-smi: {smi()}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -3,8 +3,10 @@
   * :class:`MiningConfig` — every knob in one frozen dataclass (codec,
     duration fusing, screen mode, backend, memory budget, ...);
   * :class:`MiningSession` — ``fit(dbmart)`` for batch input on a device
-    (the card by default), and ``plan()`` to inspect the engine the
-    planner picked;
+    (the card by default), ``submit(key, dates, phenx)`` / ``tick()`` /
+    ``run()`` for incremental input (the stream engine), ``metrics()`` /
+    ``trace()`` with ``telemetry=True``, and ``plan()`` to inspect the
+    engine the planner picked;
   * :class:`SequenceFrame` — the unified result: flat (seq, dur, patient)
     arrays in a canonical order with chainable, lazily-composed mask
     methods (``.screen``, ``.starts_with``, ``.transitive_ends_with``,

@@ -2,7 +2,8 @@
 
 The port accepts every knob of the reference's config, so a reference
 config carries over with :meth:`MiningConfig.from_dict`; the planner
-refuses the engines and options that are not ported yet.
+refuses the engines and options that are not ported yet (sharding, the
+journal).
 
 One frozen dataclass carries everything the four execution layers used to
 take as scattered keyword arguments — encoding (codec, duration fusing),
@@ -99,8 +100,9 @@ class MiningConfig:
     journal_commit_every: int = 16  # merkle commitment cadence (ticks)
 
     # --- observability ------------------------------------------------------
-    telemetry: bool = False         # metrics registry + span tracer (not ported)
-    profiler_annotations: bool = False  # mirror spans into profiler traces
+    telemetry: bool = False         # metrics registry + span tracer (obs/)
+    profiler_annotations: bool = False  # mirror spans into torch.profiler
+    #                                     traces (record_function)
 
     def __post_init__(self):
         if self.codec not in CODECS:

@@ -3,8 +3,8 @@
 The R package "split[s] the dbmart in chunks with an adaptive size to fit
 the available memory limitations" and falls back to a file-based mode; the
 reference's streaming subsystem added incremental arrival and sharding.
-The planner encodes that decision tree once, using the same cost model
-everywhere (``chunking.BYTES_PER_PAIR`` over padded pair slabs):
+The planner encodes that decision tree once, using the reference's cost
+model for the choice (``chunking.BYTES_PER_PAIR`` over padded pair slabs):
 
   * incremental input          -> 'stream' (or 'sharded' when n_shards > 1);
   * batch input, n_shards > 1  -> 'sharded' (the config asked for shards);
@@ -16,11 +16,17 @@ Under ``screen='fused'`` the working set is the corpus-free counting
 pass's (one patient block of the plan in ``analysis/roofline``, plus the
 table), not the whole corpus, and the plan says ``corpus_free``.
 
+On the card the chunk count is the card's plan
+(``chunking.plan_card_chunks``, which prices the dense slab and its
+scratch so that ``budget_bytes`` bounds the card's peak); on the CPU it is
+the reference's ``plan_chunks``.
+
 ``MiningConfig.engine`` short-circuits the tree — the plan records that it
-was forced.  The port runs the ``batch``, ``chunked`` and ``files`` engines
-with every screen; a plan that needs anything else (streaming, sharding,
-telemetry) raises ``NotImplementedError`` naming the ROADMAP.md item that
-ports it, and never runs something else in its place.
+was forced.  The port runs the ``batch``, ``chunked``, ``files`` and
+``stream`` engines with every screen, with or without telemetry; a plan
+that needs anything else (sharding, the journal) raises
+``NotImplementedError`` naming the ROADMAP.md item that ports it, and
+never runs something else in its place.
 """
 from __future__ import annotations
 
@@ -35,13 +41,14 @@ _BYTES_PER_ROW = 17
 
 #: where each piece that is not ported yet is queued in ROADMAP.md
 NOT_PORTED = {
-    "stream": "ROADMAP.md queue 1 item 11 (streaming)",
     "sharded": "ROADMAP.md queue 1 item 12 (sharding)",
-    "telemetry": "ROADMAP.md queue 1 item 6 (obs/ telemetry)",
+    "checkpoint": "ROADMAP.md queue 1 item 13 (checkpoint and restore)",
+    "journal": "ROADMAP.md queue 1 item 14 (journal/)",
+    "serve": "ROADMAP.md queue 1 item 15 (serving/tspm/)",
 }
 
 
-def _not_ported(what: str, key: str) -> NotImplementedError:
+def not_ported(what: str, key: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet: {NOT_PORTED[key]}")
 
 
@@ -77,9 +84,11 @@ def make_plan(config: MiningConfig, nevents=None, incremental: bool = False,
               device="cuda") -> Plan:
     """Decide the engine for a cohort (``nevents`` per patient) mined on
     ``device`` (the card unless the caller asks for the CPU, as the
-    session); raises ``NotImplementedError`` for what is not ported."""
-    if config.telemetry:
-        raise _not_ported("MiningConfig(telemetry=True)", "telemetry")
+    session) or an incremental session (``incremental=True``, no cohort
+    known up front); raises ``NotImplementedError`` for what is not
+    ported."""
+    if config.journal_dir is not None:
+        raise not_ported("MiningConfig(journal_dir=...)", "journal")
     nevents = (np.zeros(0, np.int64) if nevents is None
                else np.asarray(nevents, np.int64))
     fused = config.screen == "fused"
@@ -92,8 +101,9 @@ def make_plan(config: MiningConfig, nevents=None, incremental: bool = False,
         ws = _working_set(nevents, backend)
     corpus = _corpus_bytes(nevents) if len(nevents) else 0
     budget = config.budget_bytes
-    n_chunks = (len(chunking.plan_chunks(nevents, budget))
-                if budget is not None and len(nevents) else 1)
+    n_chunks = (len(chunking.plan_device_chunks(
+        nevents, budget, device, config.n_buckets_log2).chunks)
+        if budget is not None and len(nevents) else 1)
     common = dict(working_set_bytes=ws, budget_bytes=budget,
                   disk_bytes=config.disk_bytes,
                   corpus_bytes=corpus, n_chunks=n_chunks,
@@ -120,5 +130,5 @@ def make_plan(config: MiningConfig, nevents=None, incremental: bool = False,
         plan = Plan("chunked", "working set exceeds budget_bytes; mining "
                     f"adaptively in {n_chunks} patient chunks", **common)
     if plan.engine in NOT_PORTED:
-        raise _not_ported(f"engine {plan.engine!r} ({plan.reason})", plan.engine)
+        raise not_ported(f"engine {plan.engine!r} ({plan.reason})", plan.engine)
     return plan

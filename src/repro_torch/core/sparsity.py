@@ -145,16 +145,17 @@ def row_first_flags(sorted_rows: torch.Tensor) -> torch.Tensor:
     return first & (sorted_rows != SENTINEL)
 
 
-def local_bucket_counts(seq, mask, n_buckets_log2: int) -> torch.Tensor:
+def local_bucket_counts(seq, mask, n_buckets_log2: int,
+                        block_elements: int = BLOCK_ELEMENTS) -> torch.Tensor:
     """Distinct-patient bucket counts (int32 [2^H]) for row-major [P, ...]
     input.
 
     Rows are patients; dedupes (patient, sequence) by a row-wise sort before
     counting, matching the paper's distinct-patient support semantics.  The
     rows are sorted, flagged and counted in patient blocks of at most
-    ``BLOCK_ELEMENTS`` ids, so the sort's scratch is one block, not the
-    whole slab; counts add over disjoint patients, so the table does not
-    depend on the block.  The count itself is ``kernels/seq_hist`` (the
+    ``block_elements`` ids (one row at least), so the sort's scratch is one
+    block, not the whole slab; counts add over disjoint patients, so the
+    table does not depend on the block.  The count itself is ``kernels/seq_hist`` (the
     CUDA kernel on the card, one launch per block).
     """
     seq = as_tensor(seq, torch.int64)
@@ -165,13 +166,14 @@ def local_bucket_counts(seq, mask, n_buckets_log2: int) -> torch.Tensor:
     if P == 0:
         return counts
     seq, mask = seq.reshape(P, -1), mask.reshape(P, -1)
-    blk = max(1, BLOCK_ELEMENTS // max(seq.shape[1], 1))
+    blk = max(1, block_elements // max(seq.shape[1], 1))
     for s in range(0, P, blk):
         flat = torch.where(mask[s:s + blk], seq[s:s + blk], SENTINEL)
         srt = torch.sort(flat, dim=1).values
         del flat
         counts += hist_ops.hist(hash_bucket(srt, n_buckets_log2),
                                 row_first_flags(srt), n_buckets)
+        del srt     # before the next block's sort, whose scratch it would join
     return counts
 
 

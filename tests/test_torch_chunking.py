@@ -10,6 +10,8 @@ from repro.core import mining as j_mining
 from repro.core import sparsity as j_sparsity
 from repro.data import synthea
 from repro.data.dbmart import from_rows
+from repro_torch.api import MiningConfig
+from repro_torch.api import planner as t_planner
 from repro_torch.core import chunking, mining
 from tests.conftest import random_dbmart
 from tests.torch_parity import assert_same, port_db
@@ -162,3 +164,80 @@ def test_rows_are_compacted_on_the_device_order():
     for g, w in zip(got, (seq[msk], dur[msk], pat[msk])):
         assert_same(g, w, "real rows")
     assert got[2].dtype == torch.int32
+
+
+@pytest.mark.parametrize("budget", [64 << 20, 1 << 30, 4 << 30])
+def test_card_plan_prices_within_budget(budget):
+    """The card's chunk price at the Table 2 cohort's shape (35,000
+    patients, E = 240): every chunk's reckoned peak (tables, dense slab,
+    event planes, one piece's scratch) is within the budget, the chunks
+    cover every patient in order, and the planner counts them on a CUDA
+    device (the reference's plan still on the CPU)."""
+    nevents = np.random.default_rng(35).integers(120, 241, 35000).astype(np.int32)
+    plan = chunking.plan_card_chunks(nevents, budget, n_buckets_log2=20)
+    chunks = plan.chunks
+    assert chunks[0].start == 0 and chunks[-1].stop == len(nevents)
+    for a, b in zip(chunks, chunks[1:]):
+        assert a.stop == b.start
+    assert 1 <= plan.piece_slots <= chunking.sparsity.BLOCK_ELEMENTS
+    for c in chunks:
+        assert plan.chunk_bytes(c) <= budget
+        assert c.max_events >= int(nevents[c.start:c.stop].max())
+        assert plan.piece_rows(c) >= 1
+    # the dense slab alone is the reference's whole price, so the card's
+    # plan never has fewer chunks than the reference's
+    assert len(chunks) >= len(chunking.plan_chunks(nevents, budget))
+    cfg = MiningConfig(budget_bytes=budget, engine="chunked")
+    assert t_planner.make_plan(cfg, nevents).n_chunks == len(chunks)
+    assert t_planner.make_plan(cfg, nevents, device="cpu").n_chunks == \
+        len(j_chunking.plan_chunks(nevents, budget))
+
+
+def test_card_price_counts_the_allocators_rounding():
+    """A chunk's price holds, beside its bytes, up to 1 MiB for every
+    tensor of more than 1 MiB that may live at its peak (the caching
+    allocator hands such a block out whole when 1 MiB or less would be
+    left) and 512 B for every smaller one."""
+    assert chunking.alloc_over(1 << 20) == 512
+    assert chunking.alloc_over((1 << 20) + 1) == 1 << 20
+    plan = chunking.ChunkPlan([], piece_slots=1 << 20, table_bytes=4 << 20)
+    big = chunking.Chunk(0, 400, 304)        # slab tensors of 37-296 MB
+    tiny = chunking.Chunk(0, 1, 8)           # every tensor under 1 MiB
+    for ch, rounding in ((big, (3 + chunking.CARD_TABLES + chunking.CARD_PIECE_TENSORS)
+                          * (1 << 20) + 3 * 512),
+                         (tiny, (3 + 3 + chunking.CARD_PIECE_TENSORS) * 512
+                          + chunking.CARD_TABLES * (1 << 20))):
+        n, e = ch.n_patients, ch.max_events
+        piece = min(plan.piece_rows(ch), n) * e * e     # a piece is within its chunk
+        held = (chunking.CARD_TABLES * plan.table_bytes + chunking.CARD_SMALL_BYTES
+                + n * (e * e * chunking.CARD_SLAB_BYTES + 8 * e + 4)
+                + piece * chunking.CARD_SCRATCH_BYTES)
+        assert plan.chunk_bytes(ch) == held + rounding
+
+
+def test_card_plan_gives_the_reference_rows(tmp_path, synthea_db, monkeypatch):
+    """The card's chunks and pieces, run on the CPU: the same rows in the
+    same order, tables, survivors and spill directory contents as the
+    reference's plan (rows do not depend on where chunks end)."""
+    db = synthea_db
+    kw = dict(budget_bytes=512 << 10, n_buckets_log2=8)
+    want = j_chunking.mine_chunked(db, with_counts=True, **kw)
+    want_fused = j_chunking.mine_fused(db, threshold=3, **kw)
+    card = chunking.plan_card_chunks(db.nevents, kw["budget_bytes"], 8)
+    assert len(card.chunks) > len(chunking.plan_chunks(db.nevents, kw["budget_bytes"]))
+    assert any(card.piece_rows(c) < c.n_patients for c in card.chunks)
+    monkeypatch.setattr(chunking, "plan_device_chunks",
+                        lambda nev, budget, device, H: chunking.plan_card_chunks(
+                            nev, budget, H))
+    got = chunking.mine_chunked(port_db(db), with_counts=True, **kw, **CPU)
+    _assert_rows(got, want, "card chunks")
+    assert_same(got["counts"], want["counts"], "counts")
+    fused = chunking.mine_fused(port_db(db), threshold=3, **kw, **CPU)
+    for k in ("seq", "dur", "patient", "counts"):
+        assert_same(fused[k], want_fused[k], f"fused {k}")
+    paths = chunking.mine_to_files(port_db(db), str(tmp_path / "spill"), **kw, **CPU)
+    assert len(paths) == len(card.chunks)
+    back = j_chunking.load_files(str(tmp_path / "spill"))
+    for k in ("seq", "dur", "patient", "counts"):
+        assert_same(back[k], np.asarray(want[k])[want["mask"]] if k != "counts"
+                    else want[k], f"files {k}")

@@ -15,11 +15,13 @@ from repro_torch.api import MiningConfig, MiningSession
 from repro_torch.core import encoding, mining, sparsity
 from repro_torch.data import dbmart, synthea
 from repro_torch.kernels.seq_hist import ops as hist_ops
+from repro_torch.kernels.tspm_delta import ops as delta_ops
 from repro_torch.kernels.seq_hist import ref as hist_ref
 from repro_torch.kernels.tspm_fused import ops as fused_ops
 from repro_torch.kernels.tspm_fused import ref as fused_ref
 from repro_torch.kernels.tspm_pairgen import ops as pg_ops
 from repro_torch.kernels.tspm_pairgen import ref as pg_ref
+from repro_torch.stream import delta as stream_delta
 
 pytestmark = pytest.mark.cuda
 
@@ -180,3 +182,115 @@ def test_engines_on_card_match_cpu(cuda_device, engine, screen):
     for f in (lambda fr: fr.collect(), lambda fr: fr.screen().collect()):
         for g, w in zip(f(card), f(cpu)):
             assert_same(g, w, f"{engine} {screen}")
+
+
+def _delta_inputs():
+    """(phenx, date, n_old, n_new, new_phenx, new_date): E and D on and
+    around 128, empty delta windows, rows of no delta, a history at full
+    plane capacity, and zero-width slabs."""
+    rng = np.random.default_rng(13)
+    for P, E, D in [(3, 16, 8), (2, 127, 129), (2, 128, 128), (3, 129, 127),
+                    (4, 40, 40), (0, 8, 8), (3, 0, 4), (3, 8, 0)]:
+        phenx = rng.integers(0, 9, (P, E)).astype(np.int32)
+        date = np.sort(rng.integers(-40, 400, (P, E)), axis=1).astype(np.int32)
+        n_old = rng.integers(0, E + 1, P).astype(np.int32)
+        n_new = rng.integers(0, D + 1, P).astype(np.int32)
+        if P >= 2:
+            n_new[1] = 0                                    # no delta
+        if P and E >= D:
+            n_old[0], n_new[0] = E - D, D                   # full planes
+        new_ph = rng.integers(0, 9, (P, D)).astype(np.int32)
+        new_dt = np.sort(rng.integers(400, 900, (P, D)), axis=1).astype(np.int32)
+        yield phenx, date, n_old, n_new, new_ph, new_dt
+
+
+@pytest.mark.parametrize("codec", ["bit", "paper"])
+@pytest.mark.parametrize("fuse", [False, True])
+def test_delta_kernel_matches_plain_version(cuda_device, codec, fuse):
+    for args in _delta_inputs():
+        cpu = [torch.from_numpy(a) for a in args]
+        before = delta_ops.delta_pairgen.launches
+        got = delta_ops.delta_pairgen(*(a.to(cuda_device) for a in cpu),
+                                      codec=codec, fuse_duration=fuse)
+        torch.cuda.synchronize()
+        want = stream_delta.delta_mine_torch(*cpu, codec, fuse, 30)
+        for g, w, name in zip(got, want, ("seq", "dur", "mask")):
+            assert_same(g, w, f"{args[0].shape} {name}")
+        assert delta_ops.delta_pairgen.launches == before + (got.seq.numel() > 0)
+    with pytest.raises(ValueError):
+        stream_delta.delta_mine(*(a.to(cuda_device) for a in cpu), backend="torch")
+
+
+@pytest.mark.parametrize("screen", ["hash", "fused"])
+def test_stream_engine_on_card_matches_batch(cuda_device, screen):
+    """The stream engine on the card: one tspm_delta launch a tick, the
+    sketch table equal to the batch engine's, the frame equal to the
+    batch frame and to the stream engine on the CPU."""
+    pats, dates, phx, _ = synthea.generate_cohort(n_patients=40, avg_events=30,
+                                                  seed=2)
+    db = dbmart.from_rows(pats, dates, phx)
+    cfg = MiningConfig(engine="stream", screen=screen, threshold=3,
+                       budget_bytes=1 << 20)
+    before = delta_ops.delta_pairgen.launches
+    session = MiningSession(cfg, device=cuda_device)
+    card = session.fit(db)
+    batch = MiningSession(cfg.replace(engine="batch"), device=cuda_device).fit(db)
+    cpu = MiningSession(cfg, device="cpu").fit(db)
+    ticks = -(-int((np.asarray(db.nevents) > 0).sum()) // 16)
+    assert delta_ops.delta_pairgen.launches - before == ticks
+    assert_same(card._corpus.counts(), batch._corpus.counts(), "table")
+    for other in (batch, cpu):
+        for f in (lambda fr: fr.collect(), lambda fr: fr.screen().collect()):
+            for g, w in zip(f(card), f(other)):
+                assert_same(g, w, screen)
+
+
+@pytest.mark.parametrize("engine", ["chunked", "files", "fused"])
+def test_chunk_peak_within_budget_on_card(cuda_device, engine):
+    """budget_bytes bounds the card's peak memory of a chunked fit."""
+    pats, dates, phx, _ = synthea.generate_cohort(n_patients=400, avg_events=60,
+                                                  seed=5)
+    db = dbmart.from_rows(pats, dates, phx)
+    budget = 16 << 20
+    kw = (dict(screen="fused", engine="chunked") if engine == "fused"
+          else dict(screen="hash", engine=engine))
+    cfg = MiningConfig(threshold=3, budget_bytes=budget, n_buckets_log2=16, **kw)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    session = MiningSession(cfg, device=cuda_device)
+    card = session.fit(db)
+    torch.cuda.synchronize()
+    assert session.plan().n_chunks > 1
+    assert torch.cuda.max_memory_allocated() - base <= budget
+    cpu = MiningSession(cfg, device="cpu").fit(db)
+    for g, w in zip(card.collect(), cpu.collect()):
+        assert_same(g, w, engine)
+
+
+@pytest.mark.parametrize("screen", ["hash", "fused"])
+@pytest.mark.parametrize("budget_mib", [64, 128, 512])
+def test_chunk_peak_within_budget_at_long_histories(cuda_device, screen, budget_mib):
+    """budget_bytes bounds the peak where a chunk's tensors pass 1 MiB (the
+    caching allocator's rounding counts) and a piece holds many rows of
+    ~300 events (the row sort's scratch, block after block); the rows
+    equal a one-chunk fit's, in order."""
+    pats, dates, phx, _ = synthea.generate_cohort(n_patients=600, avg_events=300,
+                                                  seed=7)
+    db = dbmart.from_rows(pats, dates, phx)
+    budget = budget_mib << 20
+    cfg = dict(threshold=3, engine="chunked", screen=screen, n_buckets_log2=20)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    session = MiningSession(MiningConfig(budget_bytes=budget, **cfg), device=cuda_device)
+    card = session.fit(db)
+    torch.cuda.synchronize()
+    assert session.plan().n_chunks > 1
+    assert torch.cuda.max_memory_allocated() - base <= budget
+    whole = MiningSession(MiningConfig(budget_bytes=16 << 30, **cfg),
+                          device=cuda_device).fit(db)
+    for g, w in zip(card._corpus._raw, whole._corpus._raw):
+        assert_same(g, w, screen)

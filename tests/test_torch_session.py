@@ -1,7 +1,8 @@
-"""Port parity of the whole slice: MiningSession.fit (the batch, chunked
-and files engines under the sorted, hash and fused screens) and every
-SequenceFrame terminal and chained mask, plus core/msmr and core/postcovid,
-against the reference package on the CPU."""
+"""Port parity of the whole slice: MiningSession.fit (the batch, chunked,
+files and stream engines under the sorted, hash and fused screens), the
+incremental submit/tick/run frames, and every SequenceFrame terminal and
+chained mask, plus core/msmr and core/postcovid, against the reference
+package on the CPU."""
 import dataclasses
 import os
 import re
@@ -175,12 +176,13 @@ def test_config_and_planner_refuse_what_is_not_ported():
         MiningConfig.from_dict({"no_such_knob": 1})
     nev = np.full(10, 40)
     ported = [dict(budget_bytes=1 << 10), dict(spill_bytes=10),
-              dict(screen="fused", threshold=2), dict(engine="chunked")]
+              dict(screen="fused", threshold=2), dict(engine="chunked"),
+              dict(engine="stream"), dict(telemetry=True)]
     for kw in ported:                 # the reference's engine, on the CPU
         plan = t_planner.make_plan(MiningConfig(**kw), nev, device="cpu")
         assert plan.engine == j_planner.make_plan(JConfig(**kw), nev).engine, kw
         assert plan.corpus_free == (kw.get("screen") == "fused")
-    for kw in [dict(n_shards=2), dict(telemetry=True), dict(engine="stream")]:
+    for kw in [dict(n_shards=2), dict(journal_dir="journal")]:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             t_planner.make_plan(MiningConfig(**kw), nev, device="cpu")
     plan = t_planner.make_plan(MiningConfig(budget_bytes=1 << 30), nev, device="cpu")
@@ -192,8 +194,7 @@ def test_config_and_planner_refuse_what_is_not_ported():
     dense = t_planner.make_plan(MiningConfig(budget_bytes=1 << 30), nev)
     assert dense.working_set_bytes == 2 * plan.working_set_bytes
     session = MiningSession(MiningConfig(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        session.plan()            # the incremental engine is not ported
+    assert session.plan().engine == JSession(JConfig()).plan().engine == "stream"
 
 
 def test_fused_plan_is_corpus_free():
@@ -284,6 +285,68 @@ def test_files_engine_cleans_tmp_spill(tmp_path, monkeypatch):
     assert (keep / "bucket_counts.npy").exists()
 
 
+@pytest.mark.parametrize("screen", ["sorted", "hash", "fused"])
+def test_stream_engine_matches_reference(engine_cohort, screen):
+    """engine='stream' fit: collect() and screen().collect() arrays
+    byte-identical to the reference session's, under eviction."""
+    cfg = dict(engine="stream", screen=screen, threshold=3, n_buckets_log2=12,
+               tick_patients=5, budget_bytes=48 << 10)
+    want = JSession(JConfig(**cfg)).fit(engine_cohort)
+    session = MiningSession(MiningConfig.from_dict(
+        dataclasses.asdict(JConfig(**cfg))), device="cpu")
+    got = session.fit(port_db(engine_cohort))
+    assert session.plan().engine == "stream"
+    assert session.service is None   # a fit keeps no live service
+    _assert_result(got.collect(), want.collect(), screen)
+    _assert_result(got.screen().collect(), want.screen().collect(), screen)
+    assert got.screen().decode(limit=10) == want.screen().decode(limit=10)
+
+
+@pytest.mark.parametrize("screen", ["hash", "fused"])
+def test_incremental_frames_match_reference(engine_cohort, screen):
+    """submit/tick/run on both sessions: every live frame equals the
+    reference's, and the finished stream equals the batch fit."""
+    cfg = dict(threshold=2, screen=screen, n_buckets_log2=10, tick_patients=6)
+    js = JSession(JConfig(**cfg), vocab=engine_cohort.vocab)
+    ts = MiningSession(MiningConfig(**cfg), device="cpu",
+                       vocab=port_db(engine_cohort).vocab)
+    db = engine_cohort
+    for lo_frac, hi_frac in ((0.0, 0.5), (0.5, 1.0)):
+        for p in range(db.n_patients):
+            n = int(db.nevents[p])
+            lo, hi = int(n * lo_frac), int(n * hi_frac)
+            if hi > lo:
+                for s in (js, ts):
+                    s.submit(p, db.date[p, lo:hi], db.phenx[p, lo:hi])
+        got, want = ts.tick(), js.tick()
+        _assert_result(got.collect(), want.collect(), "tick")
+        got, want = ts.run(), js.run()
+        _assert_result(got.screen().collect(), want.screen().collect(), "run")
+    assert ts.plan().incremental and ts.plan().engine == "stream"
+    taps = ts.events(), js.events()
+    ts.submit(0, [10**6], [1])
+    js.submit(0, [10**6], [1])
+    assert [type(e).__name__ for e in taps[0]] == ["DeltaSubmitted"] == \
+        [type(e).__name__ for e in taps[1]]
+    with pytest.raises(RuntimeError, match="already streaming"):
+        ts.fit(port_db(db))
+    batch = MiningSession(MiningConfig(**cfg), device="cpu").fit(port_db(db))
+    _assert_result(ts.frame().collect(), batch.collect(), "stream == batch")
+
+
+def test_refused_session_methods_raise():
+    """What is still to port raises NotImplementedError naming its item."""
+    s = MiningSession(MiningConfig(), device="cpu")
+    calls = [lambda: s.checkpoint("ckpt"), lambda: MiningSession.restore("ckpt"),
+             s.journal, s.verify, lambda: MiningSession.replay("j"), s.serve,
+             s.shard_load]
+    for call in calls:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 1[2-5]"):
+            call()
+    with pytest.raises(NotImplementedError, match="item 12"):
+        MiningSession(MiningConfig(n_shards=2), device="cpu").submit(0, [1], [2])
+
+
 def test_cuda_device_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is visible")
@@ -346,7 +409,9 @@ def test_port_imports_neither_jax_nor_reference():
     code = ("import sys, repro_torch.api, repro_torch.core.msmr, "
             "repro_torch.core.postcovid, repro_torch.core.queries, "
             "repro_torch.core.chunking, repro_torch.analysis.roofline, "
-            "repro_torch.kernels.tspm_fused.ops, repro_torch.kernels._build; "
+            "repro_torch.kernels.tspm_fused.ops, repro_torch.kernels._build, "
+            "repro_torch.kernels.tspm_delta.ops, repro_torch.obs, "
+            "repro_torch.storage, repro_torch.stream; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "assert not bad, bad")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
