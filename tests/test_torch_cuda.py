@@ -7,6 +7,8 @@ runs on a machine with a card and PyTorch alone:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -14,7 +16,12 @@ import torch
 from repro_torch.api import MiningConfig, MiningSession
 from repro_torch.core import encoding, mining, sparsity
 from repro_torch.data import dbmart, synthea
+from repro_torch.configs import get_config
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.seq_hist import ops as hist_ops
+from repro_torch.models import model as model_lib
+from repro_torch.serving import engine as serve_engine
 from repro_torch.kernels.tspm_delta import ops as delta_ops
 from repro_torch.kernels.seq_hist import ref as hist_ref
 from repro_torch.kernels.tspm_fused import ops as fused_ops
@@ -294,3 +301,71 @@ def test_chunk_peak_within_budget_at_long_histories(cuda_device, screen, budget_
                           device=cuda_device).fit(db)
     for g, w in zip(card._corpus._raw, whole._corpus._raw):
         assert_same(g, w, screen)
+
+
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,kw", [
+    (1, 2, 2, 1, 1, 64, dict(causal=True)),
+    (2, 4, 2, 129, 129, 64, dict(causal=True)),
+    (1, 6, 2, 200, 200, 128, dict(causal=True, window=16, softcap=50.0)),
+    (1, 3, 1, 96, 40, 32, dict(causal=False, window=16)),
+    (1, 8, 1, 64, 160, 256, dict(causal=False)),
+    (1, 2, 2, 100, 300, 16, dict(causal=True)),
+])
+def test_flash_kernel_matches_plain_version(cuda_device, dtype, B, Hq, Hkv, Sq, Skv,
+                                            D, kw):
+    """Ragged tiles, GQA, window, softcap, Sq != Skv, rows with no visible
+    key; float32 within 2e-5, bfloat16 within 2e-2."""
+    g = torch.Generator(cuda_device).manual_seed(Sq * D)
+    q = torch.randn(B, Hq, Sq, D, generator=g, device=cuda_device).to(dtype)
+    k = torch.randn(B, Hkv, Skv, D, generator=g, device=cuda_device).to(dtype)
+    v = torch.randn(B, Hkv, Skv, D, generator=g, device=cuda_device).to(dtype)
+    before = flash_ops.attention.launches
+    got = flash_ops.attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_ops.attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_ref.attention_ref(q, k, v, **kw)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
+    x = torch.zeros(1, 2, 8, 48, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_ops.attention(x, x, x)
+    h = torch.zeros(1, 2, 8, 64, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(ValueError, match="dtypes"):
+        flash_ops.attention(h, h, h)
+    e = torch.zeros(0, 2, 8, 64, device=cuda_device)
+    before = flash_ops.attention.launches
+    assert flash_ops.attention(e, e, e).shape == e.shape
+    assert flash_ops.attention.launches == before
+
+
+@pytest.mark.parametrize("arch", ["tspm-mlho", "gemma2-2b"])
+def test_reduced_model_serves_on_card_as_on_cpu(cuda_device, arch):
+    """Greedy serving of a reduced model: the card (flash kernel, one
+    launch per layer per wave) gives the CPU's tokens."""
+    cfg = get_config(arch, reduced=True)
+    mdl = model_lib.build(cfg)
+    card = mdl.init(torch.Generator(cuda_device).manual_seed(0))
+    cpu = copy.deepcopy(card).to("cpu")
+    rng = np.random.default_rng(0)
+    results = []
+    for params, dev in ((card, cuda_device), (cpu, "cpu")):
+        eng = serve_engine.ServeEngine(mdl, params, batch_size=2, max_len=64,
+                                       device=dev)
+        for rid, n in enumerate((40, 33, 40)):
+            eng.submit(serve_engine.Request(rid, rng.integers(4, cfg.vocab_size, n)
+                                            .astype(np.int32), 12))
+        before = flash_ops.attention.launches
+        results.append(eng.run())
+        launched = flash_ops.attention.launches - before
+        assert launched == (cfg.n_layers * 2 if dev != "cpu" else 0)
+        rng = np.random.default_rng(0)
+    for rid in results[0]:
+        np.testing.assert_array_equal(results[0][rid], results[1][rid])

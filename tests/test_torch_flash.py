@@ -1,0 +1,172 @@
+"""The flash-attention wrapper's plain version in the port against the reference.
+
+Twin of tests/test_kernels_flash.py: at each of its cases the reference
+runs its Pallas kernel ``flash_attention(..., interpret=True)`` and its
+oracle ``ref.attention_ref``; the port runs ``ops.attention`` on CPU
+tensors (its plain version).  Tolerances are that file's: 2e-5 for
+float32, 2e-2 for bfloat16.  Ragged lengths, which the reference's kernel
+refuses, are held against the reference's ``models.attention.blocked_sdpa``
+(the path its models take off the TPU).  The CUDA kernel itself is held
+against the same plain version on the card (tests/test_torch_cuda.py,
+chip_smoke.py phase 3).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash as j_flash
+from repro.kernels.flash_attention import ref as j_ref
+from repro.models import attention as j_attention
+from repro_torch.kernels.flash_attention import ops, ref
+from repro_torch.models import attention
+
+DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def _inputs(B, Hq, Hkv, Sq, Skv, D, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Hq, Sq, D)), rng.standard_normal((B, Hkv, Skv, D)),
+            rng.standard_normal((B, Hkv, Skv, D)))
+
+
+def _f32(x) -> np.ndarray:
+    return np.asarray(x.float() if torch.is_tensor(x) else x, np.float32)
+
+
+def _run(B, Hq, Hkv, Sq, Skv, D, dtype="float32", **kw):
+    """(port, reference kernel, reference oracle) as float32 numpy."""
+    jdt, tdt, _ = DTYPES[dtype]
+    arrays = _inputs(B, Hq, Hkv, Sq, Skv, D)
+    jq, jk, jv = (jnp.asarray(a, jdt) for a in arrays)
+    tq, tk, tv = (torch.from_numpy(a).to(tdt) for a in arrays)
+    got = ops.attention(tq, tk, tv, **kw)
+    assert got.dtype == tdt and got.shape == (B, Hq, Sq, D)
+    kern = j_flash.flash_attention(jq, jk, jv, interpret=True, bq=min(128, Sq),
+                                   bk=min(128, Skv), **kw)
+    return _f32(got), _f32(kern), _f32(j_ref.attention_ref(jq, jk, jv, **kw))
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", [
+    (1, 2, 2, 128, 64), (2, 4, 2, 256, 64), (1, 8, 1, 128, 128),
+    (1, 2, 2, 384, 32),
+])
+def test_flash_causal(B, Hq, Hkv, S, D):
+    got, kern, want = _run(B, Hq, Hkv, S, S, D, causal=True)
+    _close(got, kern, 2e-5)
+    _close(got, want, 2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_dtypes(dtype):
+    got, kern, want = _run(1, 4, 2, 256, 256, 64, dtype=dtype, causal=True)
+    tol = DTYPES[dtype][2]
+    _close(got, kern, tol)
+    _close(got, want, tol)
+
+
+def test_flash_sliding_window():
+    got, kern, want = _run(1, 2, 2, 384, 384, 64, causal=True, window=128)
+    _close(got, kern, 2e-5)
+    _close(got, want, 2e-5)
+
+
+def test_flash_softcap():
+    got, kern, want = _run(1, 2, 2, 256, 256, 64, causal=True, softcap=50.0)
+    _close(got, kern, 2e-5)
+    _close(got, want, 2e-5)
+
+
+def test_flash_non_causal_cross():
+    got, kern, want = _run(1, 2, 2, 128, 256, 64, causal=False)
+    _close(got, kern, 2e-5)
+    _close(got, want, 2e-5)
+
+
+def test_flash_gqa_groups_match_ref():
+    got, kern, want = _run(2, 8, 2, 128, 128, 64, causal=True)
+    _close(got, kern, 2e-5)
+    _close(got, want, 2e-5)
+
+
+@pytest.mark.parametrize("Sq,Skv,kw", [
+    (200, 200, dict(causal=True)),
+    (200, 200, dict(causal=True, window=24, softcap=50.0)),
+    (1, 1, dict(causal=True)),
+    (129, 129, dict(causal=True, window=1)),
+])
+def test_ragged_lengths_match_blocked_sdpa(Sq, Skv, kw):
+    """Lengths that are no multiple of the reference kernel's tile: the
+    port's attention (layout [B,H,S,D]) and its blocked_sdpa (layout
+    [B,S,H,D]) against the reference's blocked_sdpa."""
+    q, k, v = _inputs(2, 6, 2, Sq, Skv, 32, seed=Sq)
+    qs, ks, vs = (np.swapaxes(a, 1, 2) for a in (q, k, v))      # [B,S,H,D]
+    want = _f32(j_attention.blocked_sdpa(*(jnp.asarray(a, jnp.float32)
+                                           for a in (qs, ks, vs)), **kw))
+    got = ops.attention(*(torch.from_numpy(a).float() for a in (q, k, v)), **kw)
+    _close(np.swapaxes(_f32(got), 1, 2), want, 2e-5)
+    got = attention.blocked_sdpa(*(torch.from_numpy(a).float() for a in (qs, ks, vs)),
+                                 q_chunk=64, **kw)
+    _close(_f32(got), want, 2e-5)
+
+
+def test_rows_without_a_visible_key_give_zero():
+    """Non-causal with a window and Sq > Skv: rows past Skv + window see
+    no key and give 0, as the reference's oracle does."""
+    q, k, v = _inputs(1, 4, 2, 96, 40, 64, seed=3)
+    kw = dict(causal=False, window=16)
+    got = _f32(ops.attention(*(torch.from_numpy(a).float() for a in (q, k, v)), **kw))
+    want = _f32(j_ref.attention_ref(*(jnp.asarray(a, jnp.float32) for a in (q, k, v)),
+                                    **kw))
+    _close(got, want, 2e-5)
+    assert (got[:, :, 40 + 16 - 1:] == 0).all() and np.abs(got[:, :, :40]).sum() > 0
+
+
+@pytest.mark.parametrize("D", [16, 256])
+def test_head_dims_at_the_kernel_edges(D):
+    """The narrowest and widest head dims the kernel takes (scale D ** -0.5)."""
+    got, kern, want = _run(1, 4, 2, 128, 128, D, causal=True)
+    _close(got, kern, 2e-5)
+    _close(got, want, 2e-5)
+
+
+def test_edges_and_refusals():
+    q = torch.zeros(2, 4, 8, 16)
+    k = torch.zeros(2, 2, 0, 16)
+    with pytest.raises(ValueError, match="zero keys"):
+        ops.attention(q, k, k)
+    with pytest.raises(ValueError, match="multiple"):
+        ops.attention(q, torch.zeros(2, 3, 8, 16), torch.zeros(2, 3, 8, 16))
+    empty = ops.attention(torch.zeros(0, 4, 8, 16), torch.zeros(0, 2, 8, 16),
+                          torch.zeros(0, 2, 8, 16))
+    assert empty.shape == (0, 4, 8, 16)
+    meta = torch.zeros(1, 2, 8, 16, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        ops.attention(meta, meta, meta)
+    assert ops.attention.launches == 0          # no launch on the CPU
+
+
+def test_impl_follows_the_device():
+    x = torch.zeros(1, 2)
+    assert attention.resolve_impl("auto", x) == "torch"
+    assert attention.resolve_impl("flash", x) == "flash"
+    with pytest.raises(ValueError, match="CPU tensors only"):
+        attention.resolve_impl("torch", torch.zeros(1, 2, device="meta"))
+    with pytest.raises(ValueError, match="unknown"):
+        attention.resolve_impl("xla", x)
+
+
+def test_plain_version_is_the_reference_oracle():
+    """ref.attention_ref alone (GQA, window, softcap, bfloat16)."""
+    for dtype in DTYPES:
+        jdt, tdt, tol = DTYPES[dtype]
+        arrays = _inputs(1, 6, 3, 72, 72, 32, seed=7)
+        kw = dict(causal=True, window=20, softcap=30.0)
+        got = ref.attention_ref(*(torch.from_numpy(a).to(tdt) for a in arrays), **kw)
+        want = j_ref.attention_ref(*(jnp.asarray(a, jdt) for a in arrays), **kw)
+        _close(_f32(got), _f32(want), tol)

@@ -411,7 +411,12 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.core.chunking, repro_torch.analysis.roofline, "
             "repro_torch.kernels.tspm_fused.ops, repro_torch.kernels._build, "
             "repro_torch.kernels.tspm_delta.ops, repro_torch.obs, "
-            "repro_torch.storage, repro_torch.stream; "
+            "repro_torch.storage, repro_torch.stream, repro_torch.models, "
+            "repro_torch.models.model, repro_torch.models.convert, "
+            "repro_torch.serving, repro_torch.serving.engine, "
+            "repro_torch.launch.serve, repro_torch.kernels.flash_attention.ops, "
+            "repro_torch.data.tokenize, repro_torch.configs; "
+            "[repro_torch.configs.get_config(a) for a in repro_torch.configs.ARCHS]; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "assert not bad, bad")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
