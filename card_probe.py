@@ -3,9 +3,9 @@ test (``chip_smoke.py``) does not take.
 
 Run from the root of a checkout, with one visible CUDA device:
 
-    python3 card_probe.py [idle] [share] [price] [scratch]
+    python3 card_probe.py [idle] [share] [price] [scratch] [flex] [psplit]
 
-(all four when none is named).  Each prints one JSON line:
+(all six when none is named).  Each prints one JSON line:
 
   idle   the device's idle share on the streaming path at the paper's
          Table 1 cohort: a ``torch.profiler`` trace (CUDA activity only) of
@@ -24,7 +24,19 @@ Run from the root of a checkout, with one visible CUDA device:
          given, at pieces of 1 to 64 Table 1 patient rows: the mine (per
          slot of the chunk), the hash counts, the compaction and the
          survivors' screen (per slot of the piece), with a line fitted
-         through them (bytes = fixed + per_slot * slots).
+         through them (bytes = fixed + per_slot * slots);
+  flex   the library yardstick of ``flash_attention``'s wgmma route:
+         ``torch.nn.attention.flex_attention``, compiled once, with a
+         ``score_mod`` for gemma2-2b's tanh softcap and a causal (local:
+         and windowed) block mask, first held against ``attention_ref``
+         (max |diff|, elements beyond the smoke's bfloat16 limit and beyond
+         the reference test's 2e-2 + 2e-2 |want|), then timed at both
+         gemma2-2b layer shapes in turns with the kernel (kernel, flex,
+         flex, kernel); the port never calls it;
+  psplit the wgmma route's P in bfloat16 hi + lo (what it ships) against P
+         in bfloat16 alone (``ops._launch(..., p_terms=1)``), in turns, at
+         phase 3b's window-4,096 case and both gemma2-2b layer shapes: ms,
+         max |diff| and elements beyond the smoke's bfloat16 limit.
 
 The last line is ``nvidia-smi``'s name and power limit of the card.
 """
@@ -279,6 +291,104 @@ def probe_scratch(torch) -> dict:
     return out
 
 
+def gemma_layers(torch, dev):
+    """q [2, 8, 8192, 256], k/v [2, 4, 8192, 256] bfloat16 (seeded), and
+    gemma2-2b's (name, window, softcap) of a local and a global layer."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("gemma2-2b")
+    gen = torch.Generator(dev).manual_seed(smoke.SEED)
+    B, S = smoke.GEMMA_REQUESTS, smoke.GEMMA_PROMPT_LEN
+    q, k, v = (torch.randn(B, H, S, cfg.hd, generator=gen, device=dev).to(torch.bfloat16)
+               for H in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    layers = (("local", cfg.sliding_window, cfg.attn_softcap),
+              ("global", None, cfg.attn_softcap))
+    return (q, k, v), layers
+
+
+def bf16_diff(torch, got, want) -> dict:
+    """max |diff| and the elements beyond the smoke's bfloat16 limit and
+    beyond the reference test's 2e-2 + 2e-2 |want|."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    return {"max_diff": d.max().item(),
+            "beyond_limit": (d > smoke.flash_limit(w, "bfloat16")).sum().item(),
+            "beyond_2e-2": (d > 2e-2 + 2e-2 * w.abs()).sum().item()}
+
+
+def in_turns(torch, calls: dict, iters: int = 10) -> dict:
+    """CUDA-event ms of each call, timed a, b, b, a (both readings)."""
+    order = list(calls) + list(reversed(list(calls)))
+    out = {name: [] for name in calls}
+    for name in order:
+        out[name].append(smoke.cuda_ms(torch, calls[name], iters))
+    return out
+
+
+def probe_flex(torch) -> dict:
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    dev = torch.device("cuda", 0)
+    (q, k, v), layers = gemma_layers(torch, dev)
+    flex = torch.compile(flex_attention)
+    out = {"shape": f"q {list(q.shape)} k {list(k.shape)} bfloat16"}
+    for name, window, cap in layers:
+        def score_mod(score, b, h, qi, kj, cap=cap):
+            return cap * torch.tanh(score / cap)
+
+        def mask_mod(b, h, qi, kj, window=window):
+            visible = qi >= kj
+            return visible & (qi - kj < window) if window is not None else visible
+
+        S = q.shape[2]
+        mask = create_block_mask(mask_mod, None, None, S, S, device=dev)
+        kw = dict(causal=True, window=window, softcap=cap)
+        kern = torch.empty_like(q)
+        calls = {"kernel_ms": lambda: ops._launch(q, k, v, kern, **kw),
+                 "flex_ms": lambda: flex(q, k, v, score_mod=score_mod, block_mask=mask,
+                                         enable_gqa=True)}
+        t0 = time.perf_counter()
+        got = calls["flex_ms"]()
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        want = ref.attention_ref(q, k, v, **kw)
+        reading = bf16_diff(torch, got, want)
+        del got, want
+        smoke.require(reading["beyond_2e-2"] == 0,
+                      f"flex_attention computes another function at {name}: {reading}")
+        out[name] = {"window": window, "softcap": cap, "first_call_s": compile_s,
+                     "flex": reading, **in_turns(torch, calls)}
+        torch.cuda.empty_cache()
+    return out
+
+
+def probe_psplit(torch) -> dict:
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(dev).manual_seed(0)
+    q3, k3, v3 = (torch.randn(1, H, 8192, 64, generator=gen, device=dev).to(torch.bfloat16)
+                  for H in (2, 1, 1))
+    gemma, layers = gemma_layers(torch, dev)
+    cases = [("3b_window_4096", (q3, k3, v3), dict(causal=True, window=4096, softcap=None))]
+    cases += [(f"gemma2_{name}", gemma, dict(causal=True, window=window, softcap=cap))
+              for name, window, cap in layers]
+    out = {}
+    for name, (q, k, v), kw in cases:
+        want = ref.attention_ref(q, k, v, **kw)
+        outs = {p: torch.empty_like(q) for p in (2, 1)}
+        calls = {f"p_terms_{p}_ms": (lambda p=p: ops._launch(q, k, v, outs[p], p_terms=p, **kw))
+                 for p in (2, 1)}
+        out[name] = {"shape": f"q {list(q.shape)} k {list(k.shape)} {kw}",
+                     **in_turns(torch, calls)}
+        out[name].update({f"p_terms_{p}": bf16_diff(torch, outs[p], want) for p in (2, 1)})
+        del want, outs
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -290,7 +400,7 @@ def main(argv: list[str]) -> int:
 
     _build.build_all()
     probes = {"idle": probe_idle, "share": probe_share, "price": probe_price,
-              "scratch": probe_scratch}
+              "scratch": probe_scratch, "flex": probe_flex, "psplit": probe_psplit}
     for name in argv or list(probes):
         t0 = time.perf_counter()
         result = probes[name](torch)

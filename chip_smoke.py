@@ -26,7 +26,12 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with
      (within 2e-5 + 2^-6 |want|, two bfloat16 ulps; each case's median and
      max |want| printed beside a planted fault the limit must catch) at Sq = Skv = 1/127/128/129/200, Sq != Skv causal and not,
      D = 32/64/128/256, GQA groups 1/2/3/8, windows 1/16/4,096 at
-     S = 8,192, softcap 50 and rows that see no key;
+     S = 8,192, softcap 50 and rows that see no key, and, for the wgmma
+     route (bfloat16 at D = 64/128/256), S = 1/63/129/1,000 and
+     Sq != Skv (63/1,000, 1,000/129) causal and not at each of its head
+     widths, GQA groups 1/2/4/8, windows 1 and 300 with softcap 50 and rows
+     that see no key at D = 256; each case must launch the route
+     ``ops.route`` names for it;
   4. drives the main path — ``MiningSession(...).fit(db)`` then
      ``frame.screen().collect()`` — on the paper's Table 1 cohort (4,985
      patients at ~471 events, first-occurrence filter) with
@@ -84,8 +89,10 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with
      ``gemma2-2b`` at full size (26 layers, bf16) answers 2 random prompts
      of 8,192 tokens (8 new), and the kernel is held against its plain
      version on the q/k/v of the first local and the first global layer;
-     the kernel is timed at these three shapes beside its bound, its plain
-     version and (tspm-mlho) ``scaled_dot_product_attention``.
+     tspm-mlho's 24 launches must all take the ffma route and gemma2-2b's
+     26 the wgmma route; the kernel is timed at these three shapes beside
+     its bound, its plain version and (tspm-mlho)
+     ``scaled_dot_product_attention``.
 
 Every failed check raises, so the script exits non-zero.  The last three
 lines of its output are the ``nvidia-smi`` line, the ``kernels`` JSON line
@@ -336,10 +343,15 @@ def check_delta_kernel(torch, dev) -> tuple[float, int]:
 
 
 def flash_edge_cases():
-    """(B, Hq, Hkv, Sq, Skv, D, options) at the kernel's edges: one-row and
+    """(B, Hq, Hkv, Sq, Skv, D, options) at the kernels' edges: one-row and
     ragged tiles, Sq != Skv causal and not, every head width, GQA groups
     of 1, 2, 3 and 8, windows 1, 16 and 4,096 at S = 8,192, softcap 50, and
-    rows that see no key (non-causal with a window, Sq > Skv)."""
+    rows that see no key (non-causal with a window, Sq > Skv).  Then the
+    wgmma route's own edges (bfloat16 at D = 64/128/256, 128-row query
+    tiles, 64- or 128-key tiles): at each of its head widths lengths that
+    are no multiple of 64 or 128 and Sq != Skv causal and not; at D = 256
+    GQA groups 1, 2, 4 and 8, windows 1 and 300 with softcap 50, and rows
+    that see no key.  Each case runs in float32 (the ffma route) too."""
     for S in (1, 127, 128, 129, 200):
         yield 2, 4, 2, S, S, 64, dict(causal=True)
     for Sq, Skv in ((100, 260), (260, 100)):
@@ -354,6 +366,17 @@ def flash_edge_cases():
     yield 1, 4, 2, 200, 200, 128, dict(causal=True, softcap=50.0)
     yield 1, 4, 2, 300, 300, 256, dict(causal=True, window=64, softcap=50.0)
     yield 1, 4, 2, 96, 40, 64, dict(causal=False, window=16)
+    for D in (64, 128, 256):
+        for S in (1, 63, 129, 1000):
+            yield 1, 4, 2, S, S, D, dict(causal=True)
+        for Sq, Skv in ((63, 1000), (1000, 129)):
+            for causal in (True, False):
+                yield 1, 4, 2, Sq, Skv, D, dict(causal=causal)
+    for Hkv in (8, 4, 2, 1):
+        yield 1, 8, Hkv, 200, 200, 256, dict(causal=True)
+    for window in (1, 300):
+        yield 1, 4, 2, 700, 700, 256, dict(causal=True, window=window, softcap=50.0)
+    yield 1, 4, 2, 96, 40, 256, dict(causal=False, window=16)
 
 
 def flash_limit(want, dtype: str):
@@ -393,22 +416,33 @@ def bf16_reading(torch, got, want, case: str) -> dict:
     return r
 
 
-def check_flash_kernel(torch, dev) -> tuple[dict, int, list]:
-    """Phase 3 for ``flash_attention``: the kernel against ``attention_ref``
-    on the card at every edge case within ``flash_limit``, with each
+def check_flash_kernel(torch, dev) -> tuple[dict, int, list, dict]:
+    """Phase 3 for ``flash_attention``: the kernels against
+    ``attention_ref`` on the card at every edge case within ``flash_limit``,
+    each case through the route ``ops.route`` names for it, with each
     bfloat16 case's reading (``bf16_reading``); an empty batch launches
-    nothing."""
+    nothing.  Returns the largest differences, the comparisons, the
+    readings and the comparisons by route."""
     from repro_torch.kernels.flash_attention import ops as flash_ops, ref as flash_ref
 
     err, n, readings = {"float32": 0.0, "bfloat16": 0.0}, 0, []
     gen = torch.Generator(dev).manual_seed(0)
+    routes = {}
     for B, Hq, Hkv, Sq, Skv, D, kw in flash_edge_cases():
         for dtype in err:
             q, k, v = (torch.randn(B, H, S, D, generator=gen, device=dev)
                        .to(getattr(torch, dtype)) for H, S in ((Hq, Sq), (Hkv, Skv), (Hkv, Skv)))
+            route = flash_ops.route(q.dtype, D)
+            before = flash_ops.attention.route_launches[route]
             got = flash_ops.attention(q, k, v, **kw)
+            require(flash_ops.attention.route_launches[route] == before + 1,
+                    f"{dtype} D={D} did not launch the {route} route")
             want = flash_ref.attention_ref(q, k, v, **kw)
-            err[dtype] = max(err[dtype], flash_err(torch, got, want, dtype))
+            e = flash_err(torch, got, want, dtype)
+            err[dtype] = max(err[dtype], e)
+            r = routes.setdefault(route, {"comparisons": 0, "max_abs_err": 0.0})
+            r["comparisons"] += 1
+            r["max_abs_err"] = max(r["max_abs_err"], e)
             if dtype == "bfloat16":
                 readings.append(bf16_reading(
                     torch, got, want, f"{[B, Hq, Hkv, Sq, Skv, D]} {kw}"))
@@ -417,7 +451,8 @@ def check_flash_kernel(torch, dev) -> tuple[dict, int, list]:
     before = flash_ops.attention.launches
     require(flash_ops.attention(empty, empty, empty).shape == empty.shape
             and flash_ops.attention.launches == before, "empty attention launched")
-    return err, n, readings
+    require(set(routes) == set(flash_ops.ROUTES), f"the edge cases miss a route: {routes}")
+    return err, n, readings, routes
 
 
 def check_kernels(torch, dev) -> dict:
@@ -516,10 +551,19 @@ def launch_counters() -> dict:
 def zero_launches() -> None:
     for fn in launch_counters().values():
         fn.launches = 0
+    routes = launch_counters()["flash_attention"].route_launches
+    for r in routes:
+        routes[r] = 0
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in launch_counters().items()}
+    """Each kernel's launches, and ``flash_attention``'s by route
+    (``flash_attention.ffma``, ``flash_attention.wgmma``)."""
+    counters = launch_counters()
+    out = {name: fn.launches for name, fn in counters.items()}
+    out.update({f"flash_attention.{r}": n
+                for r, n in counters["flash_attention"].route_launches.items()})
+    return out
 
 
 def fit_engine(torch, db, device, **config) -> dict:
@@ -1116,11 +1160,13 @@ def visible_pairs(Sq: int, Skv: int, causal: bool, window: int | None) -> int:
 
 def time_flash(torch, q, k, v, *, causal, window, softcap, sdpa: bool) -> dict:
     """``flash_attention`` on ``q/k/v [B,H,S,D]`` with CUDA events: the
-    launch alone into an allocated output, the plain version, and (where
-    it computes the same function: no softcap, no window) one
-    ``scaled_dot_product_attention`` call as the yardstick.  The bound is
-    the larger of q, k, v and o over 3.35 TB/s and 4*D operations a
-    visible pair over the dtype's peak (FFMA for float32)."""
+    launch alone into an allocated output (the route ``ops.route`` names),
+    the plain version, and (where it computes the same function: no
+    softcap, no window) one ``scaled_dot_product_attention`` call as the
+    yardstick.  The bound is the larger of q, k, v and o over 3.35 TB/s and
+    4*D operations a visible pair over the dtype's peak (FFMA for
+    float32); on the wgmma route ``bound_split_ms`` also counts the second
+    P V product of the bf16 hi + lo split (6*D a pair)."""
     from repro_torch.kernels.flash_attention import ops as flash_ops, ref as flash_ref
 
     kw = dict(causal=causal, window=window, softcap=softcap)
@@ -1151,9 +1197,11 @@ def time_flash(torch, q, k, v, *, causal, window, softcap, sdpa: bool) -> dict:
     bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
              "operations": 4 * D * pairs / peak * 1e3}
     by = max(bound, key=bound.get)
-    return {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound[by],
-            "bound_by": by, "max_abs_err": err, "bf16_reading": reading,
-            "visible_pairs": pairs,
+    route = flash_ops.route(q.dtype, D)
+    split = max(bound["bytes"], 1.5 * bound["operations"]) if route == "wgmma" else None
+    return {"route": route, "ms": ms, "plain_ms": plain, "library_ms": lib,
+            "bound_ms": bound[by], "bound_by": by, "bound_split_ms": split,
+            "max_abs_err": err, "bf16_reading": reading, "visible_pairs": pairs,
             "shape": f"q {list(q.shape)} k {list(k.shape)} {dtype} causal={causal} "
                      f"window={window} softcap={softcap}"}
 
@@ -1346,10 +1394,13 @@ def check_lm_serving(torch, raw_db, dev) -> tuple[dict, dict]:
     card_logits = []
     r = serve_on(torch, mdl, params, prompts, LM_NEW_TOKENS, dev, LM_BATCH,
                  LM_MAX_LEN, timed=True, logits=card_logits)
-    flash_launches = r["launches"]["flash_attention"]
-    require(r["waves"] == 2 and flash_launches == cfg.n_layers * r["waves"],
-            f"tspm-mlho: {flash_launches} flash launches in {r['waves']} waves")
-    require(all(v == 0 for n, v in r["launches"].items() if n != "flash_attention"),
+    ffma_launches = r["launches"]["flash_attention.ffma"]
+    require(r["waves"] == 2 and r["launches"]["flash_attention"]
+            == cfg.n_layers * r["waves"] == ffma_launches,
+            f"tspm-mlho: {r['launches']} flash launches in {r['waves']} waves, "
+            f"all on the ffma route")
+    require(all(v == 0 for n, v in r["launches"].items()
+                if not n.startswith("flash_attention")),
             f"serving launched a mining kernel: {r['launches']}")
     require(sorted(r["results"]) == list(range(LM_REQUESTS)), "tspm-mlho: lost requests")
     t0 = time.perf_counter()
@@ -1415,8 +1466,10 @@ def check_lm_serving(torch, raw_db, dev) -> tuple[dict, dict]:
                      GEMMA_REQUESTS, GEMMA_PROMPT_LEN + GEMMA_NEW_TOKENS, timed=True)
     finally:
         attention.full_attention = full_attention
-    require(g["launches"]["flash_attention"] == gcfg.n_layers * g["waves"] == gcfg.n_layers,
-            f"gemma2-2b: {g['launches']['flash_attention']} flash launches")
+    wgmma_launches = g["launches"]["flash_attention.wgmma"]
+    require(g["launches"]["flash_attention"] == gcfg.n_layers * g["waves"] == gcfg.n_layers
+            == wgmma_launches,
+            f"gemma2-2b: {g['launches']} flash launches, all on the wgmma route")
     require(all(len(t) == GEMMA_NEW_TOKENS or t[-1] == 2 for t in g["results"].values()),
             "gemma2-2b: short outputs")
     out["gemma2_2b"] = {k: g[k] for k in ("launches", "wall_s", "waves", "tokens",
@@ -1439,8 +1492,32 @@ def check_lm_serving(torch, raw_db, dev) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     out["allocated_after_bytes"] = torch.cuda.memory_allocated()
     out["phase_s"] = time.perf_counter() - t_phase
-    out["flash_launches"] = flash_launches
+    out["flash_launches"] = {"ffma": ffma_launches, "wgmma": wgmma_launches}
     return out, timing
+
+
+def flash_rows(routes: dict, lm: dict, timing: dict) -> list:
+    """The ``kernels`` line's rows of ``flash_attention``'s two routes: ffma
+    at tspm-mlho's shape (float32), wgmma at gemma2-2b's global layer
+    (bfloat16; both layers beside it); launches from the serving runs,
+    max_abs_err over the route's edge cases (``routes``, phase 3b) and
+    timed shapes."""
+    rows = []
+    for route, t, extra in (
+            ("ffma", timing["tspm_mlho"], {}),
+            ("wgmma", timing["gemma2_global"],
+             {"library": "flex_attention: card_probe.py flex (a compiled yardstick, "
+                         "kept out of this script)",
+              **{n: timing[n] for n in ("gemma2_local", "gemma2_global")}})):
+        rows.append({"name": f"flash_attention_{route}", "route": "cuda",
+                     "source": "src/repro_torch/csrc/flash_attention.cu",
+                     "replaces": "src/repro/kernels/flash_attention/flash.py:24",
+                     "launches": lm["flash_launches"][route],
+                     "max_abs_err": max(routes[route]["max_abs_err"], t["max_abs_err"]),
+                     "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                     "shape": t["shape"], **extra})
+    return rows
 
 
 def main() -> int:
@@ -1519,12 +1596,12 @@ def main() -> int:
     # leaves cuBLAS's workspace allocated, which would count in the mining
     # fits' peaks against their budgets
     before = torch.cuda.memory_allocated()
-    flash, n_flash, bf16_readings = check_flash_kernel(torch, dev)
-    err["flash_attention"] = max(flash.values())
+    flash, n_flash, bf16_readings, flash_routes = check_flash_kernel(torch, dev)
     torch.cuda.synchronize()
     left = torch.cuda.memory_allocated() - before
     print(f"phase 3b: {n_flash} flash_attention comparisons within tolerance (max "
-          f"|diff| {json.dumps(flash)}); {left} B stay allocated after them", flush=True)
+          f"|diff| {json.dumps(flash)}; by route {json.dumps(flash_routes)}); {left} B "
+          f"stay allocated after them", flush=True)
     print(f"phase 3b bfloat16 readings: {json.dumps(bf16_readings)}", flush=True)
     lap("3b_flash_checks")
     lm, flash_t = check_lm_serving(torch, raw, dev)
@@ -1537,15 +1614,7 @@ def main() -> int:
     kernels[-1]["table1"] = {"ms": fused_t1["ms"], "plain_ms": fused_t1["plain_ms"],
                              "bound_ms": max(fused_t1["bound"].values()),
                              "shape": fused_t1["shape"]}
-    t = flash_t["tspm_mlho"]
-    kernels.append({"name": "flash_attention", "route": "cuda",
-                    "source": "src/repro_torch/csrc/flash_attention.cu",
-                    "replaces": "src/repro/kernels/flash_attention/flash.py:24",
-                    "launches": lm["flash_launches"], "max_abs_err": err["flash_attention"],
-                    "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                    "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-                    "shape": t["shape"],
-                    **{name: flash_t[name] for name in ("gemma2_local", "gemma2_global")}})
+    kernels += flash_rows(flash_routes, lm, flash_t)
     print(json.dumps({"fit_phases": phases, "main_path": main_path,
                       "files_vs_chunked": files_vs_chunked, "card_vs_cpu": card_vs_cpu,
                       "seq_hist_paths": hist_paths, "table2": table2, "stream": stream,

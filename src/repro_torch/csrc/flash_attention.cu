@@ -1,9 +1,9 @@
-// Blocked online-softmax attention (flash) for Hopper (sm_90a).
+// Blocked online-softmax attention (flash) for Hopper (sm_90a), two routes.
 //
-// Replaces the TPU kernel src/repro/kernels/flash_attention/flash.py
+// Both replace the TPU kernel src/repro/kernels/flash_attention/flash.py
 // (_flash_kernel, launched by flash_attention).  For q [B, Hq, Sq, D] and
-// k, v [B, Hkv, Skv, D] (contiguous, float32 or bfloat16) it writes
-// o [B, Hq, Sq, D] in q's type:
+// k, v [B, Hkv, Skv, D] (contiguous, one type) they write o [B, Hq, Sq, D]
+// in q's type:
 //
 //   s[i, j] = (q[i] . k[j]) * scale
 //   s       = softcap * tanh(s / softcap)        (when a softcap is given)
@@ -13,20 +13,26 @@
 //
 // with both indices starting at 0 (top-left alignment when Sq != Skv), so
 // a row with no visible key gives 0.  Query head h reads kv head
-// h / (Hq / Hkv) (GQA).  Everything after the load is float32: products,
-// sums, the online softmax state and the accumulator.
+// h / (Hq / Hkv) (GQA).  Any Sq >= 1 and Skv >= 1.  Which route runs
+// follows (dtype, D) alone and is chosen by the caller
+// (kernels/flash_attention/ops.py, ``route``); neither falls back to the
+// other.
 //
-// Bound: operations.  Each visible (query, key) pair costs 2*D FMAs
-// (scores and the weighted sum of values); q, k, v and o are read or
-// written once, far below the bytes the FMAs need at these head widths.
-// This first kernel keeps float32 on FFMA (TF32 tensor cores would miss
-// the reference's 2e-5 float32 tolerance) and bfloat16 on FFMA as well.
+// Bound: operations.  Each visible (query, key) pair costs 2*D
+// multiply-adds for the score and 2*D for the weighted sum of values; q,
+// k, v and o are read or written once, far below the bytes those need at
+// these head widths.
 //
-// Design: one block of 256 threads per (batch x query head, 64-row query
-// tile).  The query tile and, in turn, each 64-key tile of K and V are
-// staged in shared memory in their input type (rows padded by one 32-bit
-// word, so the threads of a warp that read one column of sixteen rows hit
-// sixteen banks); the 64 x 64 score tile is computed 4 x 4 per thread in
+// ---- Route "ffma" (flash_attention): float32 at any D, bfloat16 at D 16, 32
+//
+// Everything after the load is float32 on FFMA: products, sums, the online
+// softmax state and the accumulator (TF32 tensor cores would miss the
+// reference's 2e-5 float32 tolerance).  Its bound is the FFMA rate.  One
+// block of 256 threads per (batch x query head, 64-row query tile).  The
+// query tile and, in turn, each 64-key tile of K and V are staged in
+// shared memory in their input type (rows padded by one 32-bit word, so
+// the threads of a warp that read one column of sixteen rows hit sixteen
+// banks); the 64 x 64 score tile is computed 4 x 4 per thread in
 // registers, the row max and row sum are reduced across the sixteen
 // threads of a row with shuffles, p goes through shared memory to the
 // value product, and each thread keeps 4 rows x D/16 columns of the
@@ -37,10 +43,80 @@
 // longest causal rows start first.  Shared memory: (64 + 2*64) padded rows
 // plus the 64 x 65 float p tile, 214,016 bytes at float32 and D = 256,
 // set as dynamic shared memory above the 48 KB default.
+//
+// ---- Route "wgmma" (flash_attention_wgmma): bfloat16 at D 64, 128, 256
+//
+// Its bound is the bf16 tensor-core rate (989 TFLOP/s dense on an H100
+// SXM), 1.5x the work with P split in two (hazard 1).  One CTA of 384
+// threads per (batch x query head, 128-row query tile): two consumer
+// warpgroups of 64 query rows each and one producer warpgroup, of which
+// one thread issues every copy.  The producer loads the query tile once
+// and keeps K and V tiles of BK keys in flight with TMA
+// (cp.async.bulk.tensor) into a ring of STAGES stages, each stage with a
+// K-full, a V-full and an empty mbarrier.  Per K/V tile each consumer
+//   1. issues wgmma S = Q K^T (D/16 k-steps, S in fp32 registers),
+//   2. scales, softcaps and masks S in registers,
+//   3. runs the online softmax: row max and row sum over the four threads
+//      that share a row in the accumulator layout,
+//   4. turns P into bf16 A-fragments in registers (the accumulator's
+//      layout is the A operand's, so P never touches shared memory),
+//   5. issues wgmma O += P V, with V the B operand in MN-major form,
+//   6. releases the stage (one arrival per warp).
+// The two consumers share the SM's tensor cores: one's softmax overlaps
+// the other's products (nothing orders them; a consumer's own softmax
+// does not overlap its next QK^T).  A 384-thread CTA starts at 168
+// registers a thread; setmaxnreg gives each consumer thread 240 (O is D/2
+// of them, 128 at D = 256) and leaves the producer 24.
+// Kept from the ffma route: the loop over only the keys a tile can see,
+// wholly masked tiles skipped (per consumer), query tiles walked
+// longest-first, the GQA head map.  Masks are evaluated only on tiles
+// that cut a boundary (Skv's end, the diagonal, the window's edge).
+// Tiles: BK = 64 keys and 2 stages at D = 256 (Q 64 KB + 2 x (K + V)
+// 64 KB = 192 KB of shared memory; BK = 128 would need 64 more registers
+// a thread for S and P).  BK = 128 at D <= 128 (3 stages at D = 64, 2 at
+// 128), not tuned: only D = 256 is on a served model's path.
+//
+// Hazards, and what the design does about each:
+//  1. P in bf16.  Rounding p to bf16 costs 2^-9 relative on each term;
+//     over thousands of keys (a 4,096 window) that breaks the bf16 limit
+//     2e-5 + 2^-6 |want| where |want| is small.  P is split into
+//     p_hi = bf16(p) and p_lo = bf16(p - p_hi), and two PV wgmmas add
+//     both into O (about 16 bits of p, 1.5x the MMA work).  The row sum l
+//     is taken from the fp32 p.  QK^T from bf16 inputs is exact per
+//     product with fp32 accumulation and is not split.  The template's
+//     PTERMS = 1 (single bf16 P) exists for card_probe.py's measurement.
+//  2. The softcap's tanh.  tanh.approx.f32 (~2^-11 relative) would move s
+//     by ~0.025 at softcap 50, p by ~2.5%; tanhf is kept.  The order is
+//     the reference's: scale, softcap, mask, with scale / softcap folded
+//     into one multiply before tanhf and softcap * log2(e) into one after
+//     (scale * log2(e) without a softcap); ex2.approx (2^-22 relative)
+//     takes the exponent.
+//  3. TMA and ragged lengths.  The maps are 3-D, (D, S, B*H), so a box
+//     past S is zero-filled instead of reading the next head's rows; the
+//     key mask still runs (a zero key scores 0, not -1e30).  A 128-byte
+//     swizzle caps a box at 64 bf16 columns, so a tile is D/64 boxes wide
+//     and the wgmma descriptors use the same swizzle (K-major: SBO 1024 B;
+//     V MN-major: LBO = one box, SBO 1024 B).  Global strides are
+//     multiples of 16 B at every D here, and the wrapper starts every
+//     tensor on a 16-B boundary.
+//  4. The driver API.  cuTensorMapEncodeTiled lives in libcuda; the
+//     library links only cudart, so the entry point is fetched once with
+//     cudaGetDriverEntryPoint(ByVersion).  The maps are encoded on the
+//     host for each call and passed as __grid_constant__ parameters.
+//  5. The rebuild hash covers this file alone, and the kernel includes no
+//     local header.
+//  6. Launch.  Dynamic shared memory is set above 48 KB with
+//     cudaFuncSetAttribute; cudaGetLastError() is returned after the
+//     launch; the wrapper keeps B*Hq*ceil(Sq/128) < 2^31.  Barrier waits
+//     do not time out: a __trap() anywhere in the kernel made ptxas (CUDA
+//     12.9) hold the consumers to the entry's 168 registers, spilling O
+//     and serializing the wgmmas.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -247,15 +323,525 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v, void* o
     case 32:
       return launch<T, 32>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale, causal, use_window,
                            window, use_softcap, softcap, stream);
+  }
+  if constexpr (std::is_same_v<T, float>) {  // bfloat16 at D >= 64 is the wgmma route's
+    switch (D) {
+      case 64:
+        return launch<T, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale, causal, use_window,
+                             window, use_softcap, softcap, stream);
+      case 128:
+        return launch<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale, causal, use_window,
+                              window, use_softcap, softcap, stream);
+      case 256:
+        return launch<T, 256>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale, causal, use_window,
+                              window, use_softcap, softcap, stream);
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------- wgmma route
+
+constexpr int kWgBQ = 128;          // query rows of a CTA (two consumers x 64)
+constexpr int kWgThreads = 384;     // warpgroups 0, 1 compute; warpgroup 2 loads
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// wait for the completion of the barrier's phase of parity `parity`
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// box (c0 = column, c1 = row, c2 = plane) of a 3-D map into shared memory
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle (byte offsets)
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
+}
+
+// 2^x, 2^-22 relative (MUFU.EX2); 0 for the masked scores' -1e30
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving accesses of wgmma registers across the
+// asynchronous issue and the wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// ---- wgmma instructions (m64nNk16, bf16 inputs, fp32 accumulators)
+
+// d[0..32) (+)= A[64x16] B[16x64], A and B K-major in shared memory (128-byte swizzle)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[0..64) (+)= A[64x16] B[16x128], A and B K-major in shared memory (128-byte swizzle)
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[0..32) += A[64x16] B[16x64], A (bf16 pairs) in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[0..64) += A[64x16] B[16x128], A (bf16 pairs) in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[0..128) += A[64x16] B[16x256], A (bf16 pairs) in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
+  if constexpr (N == 64) wgmma_ss_n64(d, da, db, acc);
+  else wgmma_ss_n128(d, da, db, acc);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
+  else wgmma_rs_n256(d, a, db);
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// Shared memory of a CTA, from a 1024-byte aligned base: the query tile
+// (D/64 boxes of 128 rows x 128 B), then STAGES K tiles and STAGES V tiles
+// (D/64 boxes of BK rows x 128 B each), then the barriers.
+template <int D, int BK, int STAGES>
+struct WgLayout {
+  static constexpr int kBoxes = D / 64;
+  static constexpr uint32_t kQBytes = kWgBQ * D * 2;
+  static constexpr uint32_t kKVBytes = BK * D * 2;
+  static constexpr uint32_t kK = kQBytes;
+  static constexpr uint32_t kV = kK + STAGES * kKVBytes;
+  static constexpr uint32_t kBar = kV + STAGES * kKVBytes;  // q, k_full[], v_full[], empty[]
+  static constexpr size_t kSmemBytes = kBar + 8 * (1 + 3 * STAGES) + 1024;  // + alignment slack
+};
+
+template <int D, int BK, int STAGES, int PTERMS>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                   int BH, int Hq, int Hkv, int Sq, int Skv, float scale, int causal,
+                   int use_window, int window, int use_softcap, float softcap) {
+  using L = WgLayout<D, BK, STAGES>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_q = base + L::kBar;
+  auto k_full = [&](int s) { return bar_q + 8u * (1 + s); };
+  auto v_full = [&](int s) { return bar_q + 8u * (1 + STAGES + s); };
+  auto empty = [&](int s) { return bar_q + 8u * (1 + 2 * STAGES + s); };
+
+  const int n_qt = (Sq + kWgBQ - 1) / kWgBQ;
+  const int bh = blockIdx.x % BH;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x / BH)) * kWgBQ;
+  const int kvh = (bh / Hq) * Hkv + (bh % Hq) / (Hq / Hkv);
+
+  // the keys any row of this tile can see
+  const int q_last = min(q0 + kWgBQ, Sq) - 1;
+  long long k_end = Skv;
+  if (causal) k_end = min(k_end, static_cast<long long>(q_last) + 1);
+  long long k_begin = 0;
+  if (use_window) k_begin = max(0LL, static_cast<long long>(q0) - window + 1);
+  const int n_tiles = k_end > k_begin ? static_cast<int>((k_end - k_begin + BK - 1) / BK) : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 2 * 128) {
+    // ---- producer warpgroup: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 2 * 128 && n_tiles > 0) {
+      mbar_expect_tx(bar_q, L::kQBytes);
+      for (int b = 0; b < L::kBoxes; ++b)
+        tma_load_3d(base + b * kWgBQ * 128, &tq, bar_q, 64 * b, q0, bh);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % STAGES;
+        const int round = t / STAGES;
+        if (round > 0) mbar_wait(empty(s), (round - 1) & 1);
+        const int k0 = static_cast<int>(k_begin + static_cast<long long>(t) * BK);
+        mbar_expect_tx(k_full(s), L::kKVBytes);
+        for (int b = 0; b < L::kBoxes; ++b)
+          tma_load_3d(base + L::kK + s * L::kKVBytes + b * BK * 128, &tk, k_full(s), 64 * b, k0,
+                      kvh);
+        mbar_expect_tx(v_full(s), L::kKVBytes);
+        for (int b = 0; b < L::kBoxes; ++b)
+          tma_load_3d(base + L::kV + s * L::kKVBytes + b * BK * 128, &tv, v_full(s), 64 * b, k0,
+                      kvh);
+      }
+    }
+  } else {
+    // ---- consumer warpgroup cw: query rows q0 + 64*cw .. + 63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int cw = threadIdx.x / 128;
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    const int wq0 = q0 + 64 * cw;
+    const int wq_last = min(wq0 + 63, Sq - 1);
+    const int qi0 = wq0 + 16 * (tid / 32) + lane / 4;  // this thread's rows qi0, qi0 + 8
+    const int qi1 = qi0 + 8;
+    const int c2 = 2 * (lane % 4);                       // and columns c2, c2 + 1 of each 8
+    long long wk_end = Skv;
+    if (causal) wk_end = min(wk_end, static_cast<long long>(wq_last) + 1);
+    long long wk_begin = 0;
+    if (use_window) wk_begin = max(0LL, static_cast<long long>(wq0) - window + 1);
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // l: this thread's share
+    // scores in log2 units: s * scale * log2(e), or, with a softcap,
+    // softcap * log2(e) * tanh(s * scale / softcap)
+    const float pre = use_softcap ? scale / softcap : scale * kLog2e;
+    const float post = softcap * kLog2e;
+    const uint32_t q_tile = base + cw * 64 * 128;
+
+    if (n_tiles > 0) mbar_wait(bar_q, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % STAGES;
+      const uint32_t parity = (t / STAGES) & 1;
+      const int k0 = static_cast<int>(k_begin + static_cast<long long>(t) * BK);
+      const uint32_t k_tile = base + L::kK + s * L::kKVBytes;
+      const uint32_t v_tile = base + L::kV + s * L::kKVBytes;
+      mbar_wait(k_full(s), parity);
+      const bool active = wq0 <= wq_last && k0 < wk_end && k0 + BK > wk_begin;
+      if (active) {
+        float sc[BK / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t off = (kk % 4) * 32;
+          wgmma_ss<BK>(sc, desc_sw128(q_tile + (kk / 4) * kWgBQ * 128 + off, 16, 1024),
+                       desc_sw128(k_tile + (kk / 4) * BK * 128 + off, 16, 1024), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(sc);
+
+        // does any (row, key) of this tile fall outside the visible band?
+        const bool edge = k0 + BK > Skv || (causal && k0 + BK - 1 > wq0) ||
+                          (use_window && static_cast<long long>(wq_last) - k0 >= window);
+        auto visible = [&](int qi, int kj) {
+          return kj < Skv && (!causal || qi >= kj) &&
+                 (!use_window || static_cast<long long>(qi) - kj < window);
+        };
+        float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          float x = sc[i] * pre;
+          if (use_softcap) x = post * tanhf(x);
+          if (edge && !visible((i & 2) ? qi1 : qi0, k0 + 8 * (i / 4) + c2 + (i & 1))) x = kNegInf;
+          sc[i] = x;
+          if (i & 2) mx1 = fmaxf(mx1, x);
+          else mx0 = fmaxf(mx0, x);
+        }
+#pragma unroll
+        for (int off = 1; off <= 2; off <<= 1) {
+          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+        }
+        const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
+        const float alpha0 = exp2_approx(m0 - n0), alpha1 = exp2_approx(m1 - n1);
+        m0 = n0;
+        m1 = n1;
+        float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          float p = exp2_approx(sc[i] - ((i & 2) ? n1 : n0));
+          if (edge && !visible((i & 2) ? qi1 : qi0, k0 + 8 * (i / 4) + c2 + (i & 1))) p = 0.f;
+          sc[i] = p;
+          if (i & 2) sum1 += p;
+          else sum0 += p;
+        }
+        l0 = alpha0 * l0 + sum0;
+        l1 = alpha1 * l1 + sum1;
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) acc[i] *= (i & 2) ? alpha1 : alpha0;
+
+        // P as bf16 A-fragments: fragment kk covers keys 16kk .. 16kk + 15
+        uint32_t p_hi[BK / 16][4], p_lo[BK / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float a = sc[8 * kk + 2 * e], b = sc[8 * kk + 2 * e + 1];
+            const __nv_bfloat162 hi = __floats2bfloat162_rn(a, b);
+            p_hi[kk][e] = bf16x2_bits(hi);
+            if (PTERMS == 2)
+              p_lo[kk][e] = bf16x2_bits(__floats2bfloat162_rn(a - __low2float(hi),
+                                                              b - __high2float(hi)));
+          }
+
+        mbar_wait(v_full(s), parity);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_rs<D>(acc, p_hi[kk], desc_sw128(v_tile + kk * 16 * 128, BK * 128, 1024));
+        if (PTERMS == 2) {
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)
+            wgmma_rs<D>(acc, p_lo[kk], desc_sw128(v_tile + kk * 16 * 128, BK * 128, 1024));
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(acc);
+      } else {
+        mbar_wait(v_full(s), parity);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));
+    }
+
+    // the row sums over the four threads of a row; o = acc / max(l, 1e-30)
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+    __nv_bfloat16* og = o + static_cast<size_t>(bh) * Sq * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + c2;
+      if (qi0 < Sq)
+        *reinterpret_cast<__nv_bfloat162*>(og + static_cast<size_t>(qi0) * D + col) =
+            __floats2bfloat162_rn(acc[4 * j] / d0, acc[4 * j + 1] / d0);
+      if (qi1 < Sq)
+        *reinterpret_cast<__nv_bfloat162*>(og + static_cast<size_t>(qi1) * D + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2] / d1, acc[4 * j + 3] / d1);
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, fetched once through the runtime
+cudaError_t encode_tiled(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (cached == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorSymbolNotFound;
+    cached = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = cached;
+  return cudaSuccess;
+}
+
+// a map over a [planes, rows, D] bfloat16 tensor in boxes of box_rows x 64
+// columns, 128-byte swizzle; boxes past `rows` are zero-filled
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int planes, int rows, int D,
+                     int box_rows) {
+  EncodeTiled encode;
+  const cudaError_t err = encode_tiled(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(planes)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(rows) * D * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D, int BK, int STAGES, int PTERMS>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int Hq,
+                         int Hkv, int Sq, int Skv, float scale, int causal, int use_window,
+                         int window, int use_softcap, float softcap, cudaStream_t stream) {
+  constexpr size_t bytes = WgLayout<D, BK, STAGES>::kSmemBytes;
+  static_assert(bytes <= 232448, "tiles exceed a block's shared memory");
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = make_map(&tq, q, B * Hq, Sq, D, kWgBQ);
+  if (err == cudaSuccess) err = make_map(&tk, k, B * Hkv, Skv, D, BK);
+  if (err == cudaSuccess) err = make_map(&tv, v, B * Hkv, Skv, D, BK);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_wgmma_kernel<D, BK, STAGES, PTERMS>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const int BH = B * Hq;
+  const unsigned blocks = static_cast<unsigned>(BH) * ((Sq + kWgBQ - 1) / kWgBQ);
+  flash_wgmma_kernel<D, BK, STAGES, PTERMS><<<blocks, kWgThreads, bytes, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), BH, Hq, Hkv, Sq, Skv, scale, causal,
+      use_window, window, use_softcap, softcap);
+  return cudaGetLastError();
+}
+
+template <int PTERMS>
+cudaError_t dispatch_wgmma(int D, const void* q, const void* k, const void* v, void* o, int B,
+                           int Hq, int Hkv, int Sq, int Skv, float scale, int causal,
+                           int use_window, int window, int use_softcap, float softcap,
+                           cudaStream_t stream) {
+  switch (D) {
     case 64:
-      return launch<T, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale, causal, use_window,
-                           window, use_softcap, softcap, stream);
+      return launch_wgmma<64, 128, 3, PTERMS>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale, causal,
+                                              use_window, window, use_softcap, softcap, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale, causal, use_window,
-                            window, use_softcap, softcap, stream);
+      return launch_wgmma<128, 128, 2, PTERMS>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale, causal,
+                                               use_window, window, use_softcap, softcap,
+                                               stream);
     case 256:
-      return launch<T, 256>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale, causal, use_window,
-                            window, use_softcap, softcap, stream);
+      return launch_wgmma<256, 64, 2, PTERMS>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale, causal,
+                                              use_window, window, use_softcap, softcap, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -263,10 +849,11 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v, void* o
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike).  The caller
-// guarantees D in {16, 32, 64, 128, 256}, B*Hq*Sq >= 1, Skv >= 1, Hq a
-// multiple of Hkv, B*Hq*ceil(Sq/64) < 2^31, contiguous tensors whose data
-// start on a 4-byte boundary; the launch is asynchronous on `stream`.
+// The ffma route.  dtype: 0 = float32 (D in {16, 32, 64, 128, 256}), 1 =
+// bfloat16 (D in {16, 32}), q, k, v and o alike.  The caller guarantees
+// B*Hq*Sq >= 1, Skv >= 1, Hq a multiple of Hkv, B*Hq*ceil(Sq/64) < 2^31,
+// contiguous tensors whose data start on a 4-byte boundary; the launch is
+// asynchronous on `stream`.
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o, int B,
                                int Hq, int Hkv, int Sq, int Skv, int D, int dtype,
                                float scale, int causal, int use_window, int window,
@@ -279,6 +866,26 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
                                              causal, use_window, window, use_softcap,
                                              softcap, s)
                    : cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+// The wgmma route: bfloat16 q, k, v and o, D in {64, 128, 256}; p_terms = 2
+// adds P as bf16 hi + lo (the route), 1 as bf16 alone (a measurement).
+// The caller guarantees B*Hq*Sq >= 1, Skv >= 1, Hq a multiple of Hkv,
+// B*Hq*ceil(Sq/128) < 2^31, contiguous tensors whose data start on a
+// 16-byte boundary; the launch is asynchronous on `stream`.
+extern "C" int flash_attention_wgmma(const void* q, const void* k, const void* v, void* o,
+                                     int B, int Hq, int Hkv, int Sq, int Skv, int D,
+                                     float scale, int causal, int use_window, int window,
+                                     int use_softcap, float softcap, int p_terms,
+                                     void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      p_terms == 2 ? dispatch_wgmma<2>(D, q, k, v, o, B, Hq, Hkv, Sq, Skv, scale, causal,
+                                       use_window, window, use_softcap, softcap, s)
+      : p_terms == 1 ? dispatch_wgmma<1>(D, q, k, v, o, B, Hq, Hkv, Sq, Skv, scale, causal,
+                                         use_window, window, use_softcap, softcap, s)
+                     : cudaErrorInvalidValue;
   return static_cast<int>(err);
 }
 

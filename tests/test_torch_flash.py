@@ -6,10 +6,14 @@ oracle ``ref.attention_ref``; the port runs ``ops.attention`` on CPU
 tensors (its plain version).  Tolerances are that file's: 2e-5 for
 float32, 2e-2 for bfloat16.  Ragged lengths, which the reference's kernel
 refuses, are held against the reference's ``models.attention.blocked_sdpa``
-(the path its models take off the TPU).  The CUDA kernel itself is held
-against the same plain version on the card (tests/test_torch_cuda.py,
-chip_smoke.py phase 3).
+(the path its models take off the TPU).  The CUDA kernels themselves are
+held against the same plain version on the card (tests/test_torch_cuda.py,
+chip_smoke.py phase 3); here the choice of kernel (``ops.route``), the
+checks before a launch (``ops.kernel_route``) and the wgmma route's
+rounding of P (emulated in plain torch) are held.
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -170,3 +174,113 @@ def test_plain_version_is_the_reference_oracle():
         got = ref.attention_ref(*(torch.from_numpy(a).to(tdt) for a in arrays), **kw)
         want = j_ref.attention_ref(*(jnp.asarray(a, jdt) for a in arrays), **kw)
         _close(_f32(got), _f32(want), tol)
+
+
+def test_route_follows_dtype_and_head_dim():
+    """bfloat16 at D 64/128/256 takes the wgmma kernel; float32 at every
+    D and bfloat16 at D 16/32 the ffma kernel."""
+    for D in ops.HEAD_DIMS:
+        assert ops.route(torch.float32, D) == "ffma"
+        assert ops.route(torch.bfloat16, D) == ("wgmma" if D >= 64 else "ffma")
+    assert set(ops.WGMMA_HEAD_DIMS) < set(ops.HEAD_DIMS)
+    assert set(ops.TILE_ROWS) == set(ops.ROUTES) == set(ops.attention.route_launches)
+
+
+def test_kernel_checks_refuse_what_no_route_takes():
+    """What the CUDA wrapper refuses before a launch, read from shapes alone
+    (meta tensors): head widths, dtypes, mixed devices and each route's
+    int32 grid (64-row tiles for ffma, 128-row tiles for wgmma)."""
+    def meta(*shape, dtype=torch.bfloat16):
+        return torch.empty(*shape, dtype=dtype, device="meta")
+
+    x = meta(1, 2, 8, 64)
+    assert ops.kernel_route(x, x, x) == "wgmma"
+    y = meta(1, 2, 8, 64, dtype=torch.float32)
+    assert ops.kernel_route(y, y, y) == "ffma"
+    with pytest.raises(ValueError, match="head dim"):
+        ops.kernel_route(meta(1, 2, 8, 48), meta(1, 2, 8, 48), meta(1, 2, 8, 48))
+    with pytest.raises(ValueError, match="dtypes"):
+        h = meta(1, 2, 8, 64, dtype=torch.float16)
+        ops.kernel_route(h, h, h)
+    with pytest.raises(ValueError, match="dtypes"):
+        ops.kernel_route(x, y, y)
+    with pytest.raises(ValueError, match="one device"):
+        ops.kernel_route(x, torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16), x)
+    # 2^23 heads of 2^14 rows: 2^31 ffma tiles (refused), 2^30 wgmma tiles
+    kv = meta(1, 1, 8, 64)
+    big = meta(1, 2**23, 2**14, 64)
+    assert ops.kernel_route(big, kv, kv) == "wgmma"
+    with pytest.raises(ValueError, match="ffma kernel's int32 grid"):
+        f = meta(1, 1, 8, 64, dtype=torch.float32)
+        ops.kernel_route(meta(1, 2**23, 2**14, 64, dtype=torch.float32), f, f)
+    with pytest.raises(ValueError, match="wgmma kernel's int32 grid"):
+        ops.kernel_route(meta(1, 2**24, 2**14, 64), kv, kv)
+
+
+# phase 3b's long case (chip_smoke.py): causal, window 4,096, S = 8,192, D = 64
+P_CASE = dict(B=1, Hq=2, Hkv=1, S=8192, D=64, window=4096)
+BF16_LIMIT = (2e-5, 2.0 ** -6)       # chip_smoke.py's 2e-5 + 2^-6 |want|
+
+
+def _emulated_wgmma(q, k, v, *, window, p_terms, rows=512):
+    """The wgmma route's numerics in plain torch, causal, a block of query
+    rows at a time over the keys the block can see: fp32 QK^T, fp32
+    p = exp(s - row max) with the row sum l taken from it, the value
+    product from p rounded to bfloat16 (``p_terms=1``) or split into
+    bfloat16 hi + lo (``p_terms=2``), o = acc / l rounded to bfloat16.
+    The max is the row's final one; the kernel's running max rescales the
+    fp32 accumulator instead, which does not change how p rounds."""
+    B, Hq, S, D = q.shape
+    group = Hq // k.shape[1]
+    out = torch.empty(B, Hq, S, D)
+    for b in range(B):
+        for h in range(Hq):
+            qf, kf, vf = q[b, h].float(), k[b, h // group].float(), v[b, h // group].float()
+            for i0 in range(0, S, rows):
+                lo, hi = max(0, i0 - window + 1), min(S, i0 + rows)
+                s = qf[i0:i0 + rows] @ kf[lo:hi].T * D ** -0.5
+                qi = torch.arange(i0, min(S, i0 + rows))[:, None]
+                kj = torch.arange(lo, hi)[None, :]
+                visible = (qi >= kj) & (qi - kj < window)
+                s = torch.where(visible, s, ref.NEG_INF)
+                p = torch.where(visible, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+                p_hi = p.bfloat16().float()
+                pv = p_hi if p_terms == 1 else p_hi + (p - p_hi).bfloat16().float()
+                out[b, h, i0:i0 + rows] = (pv @ vf[lo:hi]) / p.sum(-1, keepdim=True)
+    return out.bfloat16()
+
+
+@functools.cache
+def _p_case():
+    """The case's bfloat16 inputs and the reference's answer: its
+    blocked_sdpa on the inputs widened to float32 (an fp32 oracle that
+    never holds the [S, S] scores), rounded to bfloat16 as
+    attention_ref rounds."""
+    c = P_CASE
+    arrays = _inputs(c["B"], c["Hq"], c["Hkv"], c["S"], c["S"], c["D"], seed=11)
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in arrays)
+    qs, ks, vs = (jnp.asarray(np.swapaxes(t.float().numpy(), 1, 2)) for t in (q, k, v))
+    want = j_attention.blocked_sdpa(qs, ks, vs, causal=True, window=c["window"])
+    want = torch.from_numpy(np.swapaxes(np.asarray(want), 1, 2).copy()).bfloat16()
+    return q, k, v, want
+
+
+@pytest.mark.parametrize("p_terms", [1, 2])
+def test_wgmma_p_rounding_against_the_bf16_limit(p_terms):
+    """Hazard 1 of the wgmma route: p rounded to bfloat16 alone breaks the
+    smoke's bfloat16 limit where p spreads over thousands of keys; split
+    into bfloat16 hi + lo (what the route ships) it holds it everywhere."""
+    q, k, v, want = _p_case()
+    got = _emulated_wgmma(q, k, v, window=P_CASE["window"], p_terms=p_terms)
+    w = want.float()
+    beyond = ((got.float() - w).abs() > BF16_LIMIT[0] + BF16_LIMIT[1] * w.abs()).sum().item()
+    if p_terms == 1:
+        assert beyond > 1000
+    else:
+        assert beyond == 0
+    # the split's emulation agrees with the port's plain version too
+    if p_terms == 2:
+        plain = ref.attention_ref(q[:, :, :1024], k[:, :, :1024], v[:, :, :1024],
+                                  causal=True, window=P_CASE["window"]).float()
+        err = (got[:, :, :1024].float() - plain).abs()
+        assert (err <= BF16_LIMIT[0] + BF16_LIMIT[1] * plain.abs()).all()
