@@ -3,9 +3,9 @@ test (``chip_smoke.py``) does not take.
 
 Run from the root of a checkout, with one visible CUDA device:
 
-    python3 card_probe.py [idle] [share] [price] [scratch] [flex] [psplit]
+    python3 card_probe.py [idle] [share] [price] [scratch] [flex] [psplit] [tf32]
 
-(all six when none is named).  Each prints one JSON line:
+(all seven when none is named).  Each prints one JSON line:
 
   idle   the device's idle share on the streaming path at the paper's
          Table 1 cohort: a ``torch.profiler`` trace (CUDA activity only) of
@@ -34,16 +34,32 @@ Run from the root of a checkout, with one visible CUDA device:
          gemma2-2b layer shapes in turns with the kernel (kernel, flex,
          flex, kernel); the port never calls it;
   psplit the wgmma route's P in bfloat16 hi + lo (what it ships) against P
-         in bfloat16 alone (``ops._launch(..., p_terms=1)``), in turns, at
-         phase 3b's window-4,096 case and both gemma2-2b layer shapes: ms,
-         max |diff| and elements beyond the smoke's bfloat16 limit.
+         in bfloat16 alone (the probe entry ``flash_attention_wgmma_p_bf16``),
+         in turns, at phase 3b's window-4,096 case and both gemma2-2b layer
+         shapes: ms, max |diff| and elements beyond the smoke's bfloat16
+         limit;
+  tf32   where the tf32x3 route's time goes at tspm-mlho's prefill shape
+         (q [8,12,896,64], k/v [8,4,896,64], float32, causal): the route,
+         the ffma route and the route with P V as P_hi V_hi alone (the probe
+         entry ``flash_attention_tf32x3_pv_hi``: the value product's lo
+         terms taken out), timed in turns (a, b, c, c, b, a), each with max
+         |diff| and the elements beyond the smoke's float32 limit; the device
+         time of the route's pre-pass and main kernel, and of the variant's,
+         from a ``torch.profiler`` trace; and the card's name and power
+         limit.
+
+``psplit`` and ``tf32`` build ``csrc/flash_attention.cu`` once more with
+``-DFLASH_PROBES`` into ``build/probes/``: the measurement variants live
+only in that library, never in the one the port loads.
 
 The last line is ``nvidia-smi``'s name and power limit of the card.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
+import subprocess
 import sys
 import tempfile
 import time
@@ -54,25 +70,6 @@ import chip_smoke as smoke
 
 SHARES = (0.25, 0.5, 0.125, 0.0625)     # visited forward, then backward
 PRICE_BUDGETS = (64 << 20, 128 << 20, 512 << 20, 1 << 30, 4 << 30)
-
-
-def device_intervals(trace_path: str) -> dict:
-    """Device activity of a Chrome trace: (start, end) microseconds of each
-    kernel, memcpy and memset, by category, plus kernel time by name."""
-    with open(trace_path) as f:
-        events = json.load(f)["traceEvents"]
-    spans, by_cat, by_kernel = [], {}, {}
-    for e in events:
-        cat = e.get("cat", "")
-        if e.get("ph") != "X" or cat not in ("kernel", "gpu_memcpy", "gpu_memset"):
-            continue
-        ts, dur = float(e["ts"]), float(e.get("dur", 0.0))
-        spans.append((ts, ts + dur))
-        key = e["name"] if cat == "gpu_memcpy" else cat
-        by_cat[key] = by_cat.get(key, 0.0) + dur
-        if cat == "kernel":
-            by_kernel[e["name"]] = by_kernel.get(e["name"], 0.0) + dur
-    return {"spans": spans, "by_cat": by_cat, "by_kernel": by_kernel}
 
 
 def union_us(spans: list) -> float:
@@ -105,7 +102,7 @@ def profiled_stream(torch, db, waves):
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
-        dev = device_intervals(path)
+        dev = smoke.device_intervals(path)
     busy = union_us(dev["spans"]) / 1e6
     top = sorted(dev["by_kernel"].items(), key=lambda kv: -kv[1])[:10]
     return {"wall_s": wall, "rows": rows, "device_events": len(dev["spans"]),
@@ -316,15 +313,6 @@ def bf16_diff(torch, got, want) -> dict:
             "beyond_2e-2": (d > 2e-2 + 2e-2 * w.abs()).sum().item()}
 
 
-def in_turns(torch, calls: dict, iters: int = 10) -> dict:
-    """CUDA-event ms of each call, timed a, b, b, a (both readings)."""
-    order = list(calls) + list(reversed(list(calls)))
-    out = {name: [] for name in calls}
-    for name in order:
-        out[name].append(smoke.cuda_ms(torch, calls[name], iters))
-    return out
-
-
 def probe_flex(torch) -> dict:
     from torch.nn.attention.flex_attention import create_block_mask, flex_attention
 
@@ -359,9 +347,54 @@ def probe_flex(torch) -> dict:
         smoke.require(reading["beyond_2e-2"] == 0,
                       f"flex_attention computes another function at {name}: {reading}")
         out[name] = {"window": window, "softcap": cap, "first_call_s": compile_s,
-                     "flex": reading, **in_turns(torch, calls)}
+                     "flex": reading, **smoke.in_turns(torch, calls)}
         torch.cuda.empty_cache()
     return out
+
+
+@functools.cache
+def probe_entries() -> dict:
+    """The measurement variants of ``flash_attention.cu`` (``FLASH_PROBES``),
+    built with the port's flags into a library of their own, by the route
+    whose arguments each takes."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops
+
+    src = _build.CSRC / "flash_attention.cu"
+    lib = _build.BUILD_DIR.parent / "probes" / f"{_build.library_path(src).stem}-probes.so"
+    if not lib.exists():
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DFLASH_PROBES", "-o",
+                               str(lib), str(src)], capture_output=True, text=True)
+        if done.returncode != 0:
+            raise RuntimeError(f"nvcc -DFLASH_PROBES failed:\n{done.stdout}{done.stderr}")
+    dll = ctypes.CDLL(str(lib))
+    out = {}
+    for route, name in (("wgmma", "flash_attention_wgmma_p_bf16"),
+                        ("tf32x3", "flash_attention_tf32x3_pv_hi")):
+        fn = getattr(dll, name)
+        fn.argtypes, fn.restype = ops.ENTRIES[route][1], ctypes.c_int
+        out[route] = fn
+    return out
+
+
+def probe_launch(torch, q, k, v, out, **kw) -> None:
+    """The probe variant of the route that takes ``q``: as ``ops._launch``."""
+    from repro_torch.kernels.flash_attention import ops
+
+    route = ops.route(q.dtype, q.shape[3])
+    ptrs, mask = ops.entry_args(q, k, v, out, **kw)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if route == "tf32x3":
+        scratch = torch.empty(ops.tf32x3_scratch_elems(k.shape), dtype=torch.float32,
+                              device=q.device)
+        rc = probe_entries()[route](*ptrs, scratch.data_ptr(), *mask, stream)
+    else:
+        rc = probe_entries()[route](*ptrs, *mask, stream)
+    if rc != 0:
+        raise RuntimeError(f"probe variant of {route}: CUDA error {rc}")
 
 
 def probe_psplit(torch) -> dict:
@@ -379,13 +412,41 @@ def probe_psplit(torch) -> dict:
     for name, (q, k, v), kw in cases:
         want = ref.attention_ref(q, k, v, **kw)
         outs = {p: torch.empty_like(q) for p in (2, 1)}
-        calls = {f"p_terms_{p}_ms": (lambda p=p: ops._launch(q, k, v, outs[p], p_terms=p, **kw))
-                 for p in (2, 1)}
+        calls = {"p_terms_2_ms": lambda: ops._launch(q, k, v, outs[2], **kw),
+                 "p_terms_1_ms": lambda: probe_launch(torch, q, k, v, outs[1], **kw)}
         out[name] = {"shape": f"q {list(q.shape)} k {list(k.shape)} {kw}",
-                     **in_turns(torch, calls)}
+                     **smoke.in_turns(torch, calls)}
         out[name].update({f"p_terms_{p}": bf16_diff(torch, outs[p], want) for p in (2, 1)})
         del want, outs
         torch.cuda.empty_cache()
+    return out
+
+
+def probe_tf32(torch) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config("tspm-mlho")
+    gen = torch.Generator(dev).manual_seed(1)
+    B, S = smoke.LM_BATCH, smoke.LM_PROMPT_LEN
+    q, k, v = (torch.randn(B, H, S, cfg.hd, generator=gen, device=dev)
+               for H in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    kw = dict(causal=True, window=None, softcap=None)
+    outs = {n: torch.empty_like(q) for n in ("tf32x3", "ffma", "tf32x3_pv_hi_only")}
+    calls = {"tf32x3": lambda: ops._launch(q, k, v, outs["tf32x3"], **kw),
+             "ffma": lambda: ops._launch(q, k, v, outs["ffma"], force_route="ffma", **kw),
+             "tf32x3_pv_hi_only": lambda: probe_launch(torch, q, k, v,
+                                                       outs["tf32x3_pv_hi_only"], **kw)}
+    out = {"card": smoke.smi(), "shape": f"q {list(q.shape)} k {list(k.shape)} float32 causal",
+           **{f"{n}_ms": t for n, t in smoke.in_turns(torch, calls, 20).items()},
+           "device_ms": {n: smoke.kernel_device_ms(torch, calls[n], 20)
+                         for n in ("tf32x3", "tf32x3_pv_hi_only")}}
+    want = ref.attention_ref(q, k, v, **kw)
+    for n in outs:
+        d = (outs[n] - want).abs()
+        out[n] = {"max_diff": d.max().item(),
+                  "beyond_limit": (d > smoke.flash_limit(want, "float32")).sum().item()}
     return out
 
 
@@ -400,7 +461,8 @@ def main(argv: list[str]) -> int:
 
     _build.build_all()
     probes = {"idle": probe_idle, "share": probe_share, "price": probe_price,
-              "scratch": probe_scratch, "flex": probe_flex, "psplit": probe_psplit}
+              "scratch": probe_scratch, "flex": probe_flex, "psplit": probe_psplit,
+              "tf32": probe_tf32}
     for name in argv or list(probes):
         t0 = time.perf_counter()
         result = probes[name](torch)

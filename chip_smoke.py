@@ -30,8 +30,9 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with
      route (bfloat16 at D = 64/128/256), S = 1/63/129/1,000 and
      Sq != Skv (63/1,000, 1,000/129) causal and not at each of its head
      widths, GQA groups 1/2/4/8, windows 1 and 300 with softcap 50 and rows
-     that see no key at D = 256; each case must launch the route
-     ``ops.route`` names for it;
+     that see no key at D = 256; the float32 cases at D = 64 (with a window
+     of 300 and softcap 50 added at S = 700) take the tf32x3 route; each
+     case must launch the route ``ops.route`` names for it;
   4. drives the main path — ``MiningSession(...).fit(db)`` then
      ``frame.screen().collect()`` — on the paper's Table 1 cohort (4,985
      patients at ~471 events, first-occurrence filter) with
@@ -51,10 +52,13 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with
      for a 3-wave stream replay under a budget that evicts through the
      host and disk tiers (same rows, table and tier placement);
   6. times each kernel at the main path's full-size shapes with CUDA
-     events, beside its bound, its plain version and a library call, times
-     the histogram's shared-memory and global-atomics paths against each
-     other on the same ids hashed to 2^12 buckets, and times the phases of
-     the fit;
+     events, beside its bound, its plain version and a library call
+     (``seq_hist`` at each of the fit's patient blocks of at most 2^26
+     ids, as the hash fit launches it, and over the whole slab; the two
+     counting kernels' counted adds a second), times the histogram's
+     shared-memory and global-atomics paths against each other on the
+     same ids hashed to 2^12 buckets, counts ``tspm_fused``'s launches in
+     a fused batch fit, and times the phases of the fit;
   7. drives the paper's Table 2 cohort (35,000 patients at ~318 events,
      E = 240) through ``MiningSession(engine='chunked', screen='hash')``
      and ``MiningSession(screen='fused')`` at the same ``budget_bytes``,
@@ -89,10 +93,12 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with
      ``gemma2-2b`` at full size (26 layers, bf16) answers 2 random prompts
      of 8,192 tokens (8 new), and the kernel is held against its plain
      version on the q/k/v of the first local and the first global layer;
-     tspm-mlho's 24 launches must all take the ffma route and gemma2-2b's
+     tspm-mlho's 24 launches must all take the tf32x3 route and gemma2-2b's
      26 the wgmma route; the kernel is timed at these three shapes beside
      its bound, its plain version and (tspm-mlho)
-     ``scaled_dot_product_attention``.
+     ``scaled_dot_product_attention``, and at tspm-mlho's shape the ffma
+     route is timed in turns with tf32x3, and tf32x3's pre-pass and main
+     kernel are timed on the device from a ``torch.profiler`` trace.
 
 Every failed check raises, so the script exits non-zero.  The last three
 lines of its output are the ``nvidia-smi`` line, the ``kernels`` JSON line
@@ -104,6 +110,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -133,6 +140,16 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 INT_OPS_PER_S = 67e12          # H100 SXM non-tensor 32-bit rate (data sheet fp32)
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores (FFMA)
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
+TF32_OPS_PER_S = 495e12        # H100 SXM TF32 tensor cores, dense
+# tspm_fused's operations, read from the SASS of fused_kernel<false> (bit
+# codec; cuobjdump -sass of its sm_90a build): per enumerated slot the
+# i < j test (1); per slot with i < j the two lookback loads and tests (4);
+# per counted pair the id (IMAD.WIDE, SHF and two LOP3: 4), the
+# multiply-shift (IMAD.WIDE.U32 and three IMADs for the 64-bit product,
+# SHF.R.U64, the mask's LOP3: 6) and one atomic add (REDG: 1).  The slot's
+# index split (a 32-bit division, 14 instructions) is left out: it belongs
+# to this design, not to the work
+FUSED_SLOT_OPS, FUSED_UPPER_OPS, FUSED_PAIR_OPS = 1, 4, 11
 FLASH_TOL = 2e-5               # float32: atol = rtol, tests/test_kernels_flash.py
 # bfloat16: 2e-5 + 2^-6 |want|.  The kernel and the plain version both
 # round a float32 result to bfloat16, so they may part by one bfloat16 ulp
@@ -159,6 +176,54 @@ def smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def in_turns(torch, calls: dict, iters: int = 10) -> dict:
+    """CUDA-event ms of each call, timed a, b, b, a (both readings)."""
+    order = list(calls) + list(reversed(list(calls)))
+    out = {name: [] for name in calls}
+    for name in order:
+        out[name].append(cuda_ms(torch, calls[name], iters))
+    return out
+
+
+def device_intervals(trace_path: str) -> dict:
+    """Device activity of a Chrome trace: (start, end) microseconds of each
+    kernel, memcpy and memset, by category, plus kernel time by name."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    spans, by_cat, by_kernel = [], {}, {}
+    for e in events:
+        cat = e.get("cat", "")
+        if e.get("ph") != "X" or cat not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        ts, dur = float(e["ts"]), float(e.get("dur", 0.0))
+        spans.append((ts, ts + dur))
+        key = e["name"] if cat == "gpu_memcpy" else cat
+        by_cat[key] = by_cat.get(key, 0.0) + dur
+        if cat == "kernel":
+            by_kernel[e["name"]] = by_kernel.get(e["name"], 0.0) + dur
+    return {"spans": spans, "by_cat": by_cat, "by_kernel": by_kernel}
+
+
+def kernel_device_ms(torch, fn, iters: int) -> dict:
+    """Mean device milliseconds a call of ``fn`` spends in each kernel it
+    launches, by the kernel's name in a ``torch.profiler`` trace (CUDA
+    activity) of ``iters`` calls after a warm-up call.  Unlike CUDA events
+    around the calls, this leaves out the host's time between launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        by_kernel = device_intervals(path)["by_kernel"]
+    return {name: us / iters / 1e3 for name, us in by_kernel.items()}
 
 
 def cuda_ms(torch, fn, iters: int) -> float:
@@ -351,7 +416,9 @@ def flash_edge_cases():
     tiles, 64- or 128-key tiles): at each of its head widths lengths that
     are no multiple of 64 or 128 and Sq != Skv causal and not; at D = 256
     GQA groups 1, 2, 4 and 8, windows 1 and 300 with softcap 50, and rows
-    that see no key.  Each case runs in float32 (the ffma route) too."""
+    that see no key.  Each case runs in float32 too: at D = 64 on the
+    tf32x3 route (with a window of 300 and softcap 50 at S = 700 for it),
+    at the other widths on the ffma route."""
     for S in (1, 127, 128, 129, 200):
         yield 2, 4, 2, S, S, 64, dict(causal=True)
     for Sq, Skv in ((100, 260), (260, 100)):
@@ -366,6 +433,7 @@ def flash_edge_cases():
     yield 1, 4, 2, 200, 200, 128, dict(causal=True, softcap=50.0)
     yield 1, 4, 2, 300, 300, 256, dict(causal=True, window=64, softcap=50.0)
     yield 1, 4, 2, 96, 40, 64, dict(causal=False, window=16)
+    yield 1, 4, 2, 700, 700, 64, dict(causal=True, window=300, softcap=50.0)
     for D in (64, 128, 256):
         for S in (1, 63, 129, 1000):
             yield 1, 4, 2, S, S, D, dict(causal=True)
@@ -558,7 +626,7 @@ def zero_launches() -> None:
 
 def read_launches() -> dict:
     """Each kernel's launches, and ``flash_attention``'s by route
-    (``flash_attention.ffma``, ``flash_attention.wgmma``)."""
+    (``flash_attention.ffma``, ``.wgmma``, ``.tf32x3``)."""
     counters = launch_counters()
     out = {name: fn.launches for name, fn in counters.items()}
     out.update({f"flash_attention.{r}": n
@@ -1069,25 +1137,46 @@ def time_kernels(torch, db, dev, err: dict, launches: dict):
     table = hist_ops.hist(h, first, nb)
     err["seq_hist"] = max(err["seq_hist"], max_abs_err(
         torch, [table], [hist_ref.hist_ref(h, first, nb)]))
-    weights = first.reshape(-1).to(torch.float32)
-    lib = torch.bincount(h.reshape(-1), weights=weights, minlength=nb)
-    require(torch.equal(lib.to(torch.int32), table), "bincount yardstick disagrees")
-    hs_ms = cuda_ms(torch, lambda: hist_ops.hist(h, first, nb), 10)
-    hs_plain = cuda_ms(torch, lambda: hist_ref.hist_ref(h, first, nb), 3)
-    hs_lib = cuda_ms(torch, lambda: torch.bincount(h.reshape(-1), weights=weights,
+    slab_ms = cuda_ms(torch, lambda: hist_ops.hist(h, first, nb), 10)
+    # the fit's launches: one per patient block of at most BLOCK_ELEMENTS
+    # ids (sparsity.local_bucket_counts); the row is the first (full) block's
+    blk = max(1, sparsity.BLOCK_ELEMENTS // (E * E))
+    blocks = []
+    for s in range(0, P, blk):
+        hb, fb = h[s:s + blk], first[s:s + blk]
+        counted = int(fb.sum())
+        blocks.append({"rows": hb.shape[0], "n": hb.numel(), "counted": counted,
+                       "ms": cuda_ms(torch, lambda: hist_ops.hist(hb, fb, nb), 10),
+                       "bound_ms": max(hist_bound(hb.numel(), counted, nb).values())})
+    hb, fb = h[:blk], first[:blk]
+    weights = fb.reshape(-1).to(torch.float32)
+    lib = torch.bincount(hb.reshape(-1), weights=weights, minlength=nb)
+    require(torch.equal(lib.to(torch.int32), hist_ops.hist(hb, fb, nb)),
+            "bincount yardstick disagrees")
+    hs_plain = cuda_ms(torch, lambda: hist_ref.hist_ref(hb, fb, nb), 3)
+    hs_lib = cuda_ms(torch, lambda: torch.bincount(hb.reshape(-1), weights=weights,
                                                     minlength=nb), 3)
+    hs_bound = hist_bound(blocks[0]["n"], blocks[0]["counted"], nb)
     counted = int(first.sum())
-    hs_bound = hist_bound(n, counted, nb)
-    del h, first, weights, lib, table
+    fit_ms = sum(b["ms"] for b in blocks)
+    fit_bound = sum(b["bound_ms"] for b in blocks)
+    hs_extra = {"blocks": blocks, "fit_blocks_ms": fit_ms, "fit_blocks_bound_ms": fit_bound,
+                "slab_ms": slab_ms, "slab_shape": f"N={n} H={H} counted={counted}",
+                "counted_adds_per_s": counted / (fit_ms / 1e3),
+                "bound_adds_per_s": counted / (fit_bound / 1e3)}
+    print(f"seq_hist at the fit's blocks: {json.dumps(hs_extra)}", flush=True)
+    del h, first, weights, lib, table, hb, fb
     torch.cuda.empty_cache()
 
     print(f"seq_hist paths at H=12: {json.dumps(paths)}", flush=True)
     return paths, [
         kernel_row("tspm_pairgen", "src/repro/kernels/tspm_pairgen/pairgen.py:29",
                    launches, err, pg_ms, pg_plain, pg_bound, None, f"P={P} E={E}"),
-        kernel_row("seq_hist", "src/repro/kernels/seq_hist/seq_hist.py:25",
-                   launches, err, hs_ms, hs_plain, hs_bound, hs_lib,
-                   f"N={n} H={H} counted={counted}"),
+        {**kernel_row("seq_hist", "src/repro/kernels/seq_hist/seq_hist.py:25",
+                      launches, err, blocks[0]["ms"], hs_plain, hs_bound, hs_lib,
+                      f"N={blocks[0]['n']} H={H} counted={blocks[0]['counted']} "
+                      f"(the first of {len(blocks)} blocks of {blk} patients)"),
+         **hs_extra},
     ]
 
 
@@ -1103,8 +1192,10 @@ def kernel_row(name, replaces, launches, err, ms, plain, bound, lib_ms, shape):
 def time_fused(torch, db, dev, err: dict) -> dict:
     """``tspm_fused`` at a cohort's full size and H = 20, beside its bound
     and the plain version of its algorithm, with CUDA events.  The bound
-    reads the cohort once and writes the table once (bytes), or does one
-    64-bit multiply-shift and one add per counted pair (operations)."""
+    reads the cohort once and writes the table once (bytes), or does the
+    operations ``FUSED_*_OPS`` count (the slot tests, each counted pair's
+    id, multiply-shift and atomic add) at the 32-bit rate; the counted
+    pairs a second are the pace of its atomic adds."""
     from repro_torch.kernels.tspm_fused import ops as fused_ops, ref as fused_ref
 
     x, nev = (torch.from_numpy(a).to(dev) for a in (db.phenx, db.nevents))
@@ -1112,17 +1203,34 @@ def time_fused(torch, db, dev, err: dict) -> dict:
     got = fused_ops.fused_table(x, nev, H_DEFAULT)
     err["tspm_fused"] = max(err["tspm_fused"], max_abs_err(
         torch, [got], [fused_ref.fused_table_ref(x, nev, H_DEFAULT)]))
-    n = db.nevents.astype(np.int64)
-    counted = int(np.sum(n * (n - 1) // 2))   # every code is distinct in a row
+    n = np.clip(db.nevents.astype(np.int64), 0, E)
+    # every code is distinct in a row, so every slot with i < j is counted
+    counted = int(np.sum(n * (n - 1) // 2))
+    slots = int(np.sum(np.where(n >= 2, n * n, 0)))
     require(int(got.sum()) == counted, "tspm_fused counted another number of pairs")
     ms = cuda_ms(torch, lambda: fused_ops.fused_table(x, nev, H_DEFAULT), 10)
     plain = cuda_ms(torch, lambda: fused_ref.fused_table_ref(x, nev, H_DEFAULT), 2)
+    ops = FUSED_SLOT_OPS * slots + (FUSED_UPPER_OPS + FUSED_PAIR_OPS) * counted
     bound = {"bytes": (P * E * 4 + P * 4 + 4 * (1 << H_DEFAULT)) / HBM_BYTES_PER_S * 1e3,
-             "operations": 2 * counted / INT_OPS_PER_S * 1e3}
+             "operations": ops / INT_OPS_PER_S * 1e3}
     del x, nev, got
     torch.cuda.empty_cache()
-    return {"ms": ms, "plain_ms": plain, "bound": bound,
+    return {"ms": ms, "plain_ms": plain, "bound": bound, "slots": slots, "operations": ops,
+            "counted_adds_per_s": counted / (ms / 1e3),
+            "bound_adds_per_s": counted / (max(bound.values()) / 1e3),
             "shape": f"P={P} E={E} H={H_DEFAULT} counted={counted}"}
+
+
+def fused_fit_launches(torch, db, device) -> int:
+    """``tspm_fused``'s launches in one fused batch fit of ``db`` (the
+    counts zeroed just before the fit and read just after)."""
+    fu = fit_engine(torch, db, device, screen="fused", threshold=THRESHOLD)
+    n = fu["launches"]["tspm_fused"]
+    require(n >= 1, "fused: tspm_fused never launched")
+    print(f"fused batch fit: {n} tspm_fused launches, {fu['fit_s']} s", flush=True)
+    del fu
+    torch.cuda.empty_cache()
+    return n
 
 
 def time_fit_phases(torch, db, device) -> dict:
@@ -1158,25 +1266,37 @@ def visible_pairs(Sq: int, Skv: int, causal: bool, window: int | None) -> int:
     return int(np.maximum(hi - lo, 0).sum())
 
 
-def time_flash(torch, q, k, v, *, causal, window, softcap, sdpa: bool) -> dict:
+def time_flash(torch, q, k, v, *, causal, window, softcap, sdpa: bool,
+               beside: str | None = None) -> dict:
     """``flash_attention`` on ``q/k/v [B,H,S,D]`` with CUDA events: the
-    launch alone into an allocated output (the route ``ops.route`` names),
+    launch alone into an allocated output (the route ``ops.route`` names;
+    with ``beside``, that route too at the same shape, timed in turns),
     the plain version, and (where it computes the same function: no
     softcap, no window) one ``scaled_dot_product_attention`` call as the
     yardstick.  The bound is the larger of q, k, v and o over 3.35 TB/s and
-    4*D operations a visible pair over the dtype's peak (FFMA for
-    float32); on the wgmma route ``bound_split_ms`` also counts the second
-    P V product of the bf16 hi + lo split (6*D a pair)."""
+    the operations over the card's peak for their type: for bfloat16 4*D a
+    visible pair on bf16 tensor cores (``bound_split_ms`` also counts the
+    wgmma route's second P V product of its bf16 hi + lo split, 6*D a pair);
+    for float32 3xTF32, float32-accurate work at the card's highest rate:
+    12*D a pair (three TF32 products each way) on TF32 tensor cores, with
+    ``bound_ffma_ms`` (4*D a pair at the FFMA rate) beside it.  On the
+    tf32x3 route ``prepass_ms`` and ``main_kernel_ms`` are the device times
+    of its two kernels in a profiler trace of the call."""
     from repro_torch.kernels.flash_attention import ops as flash_ops, ref as flash_ref
 
     kw = dict(causal=causal, window=window, softcap=softcap)
     q, k, v = (t.contiguous() for t in (q, k, v))
     B, Hq, Sq, D = q.shape
-    out = torch.empty_like(q)
-    ms = cuda_ms(torch, lambda: flash_ops._launch(q, k, v, out, **kw), 10)
+    route = flash_ops.route(q.dtype, D)
+    outs = {r: torch.empty_like(q) for r in (route, beside) if r}
+    calls = {r: (lambda r=r: flash_ops._launch(q, k, v, outs[r], force_route=r, **kw))
+             for r in outs}
+    turns = in_turns(torch, calls) if beside else {route: [cuda_ms(torch, calls[route], 10)]}
+    ms = {r: sum(t) / len(t) for r, t in turns.items()}
     dtype = str(q.dtype).removeprefix("torch.")
     want = flash_ref.attention_ref(q, k, v, **kw)
-    err = flash_err(torch, out, want, dtype)
+    errs = {r: flash_err(torch, outs[r], want, dtype) for r in outs}
+    out = outs[route]
     reading = bf16_reading(torch, out, want, "layer") if dtype == "bfloat16" else None
     del want
     plain = cuda_ms(torch, lambda: flash_ref.attention_ref(q, k, v, **kw), 2)
@@ -1193,17 +1313,38 @@ def time_flash(torch, q, k, v, *, causal, window, softcap, sdpa: bool) -> dict:
         lib = cuda_ms(torch, call, 10)
     pairs = B * Hq * visible_pairs(Sq, k.shape[2], causal, window)
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, out))
-    peak = FP32_OPS_PER_S if q.dtype == torch.float32 else BF16_OPS_PER_S
+    f32 = q.dtype == torch.float32
     bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-             "operations": 4 * D * pairs / peak * 1e3}
+             "operations": (12 * D * pairs / TF32_OPS_PER_S if f32
+                            else 4 * D * pairs / BF16_OPS_PER_S) * 1e3}
     by = max(bound, key=bound.get)
-    route = flash_ops.route(q.dtype, D)
     split = max(bound["bytes"], 1.5 * bound["operations"]) if route == "wgmma" else None
-    return {"route": route, "ms": ms, "plain_ms": plain, "library_ms": lib,
-            "bound_ms": bound[by], "bound_by": by, "bound_split_ms": split,
-            "max_abs_err": err, "bf16_reading": reading, "visible_pairs": pairs,
-            "shape": f"q {list(q.shape)} k {list(k.shape)} {dtype} causal={causal} "
-                     f"window={window} softcap={softcap}"}
+    r = {"route": route, "ms": ms[route], "ms_turns": turns[route], "plain_ms": plain,
+         "library_ms": lib, "bound_ms": bound[by], "bound_by": by,
+         "bound_split_ms": split, "max_abs_err": errs[route], "bf16_reading": reading,
+         "visible_pairs": pairs,
+         "shape": f"q {list(q.shape)} k {list(k.shape)} {dtype} causal={causal} "
+                  f"window={window} softcap={softcap}"}
+    if f32:
+        r["bound_ffma_ms"] = max(bound["bytes"], 4 * D * pairs / FP32_OPS_PER_S * 1e3)
+    if route == "tf32x3":
+        scratch = torch.empty(flash_ops.tf32x3_scratch_elems(k.shape), dtype=torch.float32,
+                              device=q.device)
+        dev_ms = kernel_device_ms(torch, lambda: flash_ops._launch(
+            q, k, v, out, scratch=scratch, **kw), 20)
+        pre = [t for n, t in dev_ms.items() if "tf32x3_split_kernel" in n]
+        main = [t for n, t in dev_ms.items() if "flash_tf32x3_kernel" in n]
+        if len(pre) == len(main) == 1:
+            r.update(prepass_ms=pre[0], main_kernel_ms=main[0],
+                     prepass_share=pre[0] / (pre[0] + main[0]))
+        else:
+            r.update(prepass_ms=None, main_kernel_ms=None, prepass_share=None,
+                     profiler_kernels=sorted(dev_ms))
+        del scratch
+    if beside:
+        r["beside"] = {"route": beside, "ms": ms[beside], "ms_turns": turns[beside],
+                       "max_abs_err": errs[beside]}
+    return r
 
 
 def lm_prompts(raw_db) -> list:
@@ -1394,11 +1535,12 @@ def check_lm_serving(torch, raw_db, dev) -> tuple[dict, dict]:
     card_logits = []
     r = serve_on(torch, mdl, params, prompts, LM_NEW_TOKENS, dev, LM_BATCH,
                  LM_MAX_LEN, timed=True, logits=card_logits)
-    ffma_launches = r["launches"]["flash_attention.ffma"]
+    tf32_launches = r["launches"]["flash_attention.tf32x3"]
     require(r["waves"] == 2 and r["launches"]["flash_attention"]
-            == cfg.n_layers * r["waves"] == ffma_launches,
+            == cfg.n_layers * r["waves"] == tf32_launches,
             f"tspm-mlho: {r['launches']} flash launches in {r['waves']} waves, "
-            f"all on the ffma route")
+            f"all on the tf32x3 route")
+    ffma_launches = r["launches"]["flash_attention.ffma"]
     require(all(v == 0 for n, v in r["launches"].items()
                 if not n.startswith("flash_attention")),
             f"serving launched a mining kernel: {r['launches']}")
@@ -1442,7 +1584,8 @@ def check_lm_serving(torch, raw_db, dev) -> tuple[dict, dict]:
     k, v = (torch.randn(B, cfg.n_kv_heads, S, cfg.hd, generator=gen, device=dev)
             for _ in range(2))
     timing["tspm_mlho"] = time_flash(torch, q, k, v, causal=True, window=None,
-                                     softcap=None, sdpa=True)
+                                     softcap=None, sdpa=True, beside="ffma")
+    print(f"phase 9 (tspm_mlho attention): {json.dumps(timing['tspm_mlho'])}", flush=True)
     del params, cpu_params, q, k, v, r, cpu, card_logits, cpu_logits
     torch.cuda.empty_cache()
 
@@ -1470,6 +1613,7 @@ def check_lm_serving(torch, raw_db, dev) -> tuple[dict, dict]:
     require(g["launches"]["flash_attention"] == gcfg.n_layers * g["waves"] == gcfg.n_layers
             == wgmma_launches,
             f"gemma2-2b: {g['launches']} flash launches, all on the wgmma route")
+    ffma_launches += g["launches"]["flash_attention.ffma"]
     require(all(len(t) == GEMMA_NEW_TOKENS or t[-1] == 2 for t in g["results"].values()),
             "gemma2-2b: short outputs")
     out["gemma2_2b"] = {k: g[k] for k in ("launches", "wall_s", "waves", "tokens",
@@ -1492,19 +1636,29 @@ def check_lm_serving(torch, raw_db, dev) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     out["allocated_after_bytes"] = torch.cuda.memory_allocated()
     out["phase_s"] = time.perf_counter() - t_phase
-    out["flash_launches"] = {"ffma": ffma_launches, "wgmma": wgmma_launches}
+    out["flash_launches"] = {"tf32x3": tf32_launches, "wgmma": wgmma_launches,
+                             "ffma": ffma_launches}
     return out, timing
 
 
 def flash_rows(routes: dict, lm: dict, timing: dict) -> list:
-    """The ``kernels`` line's rows of ``flash_attention``'s two routes: ffma
-    at tspm-mlho's shape (float32), wgmma at gemma2-2b's global layer
-    (bfloat16; both layers beside it); launches from the serving runs,
-    max_abs_err over the route's edge cases (``routes``, phase 3b) and
-    timed shapes."""
+    """The ``kernels`` line's rows of ``flash_attention``'s three routes:
+    tf32x3 at tspm-mlho's shape (float32) and ffma timed in turns with it
+    at the same shape, wgmma at gemma2-2b's global layer (bfloat16; both
+    layers beside it); launches from the serving runs (no served model
+    takes the ffma route since float32 at D 64 went to tf32x3), max_abs_err
+    over the route's edge cases (``routes``, phase 3b) and timed shapes."""
+    t = timing["tspm_mlho"]
+    ffma = {**t, **t["beside"], "note": "no served model takes this route: it serves "
+            "float32 at D 16/32/128/256 and bfloat16 at D 16/32; timed in turns with "
+            "tf32x3 at tspm-mlho's shape"}
+    tf32x3 = {**t, "ms_turns_ffma": t["beside"]["ms_turns"]}
     rows = []
     for route, t, extra in (
-            ("ffma", timing["tspm_mlho"], {}),
+            ("tf32x3", tf32x3, {k: tf32x3.get(k) for k in (
+                "bound_ffma_ms", "prepass_ms", "main_kernel_ms", "prepass_share",
+                "ms_turns", "ms_turns_ffma", "profiler_kernels")}),
+            ("ffma", ffma, {k: ffma[k] for k in ("bound_ffma_ms", "ms_turns", "note")}),
             ("wgmma", timing["gemma2_global"],
              {"library": "flex_attention: card_probe.py flex (a compiled yardstick, "
                          "kept out of this script)",
@@ -1568,6 +1722,7 @@ def main() -> int:
     hist_paths, kernels = time_kernels(torch, db, dev, err,
                                        main_path["hash"]["launches"])
     fused_t1 = time_fused(torch, db, dev, err)
+    fused_t1_launches = fused_fit_launches(torch, db, dev)
     phases = time_fit_phases(torch, db, dev)
     lap("6_timing")
     phases.update(canonicalize_s=main_path["hash"]["canonicalize_s"],
@@ -1611,9 +1766,14 @@ def main() -> int:
         "tspm_fused", "src/repro/kernels/tspm_fused/fused.py:134", fused_launches,
         err, fused_t2["ms"], fused_t2["plain_ms"], fused_t2["bound"], None,
         fused_t2["shape"]))
+    kernels[-1].update({k: fused_t2[k] for k in ("slots", "operations", "counted_adds_per_s",
+                                                 "bound_adds_per_s")})
     kernels[-1]["table1"] = {"ms": fused_t1["ms"], "plain_ms": fused_t1["plain_ms"],
                              "bound_ms": max(fused_t1["bound"].values()),
-                             "shape": fused_t1["shape"]}
+                             "launches": fused_t1_launches,
+                             **{k: fused_t1[k] for k in ("slots", "operations", "shape",
+                                                         "counted_adds_per_s",
+                                                         "bound_adds_per_s")}}
     kernels += flash_rows(flash_routes, lm, flash_t)
     print(json.dumps({"fit_phases": phases, "main_path": main_path,
                       "files_vs_chunked": files_vs_chunked, "card_vs_cpu": card_vs_cpu,

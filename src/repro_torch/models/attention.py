@@ -102,7 +102,11 @@ def resolve_impl(impl: str, x: torch.Tensor) -> str:
 
 
 def full_attention(q, k, v, cfg, *, causal, window):
-    """q [B,Sq,H,hd], k/v [B,Skv,Hkv,hd] -> [B,Sq,H,hd]."""
+    """q [B,Sq,H,hd], k/v [B,Skv,Hkv,hd] -> [B,Sq,H,hd].
+
+    Under ``'flash'`` every Sq takes the kernel (its plain version on the
+    CPU); the reference sends Sq = 1 to ``blocked_sdpa``, with the same
+    values within the kernel's tolerance."""
     if resolve_impl(cfg.attn_impl, q) == "flash":
         from repro_torch.kernels.flash_attention import ops as flash_ops
 

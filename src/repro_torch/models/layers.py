@@ -85,8 +85,18 @@ class Embedding(nn.Module):
 
 
 def embed_lookup(p: Embedding, tokens, scale=False):
+    """Rows of the table for ``tokens``, as the reference's ``jnp.take``:
+    an id in [-V, -1] wraps to ``id + V``, and any id outside [-V, V) gives
+    a row of NaN.  The gather reads clamped ids only, so an out-of-range id
+    never indexes past the table (on the card that would be a device-side
+    assert, which leaves the CUDA context unusable)."""
     t = p.table
-    y = t[tokens]
+    V = t.shape[0]
+    tokens = torch.as_tensor(tokens, device=t.device)
+    inside = (tokens >= -V) & (tokens < V)
+    y = t[torch.where(tokens < 0, tokens + V, tokens).clamp(0, V - 1)]
+    y = torch.where(inside[..., None], y, torch.full((), float("nan"), dtype=t.dtype,
+                                                     device=t.device))
     if scale:   # sqrt(d) rounded to the table's dtype first, as the reference
         y = y * float(torch.tensor(t.shape[1] ** 0.5, dtype=y.dtype))
     return y

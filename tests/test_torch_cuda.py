@@ -320,13 +320,19 @@ FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-5, 2.0 ** -6)}
     (1, 4, 4, 63, 1000, 128, dict(causal=False)),
     (2, 8, 4, 129, 129, 256, dict(causal=True)),
     (1, 8, 2, 1000, 1000, 256, dict(causal=True, window=300, softcap=50.0)),
+    (1, 2, 1, 8192, 8192, 64, dict(causal=True, window=4096)),
+    (1, 4, 2, 700, 700, 64, dict(causal=True, window=300, softcap=50.0)),
+    (2, 8, 1, 200, 200, 64, dict(causal=True)),
+    (1, 4, 2, 96, 40, 64, dict(causal=False, window=16)),
+    (1, 4, 2, 63, 1000, 64, dict(causal=True)),
 ])
 def test_flash_kernel_matches_plain_version(cuda_device, dtype, B, Hq, Hkv, Sq, Skv,
                                             D, kw):
     """Ragged tiles, GQA, window, softcap, Sq != Skv, rows with no visible
     key, through the route ``ops.route`` names (wgmma for bfloat16 at D >=
-    64); float32 within 2e-5 + 2e-5 |want|, bfloat16 within 2e-5 + 2^-6
-    |want|."""
+    64, tf32x3 for float32 at D = 64: window 4,096 at S = 8,192, softcap 50
+    with a window, GQA group 8, rows that see no key, Sq != Skv); float32
+    within 2e-5 + 2e-5 |want|, bfloat16 within 2e-5 + 2^-6 |want|."""
     g = torch.Generator(cuda_device).manual_seed(Sq * D)
     q = torch.randn(B, Hq, Sq, D, generator=g, device=cuda_device).to(dtype)
     k = torch.randn(B, Hkv, Skv, D, generator=g, device=cuda_device).to(dtype)
@@ -341,6 +347,41 @@ def test_flash_kernel_matches_plain_version(cuda_device, dtype, B, Hq, Hkv, Sq, 
     want = flash_ref.attention_ref(q, k, v, **kw)
     atol, rtol = FLASH_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv", [(1, 3, 1, 10, 13), (2, 4, 2, 129, 200)])
+def test_tf32x3_prepass_matches_plain_version(cuda_device, B, Hq, Hkv, Sq, Skv):
+    """The tf32x3 pre-pass writes ``ref.tf32x3_operands`` byte for byte
+    into the scratch the route is given (the main kernel only reads it): k
+    as TF32 hi and lo planes, V transposed in ``value_key_order`` with
+    zeros past Skv."""
+    g = torch.Generator(cuda_device).manual_seed(Sq)
+    q, k, v = (torch.randn(B, H, S, 64, generator=g, device=cuda_device)
+               for H, S in ((Hq, Sq), (Hkv, Skv), (Hkv, Skv)))
+    scratch = torch.full((flash_ops.tf32x3_scratch_elems(k.shape),), float("nan"),
+                         device=cuda_device)
+    flash_ops._launch(q, k, v, torch.empty_like(q), causal=True, window=None, softcap=None,
+                      scratch=scratch)
+    want = torch.cat([t.reshape(-1) for t in flash_ref.tf32x3_operands(k, v)])
+    assert_same(scratch, want)
+
+
+def test_tf32x3_releases_its_scratch_and_never_takes_ffma(cuda_device):
+    """A float32 call at D = 64 launches tf32x3 (never ffma), allocates the
+    pre-pass's scratch for the call only, and leaves only its output."""
+    g = torch.Generator(cuda_device).manual_seed(3)
+    q, k, v = (torch.randn(2, H, 300, 64, generator=g, device=cuda_device) for H in (8, 2, 2))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    launches = dict(flash_ops.attention.route_launches)
+    got = flash_ops.attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    after = flash_ops.attention.route_launches
+    assert after["tf32x3"] == launches["tf32x3"] + 1 and after["ffma"] == launches["ffma"]
+    scratch = 4 * flash_ops.tf32x3_scratch_elems(k.shape)
+    assert torch.cuda.max_memory_allocated() - before >= scratch + got.numel() * 4
+    assert torch.cuda.memory_allocated() - before == -(-got.numel() * 4 // 512) * 512
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):

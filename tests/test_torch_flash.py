@@ -9,8 +9,10 @@ refuses, are held against the reference's ``models.attention.blocked_sdpa``
 (the path its models take off the TPU).  The CUDA kernels themselves are
 held against the same plain version on the card (tests/test_torch_cuda.py,
 chip_smoke.py phase 3); here the choice of kernel (``ops.route``), the
-checks before a launch (``ops.kernel_route``) and the wgmma route's
-rounding of P (emulated in plain torch) are held.
+checks before a launch (``ops.kernel_route``), the wgmma route's
+rounding of P and the tf32x3 route's 3xTF32 products (both emulated in
+plain torch), and the tf32x3 pre-pass's plain version and key order are
+held.
 """
 import functools
 
@@ -177,26 +179,36 @@ def test_plain_version_is_the_reference_oracle():
 
 
 def test_route_follows_dtype_and_head_dim():
-    """bfloat16 at D 64/128/256 takes the wgmma kernel; float32 at every
-    D and bfloat16 at D 16/32 the ffma kernel."""
+    """bfloat16 at D 64/128/256 takes the wgmma kernel, float32 at D 64 the
+    tf32x3 kernel; float32 at D 16/32/128/256 and bfloat16 at D 16/32 the
+    ffma kernel."""
     for D in ops.HEAD_DIMS:
-        assert ops.route(torch.float32, D) == "ffma"
+        assert ops.route(torch.float32, D) == ("tf32x3" if D == 64 else "ffma")
         assert ops.route(torch.bfloat16, D) == ("wgmma" if D >= 64 else "ffma")
     assert set(ops.WGMMA_HEAD_DIMS) < set(ops.HEAD_DIMS)
+    assert set(ops.TF32X3_HEAD_DIMS) == {64}
     assert set(ops.TILE_ROWS) == set(ops.ROUTES) == set(ops.attention.route_launches)
+    assert ops.ROUTES == ("ffma", "wgmma", "tf32x3")
 
 
 def test_kernel_checks_refuse_what_no_route_takes():
     """What the CUDA wrapper refuses before a launch, read from shapes alone
-    (meta tensors): head widths, dtypes, mixed devices and each route's
-    int32 grid (64-row tiles for ffma, 128-row tiles for wgmma)."""
+    (meta tensors): head widths, dtypes, mixed devices, each route's int32
+    grid (64-row tiles for ffma, 128-row tiles for wgmma and tf32x3), and a
+    measurement's route override that does not take the dtype or D."""
     def meta(*shape, dtype=torch.bfloat16):
         return torch.empty(*shape, dtype=dtype, device="meta")
 
     x = meta(1, 2, 8, 64)
     assert ops.kernel_route(x, x, x) == "wgmma"
     y = meta(1, 2, 8, 64, dtype=torch.float32)
-    assert ops.kernel_route(y, y, y) == "ffma"
+    assert ops.kernel_route(y, y, y) == "tf32x3"
+    z = meta(1, 2, 8, 32, dtype=torch.float32)
+    assert ops.kernel_route(z, z, z) == "ffma"
+    for route, t in (("wgmma", y), ("tf32x3", x), ("tf32x3", z)):
+        with pytest.raises(ValueError, match=f"route '{route}' does not take"):
+            ops._launch(t, t, t, t, causal=True, window=None, softcap=None,
+                        force_route=route)
     with pytest.raises(ValueError, match="head dim"):
         ops.kernel_route(meta(1, 2, 8, 48), meta(1, 2, 8, 48), meta(1, 2, 8, 48))
     with pytest.raises(ValueError, match="dtypes"):
@@ -211,10 +223,14 @@ def test_kernel_checks_refuse_what_no_route_takes():
     big = meta(1, 2**23, 2**14, 64)
     assert ops.kernel_route(big, kv, kv) == "wgmma"
     with pytest.raises(ValueError, match="ffma kernel's int32 grid"):
-        f = meta(1, 1, 8, 64, dtype=torch.float32)
-        ops.kernel_route(meta(1, 2**23, 2**14, 64, dtype=torch.float32), f, f)
+        f = meta(1, 1, 8, 32, dtype=torch.float32)
+        ops.kernel_route(meta(1, 2**23, 2**14, 32, dtype=torch.float32), f, f)
     with pytest.raises(ValueError, match="wgmma kernel's int32 grid"):
         ops.kernel_route(meta(1, 2**24, 2**14, 64), kv, kv)
+    f = meta(1, 1, 8, 64, dtype=torch.float32)
+    assert ops.kernel_route(meta(1, 2**23, 2**14, 64, dtype=torch.float32), f, f) == "tf32x3"
+    with pytest.raises(ValueError, match="tf32x3 kernel's int32 grid"):
+        ops.kernel_route(meta(1, 2**24, 2**14, 64, dtype=torch.float32), f, f)
 
 
 # phase 3b's long case (chip_smoke.py): causal, window 4,096, S = 8,192, D = 64
@@ -284,3 +300,119 @@ def test_wgmma_p_rounding_against_the_bf16_limit(p_terms):
                                   causal=True, window=P_CASE["window"]).float()
         err = (got[:, :, :1024].float() - plain).abs()
         assert (err <= BF16_LIMIT[0] + BF16_LIMIT[1] * plain.abs()).all()
+
+
+# ---- the tf32x3 route (float32 at D 64 on TF32 tensor cores)
+
+F32_LIMIT = (2e-5, 2e-5)             # chip_smoke.py's 2e-5 + 2e-5 |want|
+
+
+def _emulated_tf32x3(q, k, v, *, causal, window=None, products=3, rows=512):
+    """The tf32x3 route's numerics in plain torch, a block of query rows at
+    a time over the keys the block can see: q, k and v split into TF32 hi
+    + lo (round to nearest, ties away: add 0x1000 to the bits, clear the
+    low 13), S = q_hi k_lo^T + q_lo k_hi^T + q_hi k_hi^T in float32 (each
+    product of two TF32 values is exact in float32), p = exp(s - row max)
+    with the row sum l from the float32 p, p split into hi + lo the same
+    way, o = (p_hi v_lo + p_lo v_hi + p_hi v_hi) / l.  ``products=1`` keeps
+    q_hi k_hi^T and p_hi v_hi alone (one TF32 product each way)."""
+    B, Hq, Sq, D = q.shape
+    Skv = k.shape[2]
+    group = Hq // k.shape[1]
+
+    def mm(a, b):
+        (a_hi, a_lo), (b_hi, b_lo) = a, b
+        return a_hi @ b_hi if products == 1 else a_hi @ b_lo + a_lo @ b_hi + a_hi @ b_hi
+
+    out = torch.empty(B, Hq, Sq, D)
+    for b in range(B):
+        for h in range(Hq):
+            qs = ref.tf32_split(q[b, h])
+            ks = ref.tf32_split(k[b, h // group])
+            vs = ref.tf32_split(v[b, h // group])
+            for i0 in range(0, Sq, rows):
+                i1 = min(Sq, i0 + rows)
+                lo = max(0, i0 - window + 1) if window is not None else 0
+                hi = min(Skv, i1) if causal else Skv
+                s = mm([t[i0:i1] for t in qs], [t[lo:hi].T for t in ks]) * D ** -0.5
+                qi = torch.arange(i0, i1)[:, None]
+                kj = torch.arange(lo, hi)[None, :]
+                visible = (qi >= kj) if causal else torch.ones_like(qi >= kj)
+                if window is not None:
+                    visible = visible & (qi - kj < window)
+                s = torch.where(visible, s, ref.NEG_INF)
+                p = torch.where(visible, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+                o = mm(ref.tf32_split(p), [t[lo:hi] for t in vs])
+                out[b, h, i0:i1] = o / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    return out
+
+
+@functools.cache
+def _f32_case(name):
+    """(q, k, v, reference answer, options) in float32: phase 3b's long case
+    (causal, window 4,096, S = 8,192, D = 64, two heads on one kv head) or
+    a ragged causal GQA case; the answer is the reference's blocked_sdpa."""
+    B, Hq, Hkv, S, kw = {"window_4096": (1, 2, 1, 8192, dict(causal=True, window=4096)),
+                         "ragged": (2, 4, 2, 1000, dict(causal=True))}[name]
+    arrays = _inputs(B, Hq, Hkv, S, S, 64, seed=11)
+    q, k, v = (torch.from_numpy(a).float() for a in arrays)
+    want = j_attention.blocked_sdpa(*(jnp.asarray(np.swapaxes(a, 1, 2), jnp.float32)
+                                      for a in arrays), **kw)
+    want = torch.from_numpy(np.swapaxes(np.asarray(want), 1, 2).copy())
+    return q, k, v, want, kw
+
+
+@pytest.mark.parametrize("name,products", [("window_4096", 3), ("window_4096", 1),
+                                           ("ragged", 3)])
+def test_tf32x3_products_against_the_float32_limit(name, products):
+    """3xTF32 (what the route ships) holds the smoke's float32 limit where p
+    spreads over thousands of keys and at a ragged causal GQA case; one
+    TF32 product each way (the control) breaks it."""
+    q, k, v, want, kw = _f32_case(name)
+    got = _emulated_tf32x3(q, k, v, products=products, **kw)
+    beyond = ((got - want).abs() > F32_LIMIT[0] + F32_LIMIT[1] * want.abs()).sum().item()
+    if products == 1:
+        assert beyond > 1000
+    else:
+        assert beyond == 0
+
+
+def test_value_key_order_meets_the_fragment_k_index():
+    """Hazard 2 of the tf32x3 route: the transposed V's key order is a
+    bijection on each group of 8 keys, and it puts at each A-fragment
+    k-index the key whose score the thread holds there (accumulator column
+    2t + e goes to k-index t + 4e)."""
+    order = ref.value_key_order(64)
+    for g in range(0, 64, 8):
+        assert sorted(order[g:g + 8].tolist()) == list(range(g, g + 8))
+    # the thread that holds score column 2t + e (t = lane % 4) places it at
+    # the TF32 A fragment's k-index t + 4e (CUTLASS's SM90 ALayout_64x8)
+    cols = torch.arange(8)
+    k_index = cols // 2 + 4 * (cols % 2)
+    assert sorted(k_index.tolist()) == list(range(8))
+    assert torch.equal(order[k_index], cols)
+    assert k_index.tolist() == [0, 4, 1, 5, 2, 6, 3, 7]
+
+
+def test_tf32x3_operands_are_the_split_inputs():
+    """The pre-pass's plain version: k as TF32 hi then lo planes, V
+    transposed with its keys in ``value_key_order`` and zero past Skv, and
+    hi + lo within 2^-22 of each input (q's split, which the main kernel
+    makes in shared memory, too); its size is the scratch the wrapper
+    allocates."""
+    q, k, v = (torch.from_numpy(a).float() for a in _inputs(2, 6, 2, 10, 13, 64, seed=5))
+    ks, vts = ref.tf32x3_operands(k, v)
+    assert ks.shape == (8, 13, 64) and vts.shape == (8, 64, 16)
+    assert ks.numel() + vts.numel() == ops.tf32x3_scratch_elems(k.shape)
+    for x, (hi, lo) in ((q, ref.tf32_split(q)), (k.reshape(4, 13, 64), ks.split(4))):
+        assert ((hi.view(torch.int32) & 0x1FFF) == 0).all()
+        assert ((lo.view(torch.int32) & 0x1FFF) == 0).all()
+        assert ((hi + lo - x).abs() <= 2.0 ** -22 * x.abs()).all()
+        assert ((hi - x).abs() <= 2.0 ** -11 * x.abs()).all()
+    inverse = torch.argsort(ref.value_key_order(16))
+    vt_hi, vt_lo = (t[:, :, inverse] for t in vts.split(4))
+    assert (vt_hi[:, :, 13:] == 0).all() and (vt_lo[:, :, 13:] == 0).all()
+    want_hi, want_lo = ref.tf32_split(v.reshape(4, 13, 64).transpose(1, 2))
+    assert torch.equal(vt_hi[:, :, :13], want_hi) and torch.equal(vt_lo[:, :, :13], want_lo)
+    ties = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -12])
+    assert ref.tf32_round(ties).tolist() == [1 + 2.0 ** -10, -(1 + 2.0 ** -10), 1.0]

@@ -10,6 +10,8 @@ reduced ``gemma2-2b`` (local/global layers with window 16, both softcaps,
 post-norms, GeGLU, scaled embeddings) run on the CPU, where attention is
 the plain ``blocked_sdpa``.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -218,3 +220,59 @@ def test_seeded_init_scales_and_determinism():
     assert abs(float(w.std()) / cfg.d_ff ** -0.5 - 0.8796) < 0.05
     assert torch.equal(a.ln_f.scale, torch.zeros(cfg.d_model))
     assert a.head is None and abs(float(a.embed.table.std()) - 0.8796) < 0.05
+
+
+@pytest.mark.parametrize("scale", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_embed_lookup_out_of_range_ids_match_take(dtype, scale):
+    """The reference's ``jnp.take``: ids in [-V, -1] wrap, ids outside
+    [-V, V) give NaN rows; NaN in the same places, every other row
+    byte-equal (float32 and bfloat16, with and without the sqrt(d) scale)."""
+    V, d = 6, 8
+    table = np.random.default_rng(9).standard_normal((V, d)).astype(np.float32)
+    ids = np.array([[-V - 1, -V, -1, 0], [V - 1, V, V + 1, 2]], np.int32)
+    jt = jnp.asarray(table, jnp.dtype(dtype))
+    emb = layers.Embedding(V, d, layers.DTYPES[dtype], "cpu")
+    emb.table.copy_(torch.from_numpy(table).to(layers.DTYPES[dtype]))
+    want = np.asarray(j_layers.embed_lookup({"table": jt}, jnp.asarray(ids), scale)
+                      .astype(jnp.float32))
+    got = layers.embed_lookup(emb, torch.from_numpy(ids), scale)
+    assert got.dtype == layers.DTYPES[dtype] and got.shape == (2, 4, d)
+    got = got.float().numpy()
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    assert nan[0, 0].all() and nan[1, 1:3].all() and not nan[0, 1:].any()
+    assert got[~nan].tobytes() == want[~nan].tobytes()
+
+
+@pytest.mark.parametrize("Sq,impl", [(1, "torch"), (1, "flash"), (24, "torch"), (128, "flash")])
+def test_full_attention_matches_reference(Sq, impl):
+    """``full_attention`` under each ``cfg.attn_impl`` against the
+    reference's on the CPU; the reference's ``'xla'`` is the port's
+    ``'torch'``.  At Sq = 1 under ``'flash'`` the reference takes
+    ``blocked_sdpa`` and the port the kernel's plain version; at Sq = 128
+    the reference runs its Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(Sq)
+    Skv = max(Sq, 16)
+    q = rng.standard_normal((2, Sq, 4, 16)).astype(np.float32)
+    k, v = (rng.standard_normal((2, Skv, 2, 16)).astype(np.float32) for _ in range(2))
+    cfg = get_config("gemma2-2b", reduced=True)
+    kw = dict(causal=Sq > 1, window=None)
+    want = j_attention.full_attention(
+        *(jnp.asarray(a) for a in (q, k, v)),
+        dataclasses.replace(cfg, attn_impl={"torch": "xla"}.get(impl, impl)), **kw)
+    got = attention.full_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                                   dataclasses.replace(cfg, attn_impl=impl), **kw)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("window,softcap", [(None, None), (12, None), (None, 30.0),
+                                            (12, 30.0)])
+def test_blocked_sdpa_matches_reference(window, softcap):
+    rng = np.random.default_rng(12)
+    q = rng.standard_normal((1, 40, 4, 16)).astype(np.float32)
+    k, v = (rng.standard_normal((1, 40, 2, 16)).astype(np.float32) for _ in range(2))
+    kw = dict(causal=True, window=window, softcap=softcap)
+    want = j_attention.blocked_sdpa(*(jnp.asarray(a) for a in (q, k, v)), q_chunk=8, **kw)
+    got = attention.blocked_sdpa(*(torch.from_numpy(a) for a in (q, k, v)), q_chunk=8, **kw)
+    _close(got, want)
