@@ -3,9 +3,9 @@ test (``chip_smoke.py``) does not take.
 
 Run from the root of a checkout, with one visible CUDA device:
 
-    python3 card_probe.py [idle] [share] [price] [scratch] [flex] [psplit] [tf32]
+    python3 card_probe.py [idle] [share] [price] [scratch] [flex] [psplit] [tf32] [count]
 
-(all seven when none is named).  Each prints one JSON line:
+(all eight when none is named).  Each prints one JSON line:
 
   idle   the device's idle share on the streaming path at the paper's
          Table 1 cohort: a ``torch.profiler`` trace (CUDA activity only) of
@@ -46,20 +46,31 @@ Run from the root of a checkout, with one visible CUDA device:
          |diff| and the elements beyond the smoke's float32 limit; the device
          time of the route's pre-pass and main kernel, and of the variant's,
          from a ``torch.profiler`` trace; and the card's name and power
-         limit.
+         limit;
+  count  the partitioned counting kernels (``csrc/bucket_count.cuh``)
+         and the kernels before the partitioned design (global atomics),
+         timed in turns (new, old, old, new) at a Table 1 fit block
+         (``seq_hist``, H = 20) and at Table 2's cohort (``tspm_fused``,
+         H = 20), all tables equal, with each kernel's device time from a
+         ``torch.profiler`` trace; and ``seq_hist``'s partitioned route
+         against its global route (the old kernel) on the block's leading
+         2^18..2^26 ids, whole calls in turns: the crossover behind
+         ``ops.GLOBAL_MAX_ELEMENTS``.
 
 ``psplit`` and ``tf32`` build ``csrc/flash_attention.cu`` once more with
-``-DFLASH_PROBES`` into ``build/probes/``: the measurement variants live
-only in that library, never in the one the port loads.
+``-DFLASH_PROBES`` into ``build/probes/``, and ``count`` builds
+``seq_hist.cu`` and ``tspm_fused.cu`` with ``-DCOUNT_PROBES``: the
+measurement variants live only in those libraries, never in the ones the
+port loads.
 
 The last line is ``nvidia-smi``'s name and power limit of the card.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -357,20 +368,10 @@ def probe_entries() -> dict:
     """The measurement variants of ``flash_attention.cu`` (``FLASH_PROBES``),
     built with the port's flags into a library of their own, by the route
     whose arguments each takes."""
-    import ctypes
-
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops
 
-    src = _build.CSRC / "flash_attention.cu"
-    lib = _build.BUILD_DIR.parent / "probes" / f"{_build.library_path(src).stem}-probes.so"
-    if not lib.exists():
-        lib.parent.mkdir(parents=True, exist_ok=True)
-        done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DFLASH_PROBES", "-o",
-                               str(lib), str(src)], capture_output=True, text=True)
-        if done.returncode != 0:
-            raise RuntimeError(f"nvcc -DFLASH_PROBES failed:\n{done.stdout}{done.stderr}")
-    dll = ctypes.CDLL(str(lib))
+    dll = _build.load_probe("flash_attention", "FLASH_PROBES")
     out = {}
     for route, name in (("wgmma", "flash_attention_wgmma_p_bf16"),
                         ("tf32x3", "flash_attention_tf32x3_pv_hi")):
@@ -450,6 +451,65 @@ def probe_tf32(torch) -> dict:
     return out
 
 
+def count_kernels(torch, calls: dict, tables: dict, want) -> dict:
+    """Turns of each kernel, their tables against ``want``, and each one's
+    device time by kernel from a profiler trace."""
+    out = {"ms": {k: v for k, v in smoke.in_turns(torch, calls, 10).items()}}
+    for k, t in tables.items():
+        smoke.require(torch.equal(t, want), f"count: kernel {k} disagrees")
+    out["device_ms"] = {k: smoke.kernel_device_ms(torch, fn, 5) for k, fn in calls.items()}
+    return out
+
+
+def probe_count(torch) -> dict:
+    from repro_torch.core import encoding, sparsity
+    from repro_torch.kernels.seq_hist import ops as hist_ops
+    from repro_torch.kernels.tspm_fused import ops as fused_ops
+    from repro_torch.kernels.tspm_pairgen import ops as pg_ops
+
+    dev = torch.device("cuda", 0)
+    H, nb = smoke.H_DEFAULT, 1 << smoke.H_DEFAULT
+    out = {"card": smoke.smi()}
+    db = smoke.make_cohort()
+    E = db.max_events
+    blk = max(1, sparsity.BLOCK_ELEMENTS // (E * E))
+    args = [torch.from_numpy(a[:blk]).to(dev) for a in (db.phenx, db.date, db.nevents)]
+    got = pg_ops.pairgen(*args)
+    srt = torch.sort(torch.where(got.mask, got.seq, encoding.SENTINEL).reshape(blk, -1),
+                     dim=1).values
+    del got, args
+    h, first = sparsity.hash_bucket(srt, H), sparsity.row_first_flags(srt)
+    del srt
+    tables = {k: torch.zeros(nb, dtype=torch.int32, device=dev) for k in ("new", "old")}
+    calls = {"new": lambda: hist_ops._launch(h, first, tables["new"].zero_(), "partitioned"),
+             "old": lambda: smoke.old_hist(torch, h, first, tables["old"].zero_())}
+    out["seq_hist"] = {"shape": f"N={h.numel()} H={H} counted={int(first.sum())}",
+                       **count_kernels(torch, calls, tables, hist_ops.hist(h, first, nb))}
+    # the crossover against the old kernel: leading runs of the block's ids
+    flat_h, flat_f = h.reshape(-1), first.reshape(-1)
+    sizes = {}
+    for log2 in range(18, 27):
+        hs, fs = flat_h[:1 << log2], flat_f[:1 << log2]
+        part, old = (torch.zeros(nb, dtype=torch.int32, device=dev) for _ in range(2))
+        t = smoke.in_turns(torch, {
+            "partitioned": lambda: hist_ops._launch(hs, fs, part.zero_(), "partitioned"),
+            "global": lambda: hist_ops._launch(hs, fs, old.zero_(), "global")}, 20)
+        smoke.require(torch.equal(part, old), "count: the routes disagree")
+        sizes[1 << log2] = {"counted": int(fs.sum()), **t}
+    out["seq_hist"]["sizes"] = sizes
+    del h, first, tables, calls, flat_h, flat_f
+    torch.cuda.empty_cache()
+
+    db2 = smoke.make_cohort(smoke.TABLE2_PATIENTS, smoke.TABLE2_EVENTS)
+    x, nev = (torch.from_numpy(a).to(dev) for a in (db2.phenx, db2.nevents))
+    tables = {"old": torch.zeros(nb, dtype=torch.int32, device=dev)}
+    calls = {"new": lambda: fused_ops.fused_table(x, nev, H),
+             "old": lambda: smoke.old_fused(torch, x, nev, tables["old"].zero_(), H)}
+    out["tspm_fused"] = {"shape": f"P={x.shape[0]} E={x.shape[1]} H={H}",
+                         **count_kernels(torch, calls, tables, fused_ops.fused_table(x, nev, H))}
+    return out
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -462,7 +522,7 @@ def main(argv: list[str]) -> int:
     _build.build_all()
     probes = {"idle": probe_idle, "share": probe_share, "price": probe_price,
               "scratch": probe_scratch, "flex": probe_flex, "psplit": probe_psplit,
-              "tf32": probe_tf32}
+              "tf32": probe_tf32, "count": probe_count}
     for name in argv or list(probes):
         t0 = time.perf_counter()
         result = probes[name](torch)

@@ -13,10 +13,15 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with
   3. holds each kernel byte for byte against its plain PyTorch version on
      the card, at edge shapes (P = 0, E = 0/1/127/128/129, nevents 0/1,
      duplicate codes and dates, both codecs with and without the fused
-     duration; H = 1..24 with SENTINEL ids present); ``tspm_fused`` against
-     ``fused_table_ref`` and ``block_bucket_counts`` for both codecs at
-     H = 1/8/12/15/16/20/24, including a one-code cohort whose ids collide
-     everywhere; ``tspm_delta`` against ``delta_mine_torch`` for both codecs
+     duration); ``seq_hist`` at every H = 1..24 (15 and 16 are the edge
+     of the one-partition case) with SENTINEL ids present, 3 elements off
+     16-byte alignment, zero counted ids, every id in one bucket and ids
+     out of range on both sides; ``tspm_fused`` against
+     ``fused_table_ref`` for both codecs at every H = 1..24 (and against
+     ``block_bucket_counts`` at H = 1/2/8/12/15/16/20/24), including a
+     one-code cohort whose ids collide in one bucket, and at H =
+     15/16/20/24 in rounds of about a patient each (a launch a round, one
+     table); ``tspm_delta`` against ``delta_mine_torch`` for both codecs
      with and without the fused duration (P/E/D = 0, E and D at
      127/128/129, rows with no delta, an empty delta window, a single-event
      history, a history at full plane capacity), and the identity "pairs
@@ -55,10 +60,13 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with
      events, beside its bound, its plain version and a library call
      (``seq_hist`` at each of the fit's patient blocks of at most 2^26
      ids, as the hash fit launches it, and over the whole slab; the two
-     counting kernels' counted adds a second), times the histogram's
-     shared-memory and global-atomics paths against each other on the
-     same ids hashed to 2^12 buckets, counts ``tspm_fused``'s launches in
-     a fused batch fit, and times the phases of the fit;
+     counting kernels' counted adds a second); ``seq_hist`` (each block,
+     the stream's largest tick, the slab hashed to 2^12 buckets) and
+     ``tspm_fused`` (both tables) in turns with the kernels before the
+     partitioned design (the ``-DCOUNT_PROBES`` build), with each stage's
+     device time from a profiler trace; ``tspm_delta``'s launch also by
+     its device time; counts ``tspm_fused``'s launches (a round each) in a
+     fused batch fit, and times the phases of the fit;
   7. drives the paper's Table 2 cohort (35,000 patients at ~318 events,
      E = 240) through ``MiningSession(engine='chunked', screen='hash')``
      and ``MiningSession(screen='fused')`` at the same ``budget_bytes``,
@@ -141,15 +149,16 @@ INT_OPS_PER_S = 67e12          # H100 SXM non-tensor 32-bit rate (data sheet fp3
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores (FFMA)
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 TF32_OPS_PER_S = 495e12        # H100 SXM TF32 tensor cores, dense
-# tspm_fused's operations, read from the SASS of fused_kernel<false> (bit
-# codec; cuobjdump -sass of its sm_90a build): per enumerated slot the
-# i < j test (1); per slot with i < j the two lookback loads and tests (4);
-# per counted pair the id (IMAD.WIDE, SHF and two LOP3: 4), the
+# tspm_fused's operations: what the function needs, whatever a design
+# spends.  Per counted pair the id (IMAD.WIDE, SHF and two LOP3: 4), the
 # multiply-shift (IMAD.WIDE.U32 and three IMADs for the 64-bit product,
-# SHF.R.U64, the mask's LOP3: 6) and one atomic add (REDG: 1).  The slot's
-# index split (a 32-bit division, 14 instructions) is left out: it belongs
-# to this design, not to the work
-FUSED_SLOT_OPS, FUSED_UPPER_OPS, FUSED_PAIR_OPS = 1, 4, 11
+# SHF.R.U64, the mask's LOP3: 6) and one count (1), as the SASS of the
+# kernel before the partitioned design has them (fused_kernel<false>, bit
+# codec; cuobjdump -sass of its sm_90a build); per pair i < j of a row
+# that repeats a code, the dedup test (the two lookback loads and tests:
+# 4).  A row with no repeated code needs no dedup test, and no design
+# needs a slot with j <= i or a dead i
+FUSED_PAIR_OPS, FUSED_DEDUP_OPS = 11, 4
 FLASH_TOL = 2e-5               # float32: atol = rtol, tests/test_kernels_flash.py
 # bfloat16: 2e-5 + 2^-6 |want|.  The kernel and the plain version both
 # round a float32 result to bfloat16, so they may part by one bfloat16 ulp
@@ -296,6 +305,88 @@ def fused_edge_cases():
     yield random_cohort(np.random.default_rng(31), 6, 12, 1)
 
 
+def hist_edge_cases(torch, h, first, nb: int):
+    """(h, mask) pairs of phase 3's histogram checks: the hashed sorted ids
+    with SENTINEL rows (as the fit gives them), the same 3 elements off
+    16-byte alignment, zero counted ids, every id in one bucket, and ids
+    outside [0, nb) on both sides."""
+    flat_h, flat_m = h.reshape(-1), first.reshape(-1)
+    yield h, first
+    yield flat_h[3:], flat_m[3:]
+    yield h, torch.zeros_like(first)
+    yield torch.full_like(h, nb - 1), first
+    yield h * 3 - nb, first
+
+
+def count_probe(torch, name: str, entry: str, argtypes):
+    """An entry point of the ``COUNT_PROBES`` build of ``csrc/<name>.cu``
+    (the counting kernels as they were before the partitioned design),
+    never the library the port loads."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    fn = getattr(_build.load_probe(name, "COUNT_PROBES"), entry)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
+def old_hist(torch, h, mask, out, shared: bool = False) -> None:
+    """Adds into ``out`` with the histogram kernel before the partitioned
+    design: its global-atomics kernel is the port's ``global`` route; its
+    shared-table kernel (``shared``) lives only in the ``COUNT_PROBES``
+    build (``seq_hist_old_shared``)."""
+    import ctypes
+
+    from repro_torch.kernels.seq_hist import ops as hist_ops
+
+    if not shared:
+        hist_ops._launch(h, mask, out, force_route="global")
+        return
+    fn = count_probe(torch, "seq_hist", "seq_hist_old_shared",
+                     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                      ctypes.c_int, ctypes.c_void_p])
+    h, mask = h.reshape(-1), mask.reshape(-1)
+    rc = fn(h.data_ptr(), mask.data_ptr(), h.numel(), out.data_ptr(), out.numel(),
+            torch.cuda.current_stream().cuda_stream)
+    require(rc == 0, f"seq_hist_old_shared: CUDA error {rc}")
+
+
+def old_fused(torch, x, nev, out, H: int) -> None:
+    """Adds into ``out`` with the fused kernel before the partitioned
+    design (``tspm_fused_old``: every slot of the n^2 square; global
+    atomics above 2^15 buckets), launched as it was: 256 threads, as many
+    blocks an SM as its shared memory allowed."""
+    import ctypes
+
+    from repro_torch.analysis import roofline
+    from repro_torch.kernels import bucket_count as bc
+
+    fn = count_probe(torch, "tspm_fused", "tspm_fused_old",
+                     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    P, E = x.shape
+    shared = (1 << H) <= bc.MAX_SHARED_BUCKETS
+    blocks = bc.blocks_per_sm(((1 << H) if shared else 0) * 4 + 8 * E, roofline.THREADS)
+    rc = fn(x.data_ptr(), nev.data_ptr(), out.data_ptr(), P, E, 0, H, int(shared),
+            roofline.THREADS, blocks, torch.cuda.current_stream().cuda_stream)
+    require(rc == 0, f"tspm_fused_old: CUDA error {rc}")
+
+
+def stage_ms(device_ms: dict, stages: dict) -> dict:
+    """Device ms of each stage: the sum over the kernels whose name holds
+    one of the stage's names (``kernel_device_ms``)."""
+    return {stage: sum(ms for k, ms in device_ms.items() if any(n in k for n in names))
+            for stage, names in stages.items()}
+
+
+# the measurement builds of the counting kernels (the old design)
+COUNT_PROBE_BUILDS = {"seq_hist": "COUNT_PROBES", "tspm_fused": "COUNT_PROBES"}
+HIST_STAGES = {"a": ("hist_count_pass", "scan_offsets", "hist_stage"),
+               "b": ("count_segments",)}
+FUSED_STAGES = {"a": ("fused_count_pass", "scan_offsets", "fused_stage"),
+                "b": ("count_segments",)}
+
+
 def check_fused_kernel(torch, dev) -> tuple[float, int]:
     """Phase 3 for ``tspm_fused``: the kernel against the plain version of
     its own algorithm on the card and against the contract
@@ -308,15 +399,31 @@ def check_fused_kernel(torch, dev) -> tuple[float, int]:
     for phenx, date, nevents in fused_edge_cases():
         cpu = [torch.from_numpy(a) for a in (phenx, date, nevents)]
         x, d, nev = (a.to(dev) for a in cpu)
+        pairs = fused_ops.row_pairs(nevents, phenx.shape[1])
+        most = int(pairs.max(initial=0))
         for codec in encoding.CODECS:
-            for H in (1, 2, 8, 12, 15, 16, 20, 24):
+            for H in range(1, 25):
                 got = fused_ops.fused_bucket_counts(x, d, nev, codec=codec,
                                                     n_buckets_log2=H)
-                err = max(err, max_abs_err(torch, [got], [
-                    fused_ref.fused_table_ref(x, nev, H, codec)]))
-                err = max(err, max_abs_err(torch, [got], [
-                    fused_ref.block_bucket_counts(*cpu, codec, n_buckets_log2=H)]))
-                n += 2
+                want = fused_ref.fused_table_ref(x, nev, H, codec)
+                err = max(err, max_abs_err(torch, [got], [want]))
+                n += 1
+                if H in (1, 2, 8, 12, 15, 16, 20, 24):
+                    err = max(err, max_abs_err(torch, [got], [
+                        fused_ref.block_bucket_counts(*cpu, codec, n_buckets_log2=H)]))
+                    n += 1
+                if H in (15, 16, 20, 24) and most:
+                    # rounds of about one patient: several rounds, one table
+                    rounds = fused_ops.fused_rounds(nevents, phenx.shape[1], most)
+                    before = fused_ops.fused_bucket_counts.launches
+                    got = fused_ops.fused_bucket_counts(x, d, nev, codec=codec,
+                                                        n_buckets_log2=H, round_pairs=most)
+                    require(fused_ops.fused_bucket_counts.launches - before == len(rounds),
+                            "tspm_fused: a launch a round")
+                    require(len(rounds) > 1 or np.count_nonzero(pairs) < 2,
+                            "tspm_fused: one round only")
+                    err = max(err, max_abs_err(torch, [got], [want]))
+                    n += 1
             got = fused_ops.fused_bucket_counts(x, d, nev, codec=codec,
                                                 fuse_duration=True,
                                                 n_buckets_log2=12, block_patients=2)
@@ -542,7 +649,7 @@ def check_kernels(torch, dev) -> dict:
                                           max_abs_err(torch, got, want))
                 n += 1
     rng = np.random.default_rng(1)
-    for H in (1, 12, 14, 15, 16, 20, 24):
+    for H in range(1, 25):                 # 15 and 16: the one-partition edge
         ids = rng.integers(-2**62, 2**62, (64, 1000), dtype=np.int64)
         ids[:, ::9] = ids[:, :1]                 # repeats inside each row
         ids[:, -50:] = encoding.SENTINEL
@@ -550,19 +657,22 @@ def check_kernels(torch, dev) -> dict:
         seq = torch.from_numpy(ids).to(dev)
         srt = torch.sort(torch.where(mask, seq, encoding.SENTINEL), dim=1).values
         h, first = sparsity.hash_bucket(srt, H), sparsity.row_first_flags(srt)
-        want = hist_ref.hist_ref(h, first, 1 << H)
-        got = hist_ops.hist(h, first, 1 << H)
-        err["seq_hist"] = max(err["seq_hist"], max_abs_err(torch, [got], [want]))
-        paths = (False, True) if 1 << H <= hist_ops.MAX_SHARED_BUCKETS else (False,)
-        for shared in paths:                      # each path alone, as timed
-            got = torch.zeros_like(want)
-            hist_ops._launch(h, first, got, shared)
+        nb = 1 << H
+        routes = ("shared",) if nb <= 1 << 15 else ("global", "partitioned")
+        for hh, ff in hist_edge_cases(torch, h, first, nb):
+            want = hist_ref.hist_ref(hh, ff, nb)
+            got = hist_ops.hist(hh, ff, nb)
             err["seq_hist"] = max(err["seq_hist"], max_abs_err(torch, [got], [want]))
+            for r in routes:                     # each route alone, as timed
+                got = torch.zeros_like(want)
+                hist_ops._launch(hh, ff, got, force_route=r)
+                err["seq_hist"] = max(err["seq_hist"], max_abs_err(torch, [got], [want]))
+            n += 1 + len(routes)
+        if H in (1, 12, 14, 15, 16, 20, 24):
+            cpu_counts = sparsity.local_bucket_counts(seq.cpu(), mask.cpu(), H)
+            err["seq_hist"] = max(err["seq_hist"], max_abs_err(
+                torch, [sparsity.local_bucket_counts(seq, mask, H)], [cpu_counts]))
             n += 1
-        cpu_counts = sparsity.local_bucket_counts(seq.cpu(), mask.cpu(), H)
-        err["seq_hist"] = max(err["seq_hist"], max_abs_err(
-            torch, [sparsity.local_bucket_counts(seq, mask, H)], [cpu_counts]))
-        n += 2
     empty = hist_ops.hist(torch.zeros(0, dtype=torch.int32, device=dev),
                           torch.zeros(0, dtype=torch.bool, device=dev), 16)
     require(empty.shape == (16,) and int(empty.sum()) == 0, "empty histogram")
@@ -616,21 +726,26 @@ def launch_counters() -> dict:
             "flash_attention": flash_ops.attention}
 
 
+ROUTED = ("seq_hist", "flash_attention")      # kernels that count launches by route
+
+
 def zero_launches() -> None:
-    for fn in launch_counters().values():
+    counters = launch_counters()
+    for fn in counters.values():
         fn.launches = 0
-    routes = launch_counters()["flash_attention"].route_launches
-    for r in routes:
-        routes[r] = 0
+    for name in ROUTED:
+        routes = counters[name].route_launches
+        for r in routes:
+            routes[r] = 0
 
 
 def read_launches() -> dict:
-    """Each kernel's launches, and ``flash_attention``'s by route
-    (``flash_attention.ffma``, ``.wgmma``, ``.tf32x3``)."""
+    """Each kernel's launches, and ``seq_hist``'s and ``flash_attention``'s
+    by route (``seq_hist.partitioned``, ``flash_attention.wgmma``, ...)."""
     counters = launch_counters()
     out = {name: fn.launches for name, fn in counters.items()}
-    out.update({f"flash_attention.{r}": n
-                for r, n in counters["flash_attention"].route_launches.items()})
+    for name in ROUTED:
+        out.update({f"{name}.{r}": n for r, n in counters[name].route_launches.items()})
     return out
 
 
@@ -688,6 +803,8 @@ def check_main_path(torch, db, device) -> dict:
         require(r["launches"]["tspm_pairgen"] > 0, f"{screen}: pairgen never launched")
         if screen == "hash":
             require(r["launches"]["seq_hist"] > 0, "hash: seq_hist never launched")
+            require(r["launches"]["seq_hist.partitioned"] == r["launches"]["seq_hist"],
+                    "hash: a fit block of 2^26 ids left the partitioned route")
         require(len(r["seq"]) == n_seq,
                 f"{screen}: {len(r['seq'])} rows != count_sequences {n_seq}")
         sup = r["result"].support
@@ -1066,16 +1183,39 @@ def time_delta(torch, db, dev, err: dict) -> dict:
     err["tspm_delta"] = max(err["tspm_delta"], max_abs_err(
         torch, got, stream_delta.delta_mine_torch(*args)))
     outs = tuple(torch.empty_like(a) for a in got)
-    ms = cuda_ms(torch, lambda: delta_ops._launch(args, outs, 0, 0, 30), 200)
+    launch = lambda: delta_ops._launch(args, outs, 0, 0, 30)     # noqa: E731
+    ms = cuda_ms(torch, launch, 200)
     require(all(torch.equal(a, b) for a, b in zip(outs, got)), "tspm_delta launch alone")
+    device = kernel_device_ms(torch, launch, 200)
     wrapper = cuda_ms(torch, lambda: delta_ops.delta_pairgen(*args), 50)
     plain = cuda_ms(torch, lambda: stream_delta.delta_mine_torch(*args), 10)
     slots = 16 * W * W
     bound = {"bytes": (slots * 13 + 4 * 16 * W * 4 + 2 * 16 * 4) / HBM_BYTES_PER_S * 1e3,
              "operations": slots / INT_OPS_PER_S * 1e3}
+    tick = time_hist_tick(torch, got)
     del got, args, outs
-    return {"ms": ms, "wrapper_ms": wrapper, "plain_ms": plain, "bound": bound,
+    device_ms = sum(device.values())
+    return {"ms": ms, "device_ms": device_ms, "device_ms_by_kernel": device,
+            "device_bound_share": max(bound.values()) / device_ms,
+            "wrapper_ms": wrapper, "plain_ms": plain, "bound": bound, "hist_tick": tick,
             "shape": f"B=16 Ew={W} D={W} real={int(np.sum(n_new * (n_new - 1) // 2))}"}
+
+
+def time_hist_tick(torch, mined) -> dict:
+    """``seq_hist`` at the stream fit's largest tick (16 patients' delta
+    slab, every id novel: the sketch's row sort and first flags over empty
+    histories), in turns with the kernel before the partitioned design."""
+    from repro_torch.core import encoding, sparsity
+
+    B = mined.seq.shape[0]
+    flat = torch.where(mined.mask.reshape(B, -1), mined.seq.reshape(B, -1), encoding.SENTINEL)
+    srt = torch.sort(flat, dim=1).values
+    del flat
+    h, first = sparsity.hash_bucket(srt, H_DEFAULT), sparsity.row_first_flags(srt)
+    del srt
+    out = time_hist_block(torch, h, first, 1 << H_DEFAULT, True)
+    del h, first
+    return out
 
 
 def hist_bound(n: int, counted: int, n_buckets: int) -> dict:
@@ -1085,23 +1225,65 @@ def hist_bound(n: int, counted: int, n_buckets: int) -> dict:
             "operations": counted / INT_OPS_PER_S * 1e3}
 
 
+def turns_ms(torch, calls: dict, iters: int = 10) -> dict:
+    """``in_turns`` readings (a, b, b, a) of each call and their mean."""
+    t = in_turns(torch, calls, iters)
+    return {**{f"{k}_turns": v for k, v in t.items()},
+            **{k: sum(v) / len(v) for k, v in t.items()}}
+
+
 def time_hist_paths(torch, h, first, H: int) -> dict:
-    """Phase 6a: the histogram's shared-memory and global-atomics paths on
-    the main path's ids, hashed to a table small enough for both."""
+    """Phase 6a: the histogram at a small table (H = 12, the private
+    shared table) over the main path's ids, in turns with the kernel
+    before the partitioned design on its shared path and on its global
+    path, all three tables equal."""
     from repro_torch.kernels.seq_hist import ops as hist_ops
 
     nb = 1 << H
     out = {"H": H, "n": h.numel(), "counted": int(first.sum())}
-    tables = {}
-    for name, shared in (("shared_ms", True), ("global_ms", False)):
-        table = torch.zeros(nb, dtype=torch.int32, device=h.device)
-        out[name] = cuda_ms(torch, lambda: hist_ops._launch(h, first, table.zero_(),
-                                                            shared), 10)
-        tables[name] = table
-    require(torch.equal(tables["shared_ms"], tables["global_ms"]),
-            f"seq_hist paths disagree at H={H}")
+    tables = {k: torch.zeros(nb, dtype=torch.int32, device=h.device)
+              for k in ("old_shared", "old_global")}
+    calls = {"ms": lambda: hist_ops.hist(h, first, nb),
+             "old_shared_ms": lambda: old_hist(torch, h, first,
+                                               tables["old_shared"].zero_(), True),
+             "old_global_ms": lambda: old_hist(torch, h, first,
+                                               tables["old_global"].zero_(), False)}
+    out.update(turns_ms(torch, calls))
+    want = hist_ops.hist(h, first, nb)
+    for k, t in tables.items():
+        require(torch.equal(t, want), f"seq_hist at H={H}: the {k} kernel disagrees")
     bound = hist_bound(out["n"], out["counted"], nb)
     out["bound_ms"] = max(bound.values())
+    return out
+
+
+def time_hist_block(torch, hb, fb, nb: int, device_trace: bool) -> dict:
+    """``seq_hist`` at one of the fit's blocks: the wrapper as the fit
+    calls it (``ms``, its route) and the partitioned route in turns with
+    the kernel before the partitioned design (global atomics, the
+    ``global`` route), beside the bound; with ``device_trace`` the
+    partitioned route's stages' device time from a profiler trace."""
+    from repro_torch.kernels.seq_hist import ops as hist_ops
+
+    old = torch.zeros(nb, dtype=torch.int32, device=hb.device)
+    part = torch.zeros(nb, dtype=torch.int32, device=hb.device)
+    counted = int(fb.sum())
+    calls = {"partitioned_ms": lambda: hist_ops._launch(hb, fb, part.zero_(), "partitioned"),
+             "old_ms": lambda: old_hist(torch, hb, fb, old.zero_())}
+    out = {"rows": hb.shape[0], "n": hb.numel(), "counted": counted,
+           "route": hist_ops.route(hb.numel(), nb), **turns_ms(torch, calls),
+           "ms": cuda_ms(torch, lambda: hist_ops.hist(hb, fb, nb), 10),
+           "bound_ms": max(hist_bound(hb.numel(), counted, nb).values())}
+    want = hist_ops.hist(hb, fb, nb)
+    require(torch.equal(old, want) and torch.equal(part, want),
+            "seq_hist: the global and partitioned routes disagree")
+    if device_trace:
+        dev_ms = kernel_device_ms(torch, lambda: hist_ops._launch(hb, fb, part.zero_(),
+                                                                  "partitioned"), 10)
+        out["device_ms_by_kernel"] = dev_ms
+        out["stage_device_ms"] = stage_ms(dev_ms, HIST_STAGES)
+        out["old_device_ms"] = sum(kernel_device_ms(
+            torch, lambda: old_hist(torch, hb, fb, old.zero_()), 10).values())
     return out
 
 
@@ -1141,13 +1323,8 @@ def time_kernels(torch, db, dev, err: dict, launches: dict):
     # the fit's launches: one per patient block of at most BLOCK_ELEMENTS
     # ids (sparsity.local_bucket_counts); the row is the first (full) block's
     blk = max(1, sparsity.BLOCK_ELEMENTS // (E * E))
-    blocks = []
-    for s in range(0, P, blk):
-        hb, fb = h[s:s + blk], first[s:s + blk]
-        counted = int(fb.sum())
-        blocks.append({"rows": hb.shape[0], "n": hb.numel(), "counted": counted,
-                       "ms": cuda_ms(torch, lambda: hist_ops.hist(hb, fb, nb), 10),
-                       "bound_ms": max(hist_bound(hb.numel(), counted, nb).values())})
+    blocks = [time_hist_block(torch, h[s:s + blk], first[s:s + blk], nb, s == 0)
+              for s in range(0, P, blk)]
     hb, fb = h[:blk], first[:blk]
     weights = fb.reshape(-1).to(torch.float32)
     lib = torch.bincount(hb.reshape(-1), weights=weights, minlength=nb)
@@ -1159,16 +1336,20 @@ def time_kernels(torch, db, dev, err: dict, launches: dict):
     hs_bound = hist_bound(blocks[0]["n"], blocks[0]["counted"], nb)
     counted = int(first.sum())
     fit_ms = sum(b["ms"] for b in blocks)
+    fit_old = sum(b["old_ms"] for b in blocks)
     fit_bound = sum(b["bound_ms"] for b in blocks)
-    hs_extra = {"blocks": blocks, "fit_blocks_ms": fit_ms, "fit_blocks_bound_ms": fit_bound,
+    hs_extra = {"blocks": blocks, "fit_blocks_ms": fit_ms, "fit_blocks_old_ms": fit_old,
+                "fit_blocks_bound_ms": fit_bound, "old_ms": blocks[0]["old_ms"],
+                "stage_device_ms": blocks[0]["stage_device_ms"],
                 "slab_ms": slab_ms, "slab_shape": f"N={n} H={H} counted={counted}",
                 "counted_adds_per_s": counted / (fit_ms / 1e3),
+                "old_adds_per_s": counted / (fit_old / 1e3),
                 "bound_adds_per_s": counted / (fit_bound / 1e3)}
     print(f"seq_hist at the fit's blocks: {json.dumps(hs_extra)}", flush=True)
     del h, first, weights, lib, table, hb, fb
     torch.cuda.empty_cache()
 
-    print(f"seq_hist paths at H=12: {json.dumps(paths)}", flush=True)
+    print(f"seq_hist at H=12: {json.dumps(paths)}", flush=True)
     return paths, [
         kernel_row("tspm_pairgen", "src/repro/kernels/tspm_pairgen/pairgen.py:29",
                    launches, err, pg_ms, pg_plain, pg_bound, None, f"P={P} E={E}"),
@@ -1193,9 +1374,11 @@ def time_fused(torch, db, dev, err: dict) -> dict:
     """``tspm_fused`` at a cohort's full size and H = 20, beside its bound
     and the plain version of its algorithm, with CUDA events.  The bound
     reads the cohort once and writes the table once (bytes), or does the
-    operations ``FUSED_*_OPS`` count (the slot tests, each counted pair's
-    id, multiply-shift and atomic add) at the 32-bit rate; the counted
-    pairs a second are the pace of its atomic adds."""
+    operations ``FUSED_*_OPS`` count (each counted pair's id,
+    multiply-shift and count; the dedup test of each pair of a row that
+    repeats a code) at the 32-bit rate; the counted pairs a second are the
+    pace of its counts."""
+    from repro_torch.analysis import roofline
     from repro_torch.kernels.tspm_fused import ops as fused_ops, ref as fused_ref
 
     x, nev = (torch.from_numpy(a).to(dev) for a in (db.phenx, db.nevents))
@@ -1204,21 +1387,42 @@ def time_fused(torch, db, dev, err: dict) -> dict:
     err["tspm_fused"] = max(err["tspm_fused"], max_abs_err(
         torch, [got], [fused_ref.fused_table_ref(x, nev, H_DEFAULT)]))
     n = np.clip(db.nevents.astype(np.int64), 0, E)
-    # every code is distinct in a row, so every slot with i < j is counted
-    counted = int(np.sum(n * (n - 1) // 2))
-    slots = int(np.sum(np.where(n >= 2, n * n, 0)))
-    require(int(got.sum()) == counted, "tspm_fused counted another number of pairs")
-    ms = cuda_ms(torch, lambda: fused_ops.fused_table(x, nev, H_DEFAULT), 10)
+    repeats = rows_with_repeats(db.phenx, n)
+    upper = n * (n - 1) // 2
+    dedup = int(upper[repeats].sum())
+    if not repeats.any():                # then every pair i < j is counted
+        require(int(got.sum()) == int(upper.sum()),
+                "tspm_fused counted another number of pairs")
+    counted = int(got.sum())
+    old = torch.zeros_like(got)
+    t = turns_ms(torch, {"ms": lambda: fused_ops.fused_table(x, nev, H_DEFAULT),
+                         "old_ms": lambda: old_fused(torch, x, nev, old.zero_(), H_DEFAULT)})
+    require(torch.equal(old, got), "tspm_fused: the old kernel disagrees")
+    dev_ms = kernel_device_ms(torch, lambda: fused_ops.fused_table(x, nev, H_DEFAULT), 5)
     plain = cuda_ms(torch, lambda: fused_ref.fused_table_ref(x, nev, H_DEFAULT), 2)
-    ops = FUSED_SLOT_OPS * slots + (FUSED_UPPER_OPS + FUSED_PAIR_OPS) * counted
+    ops = FUSED_PAIR_OPS * counted + FUSED_DEDUP_OPS * dedup
     bound = {"bytes": (P * E * 4 + P * 4 + 4 * (1 << H_DEFAULT)) / HBM_BYTES_PER_S * 1e3,
              "operations": ops / INT_OPS_PER_S * 1e3}
-    del x, nev, got
+    rounds = len(fused_ops.fused_rounds(db.nevents, E, roofline.mining_tile_plan(
+        E, H_DEFAULT, device=dev).round_pairs))
+    del x, nev, got, old
     torch.cuda.empty_cache()
-    return {"ms": ms, "plain_ms": plain, "bound": bound, "slots": slots, "operations": ops,
-            "counted_adds_per_s": counted / (ms / 1e3),
+    return {**t, "plain_ms": plain, "bound": bound, "dedup_pairs": dedup, "operations": ops,
+            "rounds": rounds, "device_ms_by_kernel": dev_ms,
+            "stage_device_ms": stage_ms(dev_ms, FUSED_STAGES),
+            "counted_adds_per_s": counted / (t["ms"] / 1e3),
+            "old_adds_per_s": counted / (t["old_ms"] / 1e3),
             "bound_adds_per_s": counted / (max(bound.values()) / 1e3),
             "shape": f"P={P} E={E} H={H_DEFAULT} counted={counted}"}
+
+
+def rows_with_repeats(phenx: np.ndarray, n: np.ndarray) -> np.ndarray:
+    """Whether each row repeats a code among its first n events."""
+    P, E = phenx.shape
+    pad = np.iinfo(np.int64).min + np.arange(E, dtype=np.int64)   # distinct, below every code
+    live = np.arange(E)[None, :] < n[:, None]
+    srt = np.sort(np.where(live, phenx.astype(np.int64), pad[None, :]), axis=1)
+    return (srt[:, 1:] == srt[:, :-1]).any(axis=1)
 
 
 def fused_fit_launches(torch, db, device) -> int:
@@ -1692,7 +1896,7 @@ def main() -> int:
     print(f"device: {name} | nvidia-smi: {card} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
-    per_source = _build.build_all()
+    per_source = _build.build_all(COUNT_PROBE_BUILDS)
     print(f"phase 2: built {sorted(per_source)} in {time.perf_counter() - t0:.1f} s "
           f"({json.dumps(per_source)})", flush=True)
 
@@ -1734,7 +1938,11 @@ def main() -> int:
     kernels.append(kernel_row(
         "tspm_delta", "src/repro/kernels/tspm_delta/delta.py:32", delta_launches, err,
         delta_t["ms"], delta_t["plain_ms"], delta_t["bound"], None, delta_t["shape"]))
-    kernels[-1]["wrapper_ms"] = delta_t["wrapper_ms"]
+    kernels[-1].update({k: delta_t[k] for k in ("wrapper_ms", "device_ms",
+                                                "device_ms_by_kernel", "device_bound_share")})
+    print(f"seq_hist at the stream's largest tick: {json.dumps(delta_t['hist_tick'])}",
+          flush=True)
+    kernels[1]["tick"] = delta_t["hist_tick"]
     del db
     lap("6_delta_timing")
 
@@ -1766,14 +1974,14 @@ def main() -> int:
         "tspm_fused", "src/repro/kernels/tspm_fused/fused.py:134", fused_launches,
         err, fused_t2["ms"], fused_t2["plain_ms"], fused_t2["bound"], None,
         fused_t2["shape"]))
-    kernels[-1].update({k: fused_t2[k] for k in ("slots", "operations", "counted_adds_per_s",
-                                                 "bound_adds_per_s")})
+    fused_keys = ("dedup_pairs", "operations", "rounds", "old_ms", "ms_turns", "old_ms_turns",
+                  "stage_device_ms", "device_ms_by_kernel",
+                  "counted_adds_per_s", "old_adds_per_s", "bound_adds_per_s")
+    kernels[-1].update({k: fused_t2[k] for k in fused_keys})
     kernels[-1]["table1"] = {"ms": fused_t1["ms"], "plain_ms": fused_t1["plain_ms"],
                              "bound_ms": max(fused_t1["bound"].values()),
-                             "launches": fused_t1_launches,
-                             **{k: fused_t1[k] for k in ("slots", "operations", "shape",
-                                                         "counted_adds_per_s",
-                                                         "bound_adds_per_s")}}
+                             "launches": fused_t1_launches, "shape": fused_t1["shape"],
+                             **{k: fused_t1[k] for k in fused_keys}}
     kernels += flash_rows(flash_routes, lm, flash_t)
     print(json.dumps({"fit_phases": phases, "main_path": main_path,
                       "files_vs_chunked": files_vs_chunked, "card_vs_cpu": card_vs_cpu,

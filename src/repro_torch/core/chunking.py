@@ -69,6 +69,12 @@ BYTES_PER_PAIR = 26
 #     (card_probe.py scratch): the hash counts of 64 rows of 304^2 slots
 #     took 64 B a slot + 7.00 MiB, the sort's 7 buffers each rounded up
 #     (below); compaction 11.1 B and survivors 7.3 B a slot;
+#   * the histogram's scratch (``kernels/seq_hist``), after the row sort
+#     has returned its buffers: the sorted ids 8 B, the hashed ids 4 B and
+#     the flags 1 B stay live beside 2 B of uint16 ids a slot (sized for
+#     every slot, counted or not) = 15 B a slot, under the sort's 64; its
+#     offsets (4 B a partition and block, at most 64 x 1,024 + 1 words,
+#     256 KiB) are one more piece-sized tensor's rounding at most;
 #   * the caching allocator's rounding (``alloc_over``), sized from the
 #     chunk's own tensors in ``ChunkPlan.chunk_bytes``;
 #   * the small tensors of each pass (cursors, flags, scalars).
@@ -211,13 +217,52 @@ def plan_card_chunks(nevents: np.ndarray, budget_bytes: int,
     return plan
 
 
+def net_budget(budget_bytes: int, device) -> int:
+    """What ``budget_bytes`` leaves for a fit on ``device``: on the card,
+    less the memory already allocated when the fit starts (so the budget
+    bounds the process's peak during the fit, whatever ran before it);
+    the whole budget elsewhere."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return budget_bytes
+    return max(budget_bytes - torch.cuda.memory_allocated(device), 0)
+
+
 def plan_device_chunks(nevents: np.ndarray, budget_bytes: int, device,
-                       n_buckets_log2: int) -> ChunkPlan:
-    """The chunk plan of ``device``: the card's pricing for a CUDA device,
-    ``plan_chunks`` (the reference's) otherwise."""
+                       n_buckets_log2: int, net: int | None = None) -> ChunkPlan:
+    """The chunk plan of ``device``: the card's pricing against ``net``
+    (default :func:`net_budget`, taken now) for a CUDA device,
+    ``plan_chunks`` (the reference's) against ``budget_bytes`` otherwise.
+    Where less than one patient's price is left, each patient takes a
+    chunk of its own."""
     if torch.device(device).type == "cuda":
-        return plan_card_chunks(nevents, budget_bytes, n_buckets_log2)
+        return plan_card_chunks(
+            nevents, net_budget(budget_bytes, device) if net is None else net,
+            n_buckets_log2)
     return ChunkPlan(plan_chunks(np.asarray(nevents), budget_bytes))
+
+
+def fused_round_pairs(n_patients: int, max_events: int, net_bytes: int,
+                      n_buckets_log2: int) -> int:
+    """The pairs a round of the corpus-free counting pass may bin, at 2 B
+    each, when the card has ``net_bytes`` for the pass: less the cohort on
+    the card (phenx and date 8 B an event slot, nevents 4 B a patient),
+    ``CARD_TABLES`` count tables, the small tensors, the offsets of the
+    largest grid (``bucket_count.MAX_GRID``) and the allocator's rounding
+    of each; at most the plan's ``round_pairs`` and at least 1 (a patient
+    over it is a round of its own)."""
+    from repro_torch.analysis import roofline
+    from repro_torch.kernels import bucket_count as bc
+
+    table = 4 << n_buckets_log2
+    cohort = (8 * n_patients * max_events + 4 * n_patients,
+              CARD_TABLES * table, CARD_SMALL_BYTES,
+              bc.scratch_bytes(0, bc.n_partitions(1 << n_buckets_log2), bc.MAX_GRID))
+    over = (2 * alloc_over(4 * n_patients * max_events) + alloc_over(4 * n_patients)
+            + CARD_TABLES * alloc_over(table) + 2 * ALLOC_LARGE_OVER)
+    free = net_bytes - sum(cohort) - over
+    plan = roofline.mining_tile_plan(max_events, n_buckets_log2, device="cpu")
+    return int(max(1, min(plan.round_pairs, free // 2)))
 
 
 def _mine_chunk(db, ch: Chunk, device, codec, backend, fuse_duration,
@@ -323,9 +368,11 @@ def mine_fused(db, threshold: int, budget_bytes: int = 1 << 28,
 
     Pass 1 builds the global [2^H] bucket table with the fused mine+screen
     kernel (``kernels/tspm_fused``) — no [P, n, n] corpus exists during the
-    screen.  Pass 2 re-mines chunk by chunk under ``budget_bytes`` and
-    keeps each chunk's survivors on the device, so the only pair
-    allocations are one chunk slab at a time and the survivors themselves.
+    screen; on the card its rounds' scratch fits what the budget leaves
+    at the fit's start (:func:`fused_round_pairs`).  Pass 2 re-mines
+    chunk by chunk within that same net budget and keeps each chunk's
+    survivors on the device, so the only pair allocations are one chunk
+    slab at a time and the survivors themselves.
     Byte-identical to mine + hash screen (keeping is per id).
 
     Returns compacted numpy {seq, dur, patient} (every row real) plus the
@@ -333,14 +380,17 @@ def mine_fused(db, threshold: int, budget_bytes: int = 1 << 28,
     """
     from repro_torch.kernels.tspm_fused import ops as fused_ops
 
+    net = net_budget(budget_bytes, device)
+    rounds = (fused_round_pairs(db.n_patients, db.max_events, net, n_buckets_log2)
+              if torch.device(device).type == "cuda" else None)
     args = (torch.as_tensor(a, dtype=torch.int32).to(device)
             for a in (db.phenx, db.date, db.nevents))
     counts = fused_ops.fused_bucket_counts(
         *args, codec=codec, fuse_duration=fuse_duration,
         bucket_days=bucket_days, n_buckets_log2=n_buckets_log2,
-        backend=backend)
+        backend=backend, round_pairs=rounds)
     parts = []
-    plan = plan_device_chunks(db.nevents, budget_bytes, device, n_buckets_log2)
+    plan = plan_device_chunks(db.nevents, budget_bytes, device, n_buckets_log2, net=net)
     for ch in plan.chunks:
         mined = _mine_chunk(db, ch, device, codec, backend, fuse_duration,
                             bucket_days)

@@ -3,29 +3,35 @@
 ``fused_bucket_counts`` equals ``sparsity.local_bucket_counts`` over the
 mined corpus, without the corpus.  Dispatch follows the tensor's device:
 
-  * a CUDA tensor with unfused ids launches ``csrc/tspm_fused.cu`` once
-    over the whole cohort, with the launch shape of
-    ``analysis.roofline.mining_tile_plan`` (any table size: a shared-memory
-    table up to 2^15 buckets, global atomics above);
+  * a CUDA tensor with unfused ids launches ``csrc/tspm_fused.cu`` over
+    the cohort in rounds of consecutive patients (:func:`fused_rounds`),
+    each round's pairs, as the host reckons them from ``nevents``, within
+    the plan's ``round_pairs`` (``analysis.roofline.mining_tile_plan``, or
+    the caller's): above 2^15 buckets the kernel bins each counted pair
+    through a scratch of 2 B a pair, so the rounds bound the pass's memory;
+    every round adds into the one table;
   * a CUDA tensor with fused-duration ids, whose dedup depends on the
     duration and so does not follow the kernel's per-row lookbacks, takes
     the blocked materializing path on the card: ``tspm_pairgen`` then
     ``local_bucket_counts`` (``seq_hist``) per patient block of the plan;
-  * a CPU tensor takes the plain version, ``ref.fused_bucket_counts_ref``.
+  * a CPU tensor takes the plain version, ``ref.fused_bucket_counts_ref``,
+    round by round for unfused ids.
 
-Any other device raises.  ``fused_bucket_counts.launches`` counts launches
-of the ``tspm_fused`` kernel.
+Any other device raises.  ``fused_bucket_counts.launches`` counts calls of
+the ``tspm_fused`` C entry point: one per round.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.analysis import roofline
 from repro_torch.core import encoding, mining, sparsity
 from repro_torch.core.encoding import as_tensor
 from repro_torch.kernels import _build
+from repro_torch.kernels import bucket_count as bc
 from repro_torch.kernels.tspm_fused import ref
 
 _NAME = "tspm_fused"
@@ -34,21 +40,57 @@ MAX_LOG2 = 30
 
 def _kernel():
     fn = _build.load(_NAME).tspm_fused
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def row_pairs(nevents, max_events: int) -> np.ndarray:
+    """int64 n(n-1)/2 of each patient, n = nevents clipped to [0, E]: the
+    most pairs its row can count."""
+    n = np.clip(np.asarray(nevents, np.int64).reshape(-1), 0, max_events)
+    return n * (n - 1) // 2
+
+
+def fused_rounds(nevents, max_events: int, cap_pairs: int) -> list[tuple[int, int, int]]:
+    """(start, stop, pairs) of each round: consecutive patients, every
+    patient once and in order, whose pairs (:func:`row_pairs`) sum to at
+    most ``cap_pairs``; a patient over the cap alone is a round of its own.
+    An empty cohort has no round."""
+    pairs = row_pairs(nevents, max_events)
+    total = np.concatenate([[0], np.cumsum(pairs)])
+    rounds, start = [], 0
+    while start < len(pairs):
+        # the most patients from start whose pairs fit, one at least
+        stop = max(start + 1, int(np.searchsorted(total, total[start] + cap_pairs,
+                                                  side="right")) - 1)
+        rounds.append((start, stop, int(total[stop] - total[start])))
+        start = stop
+    return rounds
+
+
+def round_scratch_bytes(rounds, n_buckets_log2: int, grid: int) -> int:
+    """The scratch every round of ``rounds`` fits (0 for a shared table)."""
+    parts = bc.n_partitions(1 << n_buckets_log2)
+    if parts == 1 or not rounds:
+        return 0
+    return bc.scratch_bytes(max(r[2] for r in rounds), parts, grid)
 
 
 def fused_bucket_counts(phenx, date, nevents, codec: str = "bit",
                         fuse_duration: bool = False, bucket_days: int = 30,
                         n_buckets_log2: int = 20, backend: str = "auto",
-                        block_patients: int | None = None) -> torch.Tensor:
+                        block_patients: int | None = None,
+                        round_pairs: int | None = None) -> torch.Tensor:
     """Corpus-free [2^H] int32 bucket counts == local_bucket_counts(mine(...)).
 
     ``backend`` follows ``mining.mine``: 'torch' (the plain branch) raises
     for a CUDA tensor; otherwise the tensor's device decides.
     ``block_patients`` overrides the plan's patient block of the
-    materializing paths (the table does not depend on it)."""
+    materializing paths and ``round_pairs`` its pairs a round (the table
+    depends on neither)."""
     phenx = as_tensor(phenx, torch.int32)
     date = as_tensor(date, torch.int32)
     nevents = as_tensor(nevents, torch.int32).reshape(-1)
@@ -66,8 +108,14 @@ def fused_bucket_counts(phenx, date, nevents, codec: str = "bit",
     plan = roofline.mining_tile_plan(E, H, device=dev)
     blk = int(block_patients or plan.block_patients)
     if dev.type == "cpu":
-        return ref.fused_bucket_counts_ref(phenx, date, nevents, codec,
-                                           fuse_duration, bucket_days, H, blk)
+        if fuse_duration:
+            return ref.fused_bucket_counts_ref(phenx, date, nevents, codec, True,
+                                               bucket_days, H, blk)
+        counts = torch.zeros(1 << H, dtype=torch.int32)
+        for a, b, _ in fused_rounds(nevents.numpy(), E, round_pairs or plan.round_pairs):
+            counts += ref.fused_bucket_counts_ref(phenx[a:b], date[a:b], nevents[a:b],
+                                                  codec, False, bucket_days, H, blk)
+        return counts
     if dev.type != "cuda":
         raise ValueError(f"fused_bucket_counts runs on CUDA or CPU tensors, not {dev}")
     if date.shape != phenx.shape or nevents.shape != (P,) or \
@@ -77,7 +125,7 @@ def fused_bucket_counts(phenx, date, nevents, codec: str = "bit",
                          "on one device")
     if fuse_duration:
         return _blocked_counts(phenx, date, nevents, codec, bucket_days, H, blk)
-    return fused_table(phenx, nevents, H, codec, plan)
+    return fused_table(phenx, nevents, H, codec, plan, round_pairs)
 
 
 def _blocked_counts(phenx, date, nevents, codec, bucket_days, H, blk):
@@ -98,9 +146,11 @@ def _blocked_counts(phenx, date, nevents, codec, bucket_days, H, blk):
 
 
 def fused_table(phenx, nevents, n_buckets_log2: int, codec: str = "bit",
-                plan: roofline.MiningTilePlan | None = None) -> torch.Tensor:
-    """One launch of the CUDA kernel over a [P, E] cohort on the card:
-    [2^H] int32 counts of unfused ids (== ``ref.fused_table_ref``)."""
+                plan: roofline.MiningTilePlan | None = None,
+                round_pairs: int | None = None) -> torch.Tensor:
+    """The CUDA kernel over a [P, E] cohort on the card, round by round
+    (:func:`fused_rounds`): [2^H] int32 counts of unfused ids
+    (== ``ref.fused_table_ref``)."""
     phenx = as_tensor(phenx, torch.int32).contiguous()
     nevents = as_tensor(nevents, torch.int32).reshape(-1).contiguous()
     H = n_buckets_log2
@@ -115,23 +165,32 @@ def fused_table(phenx, nevents, n_buckets_log2: int, codec: str = "bit",
     if not 1 <= H <= MAX_LOG2:
         raise ValueError(f"n_buckets_log2 must be in [1, {MAX_LOG2}], got {H}")
     P, E = phenx.shape
-    if E * E >= 2**31:
-        raise ValueError(f"E={E} events per patient exceed the kernel's int32 pair index")
-    plan = plan or roofline.mining_tile_plan(E, H, device=phenx.device)
-    if plan.smem_bytes > roofline.SMEM_PER_BLOCK:
-        raise ValueError(f"E={E} at H={H} needs {plan.smem_bytes} B of shared "
-                         f"memory per block, over {roofline.SMEM_PER_BLOCK}")
     dev = phenx.device
+    plan = plan or roofline.mining_tile_plan(E, H, device=dev)
+    if plan.smem_bytes > bc.SMEM_PER_BLOCK:
+        raise ValueError(f"E={E} at H={H} needs {plan.smem_bytes} B of shared "
+                         f"memory per block, over {bc.SMEM_PER_BLOCK}")
     out = torch.zeros(1 << H, dtype=torch.int32, device=dev)
-    if P and E:
-        with torch.cuda.device(dev):
-            rc = _kernel()(phenx.data_ptr(), nevents.data_ptr(), out.data_ptr(),
-                           P, E, encoding.CODECS.index(codec), H,
-                           int(plan.shared_table), plan.threads,
-                           plan.blocks_per_sm,
-                           torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(_NAME, rc)
-        fused_bucket_counts.launches += 1
+    if not (P and E):
+        return out
+    rounds = fused_rounds(nevents.cpu().numpy(), E, round_pairs or plan.round_pairs)
+    if max(r[2] for r in rounds) >= 2**32:
+        raise ValueError("a patient's pairs exceed the kernel's 32-bit offsets")
+    sms = bc.sm_count(dev)
+    max_grid = sms * plan.blocks_per_sm
+    scratch_len = round_scratch_bytes(rounds, H, max_grid)
+    scratch = torch.empty(scratch_len, dtype=torch.uint8, device=dev)
+    parts = bc.n_partitions(1 << H)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        for a, b, pairs in rounds:
+            rc = _kernel()(phenx[a].data_ptr(), nevents[a].data_ptr(), out.data_ptr(),
+                           b - a, E, encoding.CODECS.index(codec), H,
+                           scratch.data_ptr() if scratch_len else None, scratch_len,
+                           pairs, min(b - a, max_grid),
+                           bc.part_blocks(parts, sms, pairs), plan.threads, stream)
+            _build.check(_NAME, rc)
+            fused_bucket_counts.launches += 1
     return out
 
 

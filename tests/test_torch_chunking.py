@@ -227,7 +227,7 @@ def test_card_plan_gives_the_reference_rows(tmp_path, synthea_db, monkeypatch):
     assert len(card.chunks) > len(chunking.plan_chunks(db.nevents, kw["budget_bytes"]))
     assert any(card.piece_rows(c) < c.n_patients for c in card.chunks)
     monkeypatch.setattr(chunking, "plan_device_chunks",
-                        lambda nev, budget, device, H: chunking.plan_card_chunks(
+                        lambda nev, budget, device, H, net=None: chunking.plan_card_chunks(
                             nev, budget, H))
     got = chunking.mine_chunked(port_db(db), with_counts=True, **kw, **CPU)
     _assert_rows(got, want, "card chunks")
@@ -241,3 +241,54 @@ def test_card_plan_gives_the_reference_rows(tmp_path, synthea_db, monkeypatch):
     for k in ("seq", "dur", "patient", "counts"):
         assert_same(back[k], np.asarray(want[k])[want["mask"]] if k != "counts"
                     else want[k], f"files {k}")
+
+
+@pytest.mark.parametrize("before", [0, 64 << 20, 300 << 20])
+def test_card_plan_within_budget_net_of_a_prior_allocation(monkeypatch, before):
+    """On the card the chunks are planned against budget_bytes less what
+    is already allocated when the fit starts (here 0-300 MiB, e.g. a cuBLAS
+    workspace or another fit's tables), so that allocation plus any
+    chunk's price stays within the budget."""
+    budget = 512 << 20
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda device=None: before)
+    nevents = np.random.default_rng(36).integers(120, 305, 4985).astype(np.int32)
+    plan = chunking.plan_device_chunks(nevents, budget, "cuda", 20)
+    assert chunking.net_budget(budget, "cuda") == budget - before
+    assert chunking.net_budget(budget, "cpu") == budget
+    assert plan.chunks == chunking.plan_card_chunks(nevents, budget - before, 20).chunks
+    for c in plan.chunks:
+        assert before + plan.chunk_bytes(c) <= budget
+    assert plan.chunks[0].start == 0 and plan.chunks[-1].stop == len(nevents)
+    if before:
+        assert len(plan.chunks) > len(chunking.plan_card_chunks(nevents, budget, 20).chunks)
+
+
+def test_card_plan_with_nothing_left_takes_a_patient_a_chunk(monkeypatch):
+    """Less than one patient's price left: every patient a chunk of its
+    own, never split, as for a budget that small."""
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda device=None: 1 << 30)
+    nevents = np.array([40, 3, 0, 17], np.int32)
+    plan = chunking.plan_device_chunks(nevents, 1 << 20, "cuda", 12)
+    assert [(c.start, c.stop) for c in plan.chunks] == [(0, 1), (1, 2), (2, 3), (3, 4)]
+    assert chunking.net_budget(1 << 20, "cuda") == 0
+
+
+@pytest.mark.parametrize("H", [15, 20, 24])
+def test_fused_round_pairs_fit_the_net_budget(H):
+    """The counting pass's rounds: the cohort on the card, the tables, the
+    offsets and 2 B a pair of scratch fit what the budget leaves; a large
+    budget gives the plan's fixed round, none gives one pair (a patient
+    over it is then a round of its own)."""
+    from repro_torch.analysis import roofline
+    from repro_torch.kernels import bucket_count as bc
+
+    P, E = 35000, 240
+    net = 512 << 20
+    pairs = chunking.fused_round_pairs(P, E, net, H)
+    table = 4 << H
+    held = (8 * P * E + 4 * P + chunking.CARD_TABLES * table + chunking.CARD_SMALL_BYTES
+            + bc.scratch_bytes(0, bc.n_partitions(1 << H), bc.MAX_GRID))
+    assert 1 < pairs and held + 2 * pairs <= net
+    big = chunking.fused_round_pairs(P, E, 64 << 30, H)
+    assert big == roofline.FUSED_SCRATCH_BYTES // 2
+    assert chunking.fused_round_pairs(P, E, 0, H) == 1

@@ -99,15 +99,54 @@ def test_hist_kernel_matches_plain_version(cuda_device, H):
 @pytest.mark.parametrize("shared", [False, True])
 @pytest.mark.parametrize("H", [1, 12, 15])
 def test_hist_paths_match_plain_version(cuda_device, H, shared):
-    """Both the shared-memory and the global-atomics path, where the table
-    fits either."""
+    """Every route of the count: a private shared table (2^H buckets), and
+    for 2^H + 2^15 buckets (the last partition ragged) the global route and
+    partitions of 2^15 binned through scratch; ids out of range on both
+    sides."""
+    nb = (1 << H) if shared else (1 << H) + (1 << 15)
+    assert hist_ops.count_plan(5000, nb, 132).shared_table == shared
     rng = np.random.default_rng(100 + H)
-    h = torch.from_numpy(rng.integers(-3, (1 << H) + 3, 5000).astype(np.int32))
+    h = torch.from_numpy(rng.integers(-3, nb + 3, 5000).astype(np.int32))
     mask = torch.from_numpy(rng.random(5000) < 0.7)
-    got = torch.zeros(1 << H, dtype=torch.int32, device=cuda_device)
-    hist_ops._launch(h.to(cuda_device), mask.to(cuda_device), got, shared)
+    want = hist_ref.hist_ref(h, mask, nb)
+    got = hist_ops.hist(h.to(cuda_device), mask.to(cuda_device), nb)
     torch.cuda.synchronize()
-    assert_same(got, hist_ref.hist_ref(h, mask, 1 << H), "hist path")
+    assert_same(got, want, "hist path")
+    for route in (("shared",) if shared else ("global", "partitioned")):
+        got = torch.zeros(nb, dtype=torch.int32, device=cuda_device)
+        assert hist_ops._launch(h.to(cuda_device), mask.to(cuda_device), got, route) == route
+        torch.cuda.synchronize()
+        assert_same(got, want, route)
+
+
+def _hist_edge_cases(h, first, nb):
+    """chip_smoke.py phase 3's cases: as given, off 16-byte alignment, no
+    counted id, every id in one bucket, ids out of range."""
+    yield h, first
+    yield h.reshape(-1)[3:], first.reshape(-1)[3:]
+    yield h, torch.zeros_like(first)
+    yield torch.full_like(h, nb - 1), first
+    yield h * 3 - nb, first
+
+
+@pytest.mark.parametrize("H", list(range(1, 25)))
+def test_hist_kernel_edge_cases(cuda_device, H):
+    rng = np.random.default_rng(200 + H)
+    ids = rng.integers(-2**62, 2**62, (64, 1000), dtype=np.int64)
+    ids[:, ::9] = ids[:, :1]
+    ids[:, -50:] = encoding.SENTINEL
+    mask = torch.from_numpy(rng.random(ids.shape) < 0.8)
+    srt = torch.sort(torch.where(mask, torch.from_numpy(ids), encoding.SENTINEL),
+                     dim=1).values
+    h, first = sparsity.hash_bucket(srt, H), sparsity.row_first_flags(srt)
+    routes = ("shared",) if H <= 15 else ("global", "partitioned")
+    for hh, ff in _hist_edge_cases(h, first, 1 << H):
+        want = hist_ref.hist_ref(hh, ff, 1 << H)
+        for route in routes:
+            got = torch.zeros(1 << H, dtype=torch.int32, device=cuda_device)
+            hist_ops._launch(hh.to(cuda_device), ff.to(cuda_device), got, route)
+            torch.cuda.synchronize()
+            assert_same(got, want, f"H={H} {route}")
 
 
 @pytest.mark.parametrize("screen", ["sorted", "hash"])
@@ -144,7 +183,7 @@ def _fused_inputs():
 
 
 @pytest.mark.parametrize("codec", ["bit", "paper"])
-@pytest.mark.parametrize("H", [1, 8, 12, 15, 16, 20, 24])
+@pytest.mark.parametrize("H", list(range(1, 25)))
 def test_fused_kernel_matches_plain_versions(cuda_device, codec, H):
     for phenx, date, nevents in _fused_inputs():
         x, d, n = (torch.from_numpy(a) for a in (phenx, date, nevents))
@@ -158,6 +197,104 @@ def test_fused_kernel_matches_plain_versions(cuda_device, codec, H):
         assert_same(got, fused_ref.block_bucket_counts(x, d, n, codec,
                                                        n_buckets_log2=H),
                     f"contract {H}")
+
+
+@pytest.mark.parametrize("H", [2, 15, 16, 20, 24])
+def test_fused_kernel_in_rounds(cuda_device, H):
+    """Rounds of about one patient (several launches, one table), the one-
+    code adversary (every pair in one bucket) and a cohort with no pair."""
+    for phenx, date, nevents in _fused_inputs():
+        x, d, n = (torch.from_numpy(a) for a in (phenx, date, nevents))
+        pairs = fused_ops.row_pairs(nevents, phenx.shape[1])
+        cap = int(pairs.max())
+        rounds = fused_ops.fused_rounds(nevents, phenx.shape[1], cap)
+        assert len(rounds) > 1 or np.count_nonzero(pairs) < 2
+        before = fused_ops.fused_bucket_counts.launches
+        got = fused_ops.fused_bucket_counts(x.to(cuda_device), d.to(cuda_device),
+                                            n.to(cuda_device), n_buckets_log2=H,
+                                            round_pairs=cap)
+        torch.cuda.synchronize()
+        assert fused_ops.fused_bucket_counts.launches - before == len(rounds)
+        assert_same(got, fused_ref.fused_table_ref(x, n, H), f"rounds {H}")
+    none = torch.zeros((3, 8), dtype=torch.int32, device=cuda_device)
+    got = fused_ops.fused_table(none, torch.tensor([0, 1, 0], dtype=torch.int32,
+                                                   device=cuda_device), H, round_pairs=1)
+    assert int(got.sum()) == 0 and got.shape == (1 << H,)
+
+
+def _long_rows(E: int, m: int, n_distinct: int, codec: str, seed: int):
+    """A [3, E] cohort of long rows and a short cohort that counts the same
+    pairs: a row of n = E events whose codes cycle through m codes (its
+    counted pairs are every (a, b) of them, as in the 2m-event row of the
+    same codes), a row of n_distinct distinct codes and a row of one
+    event."""
+    rng = np.random.default_rng(seed)
+    top = 1 << 24 if codec == "bit" else 10**7
+    cycle = rng.choice(top, m, replace=False).astype(np.int32)
+    distinct = rng.choice(top, n_distinct, replace=False).astype(np.int32)
+    long_rows = np.zeros((3, E), np.int32)
+    long_rows[0] = cycle[np.arange(E) % m]
+    long_rows[1, :n_distinct] = distinct
+    long_rows[2, 0] = cycle[0]
+    W = max(2 * m, n_distinct)
+    short = np.zeros((3, W), np.int32)
+    short[0, :2 * m] = cycle[np.arange(2 * m) % m]
+    short[1, :n_distinct] = distinct
+    short[2, 0] = cycle[0]
+    return (long_rows, np.array([E, n_distinct, 1], np.int32),
+            short, np.array([2 * m, n_distinct, 1], np.int32))
+
+
+# (H, E): the longest row the kernel before the partitioned design took at
+# that H, a row on the full layout at its longest, and the longest row the
+# compact layout takes (tests/test_torch_kernels_fused.py PARENT_LONGEST,
+# test_row_layout_keeps_the_longest_rows)
+@pytest.mark.parametrize("H,E,last", [(20, 29_056, False), (15, 12_672, False),
+                                      (12, 27_008, False), (20, 8_000, False),
+                                      (20, 41_152, True), (15, 25_344, True)])
+def test_fused_kernel_takes_long_rows(cuda_device, H, E, last):
+    """Rows as long as the earlier kernel took, and up to the compact
+    layout's limit, against the plain version; one event more is refused."""
+    from repro_torch.analysis import roofline
+
+    for codec, seed in (("bit", E), ("paper", E + 1)):
+        x, n, xs, ns = _long_rows(E, 97, 3000, codec, seed)
+        got = fused_ops.fused_table(torch.from_numpy(x).to(cuda_device),
+                                    torch.from_numpy(n).to(cuda_device), H, codec)
+        want = fused_ref.fused_table_ref(torch.from_numpy(xs).to(cuda_device),
+                                         torch.from_numpy(ns).to(cuda_device), H, codec)
+        assert_same(got, want, f"E={E} H={H} {codec}")
+        assert int(got.sum()) == 97 * 97 + 3000 * 2999 // 2
+    assert roofline.mining_tile_plan(E, H, device=cuda_device).compact_row is (E > 8_000)
+    if last:
+        wide = torch.zeros((1, E + 8), dtype=torch.int32, device=cuda_device)
+        with pytest.raises(ValueError, match="shared memory"):
+            fused_ops.fused_table(wide, torch.ones(1, dtype=torch.int32,
+                                                   device=cuda_device), H)
+
+
+@pytest.mark.parametrize("engine", ["chunked", "fused"])
+def test_fit_peak_within_budget_after_an_allocation(cuda_device, engine):
+    """budget_bytes bounds the process's peak, counted from zero, when 64
+    MiB were allocated before the fit (as cuBLAS's workspace would be)."""
+    pats, dates, phx, _ = synthea.generate_cohort(n_patients=600, avg_events=300,
+                                                  seed=7)
+    db = dbmart.from_rows(pats, dates, phx)
+    budget = 256 << 20
+    kw = (dict(screen="fused") if engine == "fused"
+          else dict(screen="hash", engine="chunked"))
+    cfg = MiningConfig(threshold=3, budget_bytes=budget, n_buckets_log2=20, **kw)
+    torch.cuda.empty_cache()
+    held = torch.empty(64 << 20, dtype=torch.uint8, device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    card = MiningSession(cfg, device=cuda_device).fit(db)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() <= budget
+    del held
+    cpu = MiningSession(cfg, device="cpu").fit(db)
+    for g, w in zip(card.collect(), cpu.collect()):
+        assert_same(g, w, engine)
 
 
 def test_fused_duration_ids_take_the_blocked_kernels(cuda_device):

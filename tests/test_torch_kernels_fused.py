@@ -12,9 +12,11 @@ import torch
 from repro.core import mining as j_mining
 from repro.core import sparsity as j_sparsity
 from repro.data.dbmart import DBMart
+from repro.analysis import roofline as j_roofline
 from repro.kernels.tspm_fused import ops as j_ops
 from repro_torch.analysis import roofline
 from repro_torch.core import encoding, mining, sparsity
+from repro_torch.kernels import bucket_count as bc
 from repro_torch.kernels.tspm_fused import ops, ref
 from tests.conftest import random_dbmart
 from tests.torch_parity import assert_same
@@ -197,9 +199,113 @@ def test_tile_plan_is_fixed_on_the_cpu():
     assert plan == roofline.mining_tile_plan(237, 20, device=torch.device("cpu"))
     assert plan.block_bytes == roofline.CPU_BLOCK_BYTES
     assert plan.block_patients == roofline.CPU_BLOCK_BYTES // (240 * 240 * 26)
-    assert not plan.shared_table and plan.smem_bytes == 2 * 240 * 4
-    assert plan.threads * plan.blocks_per_sm <= roofline.MAX_THREADS_PER_SM
+    assert not plan.shared_table and not plan.compact_row
+    assert plan.smem_bytes == bc.stage_bytes(roofline.THREADS // 32) + roofline.row_bytes(240)
+    assert roofline.row_bytes(240) == 4 * 240 + 4 * 512
+    assert roofline.row_bytes(240, compact=True) == 4 * 240
+    assert plan.round_pairs == roofline.FUSED_SCRATCH_BYTES // 2
+    assert plan.threads * plan.blocks_per_sm <= bc.MAX_THREADS_PER_SM
     small = roofline.mining_tile_plan(240, 15, device="cpu")
-    assert small.shared_table and small.smem_bytes == 4 * (1 << 15) + 2 * 240 * 4
+    assert small.shared_table
+    assert small.smem_bytes == 4 * (1 << 15) + roofline.row_bytes(240)
     assert small.blocks_per_sm == 1
     assert roofline.mining_tile_plan(3, 8, device="cpu").block_patients >= 1
+
+
+# the longest row the kernel before the partitioned design took: its codes
+# and lookbacks, 8 B an event, beside a 4 * 2^H B shared table at H <= 15
+PARENT_LONGEST = {12: 27_008, 15: 12_672, 16: 29_056, 20: 29_056, 24: 29_056}
+
+
+@pytest.mark.parametrize("H", sorted(PARENT_LONGEST))
+def test_row_layout_keeps_the_longest_rows(H):
+    """Rows as long as the earlier kernel took still fit one block: a long
+    row takes the compact layout (its lookbacks alone in shared memory,
+    its codes read from global memory).  The plan refuses exactly past the
+    compact layout's longest row; the main path's rows keep the full one."""
+    table = 4 << H if H <= 15 else 0
+    old = PARENT_LONGEST[H]
+    assert 8 * old + table <= bc.SMEM_PER_BLOCK < 8 * (old + 8) + table
+    beside = table or bc.stage_bytes(roofline.THREADS // 32)
+    plan = roofline.mining_tile_plan(old, H, device="cpu")
+    assert plan.compact_row and plan.smem_bytes <= bc.SMEM_PER_BLOCK
+    assert plan.smem_bytes == 4 * old + beside
+    last = (bc.SMEM_PER_BLOCK - beside) // 32 * 8
+    assert last > old
+    assert roofline.mining_tile_plan(last, H, device="cpu").smem_bytes <= bc.SMEM_PER_BLOCK
+    assert roofline.mining_tile_plan(last + 1, H, device="cpu").smem_bytes > bc.SMEM_PER_BLOCK
+    main = roofline.mining_tile_plan(320, H, device="cpu")
+    assert not main.compact_row and main.smem_bytes == roofline.row_bytes(320) + beside
+    # the full layout up to where its set no longer fits beside the table
+    # or the stage
+    for e in (8, 320, 2048, 8192):
+        full = roofline.row_bytes(e) + beside <= bc.SMEM_PER_BLOCK
+        assert roofline.mining_tile_plan(e, H, device="cpu").compact_row is not full
+
+
+def pallas_fused_table(db, H, codec="bit"):
+    """The reference's Pallas kernel itself in interpret mode, at any H
+    (its wrapper sends H > 14 to the jnp path): 16-event tiles, 4,096-bucket
+    tiles."""
+    plan = j_roofline.mining_tile_plan(db.max_events, H)
+    return np.asarray(j_ops._kernel_block(db.phenx, db.nevents, codec, H, plan,
+                                          8, 16, 1 << min(H, 12), True))
+
+
+@pytest.mark.parametrize("H", (14, 15, 16, 20))
+def test_rounds_match_pallas_fused_table(H):
+    """Forced small rounds (a cohort takes several) add up to the Pallas
+    kernel's table, as do the plan's rounds (one)."""
+    db = random_dbmart(np.random.default_rng(40 + H), n_patients=8, max_events=16)
+    want = pallas_fused_table(db, H)
+    pairs = ops.row_pairs(db.nevents, db.max_events)
+    cap = int(pairs.max())
+    assert len(ops.fused_rounds(db.nevents, db.max_events, cap)) >= 3
+    assert_same(port_counts(db, n_buckets_log2=H, round_pairs=cap), want, "rounds")
+    assert_same(port_counts(db, n_buckets_log2=H, round_pairs=1), want, "one each")
+    assert_same(port_counts(db, n_buckets_log2=H), want, "plan")
+
+
+@pytest.mark.parametrize("H", (14, 15, 16, 20))
+def test_rounds_single_bucket_adversary_and_empty_cohort(H):
+    """Every pair in one bucket (one code) and a cohort with no pairs, in
+    rounds of a patient or two."""
+    one = random_dbmart(np.random.default_rng(31), n_patients=6, max_events=12,
+                        n_codes=1)
+    want = pallas_fused_table(one, H)
+    assert np.count_nonzero(want) == 1 and want.sum() == len(one.nevents[one.nevents > 1])
+    assert_same(port_counts(one, n_buckets_log2=H, round_pairs=2), want, "one bucket")
+    empty = DBMart(np.zeros((3, 8), np.int32), np.zeros((3, 8), np.int32),
+                   np.array([0, 1, 0], np.int32))
+    got = port_counts(empty, n_buckets_log2=H, round_pairs=1)
+    assert_same(got, pallas_fused_table(empty, H), "no pairs")
+    assert int(got.sum()) == 0
+
+
+@pytest.mark.parametrize("cap", (1, 5, 45, 100, 10**9))
+def test_rounds_cover_every_patient_once_in_order(cap):
+    rng = np.random.default_rng(cap)
+    nevents = rng.integers(0, 12, 40).astype(np.int32)
+    nevents[[3, 17]] = 11                    # 55 pairs: over caps 1, 5, 45
+    rounds = ops.fused_rounds(nevents, 10, cap)     # clipped to E = 10: 45
+    assert [r[0] for r in rounds] == [0] + [r[1] for r in rounds[:-1]]
+    assert rounds[-1][1] == len(nevents)
+    pairs = ops.row_pairs(nevents, 10)
+    assert pairs.max() == 45
+    for a, b, k in rounds:
+        assert b > a and k == int(pairs[a:b].sum())
+        assert k <= cap or b - a == 1        # over the cap only alone
+    if cap >= 45:
+        assert all(k <= cap for _, _, k in rounds)
+    assert ops.fused_rounds(np.zeros(0, np.int32), 10, cap) == []
+
+
+def test_round_scratch_fits_every_round():
+    nevents = np.array([300, 2, 0, 300, 5, 1, 299], np.int32)
+    rounds = ops.fused_rounds(nevents, 304, 50_000)
+    assert rounds == [(0, 3, 44_851), (3, 6, 44_860), (6, 7, 44_551)]
+    for H, parts in ((20, 32), (24, 64), (28, 64)):
+        want = -(-2 * 44_860 // 16) * 16 + 4 * (parts * 396 + 1)
+        assert ops.round_scratch_bytes(rounds, H, 396) == want
+    assert ops.round_scratch_bytes(rounds, 15, 396) == 0    # a shared table
+    assert ops.round_scratch_bytes([], 20, 396) == 0
