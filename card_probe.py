@@ -4,8 +4,9 @@ test (``chip_smoke.py``) does not take.
 Run from the root of a checkout, with one visible CUDA device:
 
     python3 card_probe.py [idle] [share] [price] [scratch] [flex] [psplit] [tf32] [count]
+                          [logits]
 
-(all eight when none is named).  Each prints one JSON line:
+(all nine when none is named).  Each prints one JSON line:
 
   idle   the device's idle share on the streaming path at the paper's
          Table 1 cohort: a ``torch.profiler`` trace (CUDA activity only) of
@@ -55,7 +56,17 @@ Run from the root of a checkout, with one visible CUDA device:
          ``torch.profiler`` trace; and ``seq_hist``'s partitioned route
          against its global route (the old kernel) on the block's leading
          2^18..2^26 ids, whole calls in turns: the crossover behind
-         ``ops.GLOBAL_MAX_ELEMENTS``.
+         ``ops.GLOBAL_MAX_ELEMENTS``;
+  logits what phase 9's logit check (the card's first tspm-mlho wave
+         against the CPU's, ``smoke.LM_LOGIT_TOL``) reads and what moves
+         it: at three seeded weight sets, ``smoke.logit_diff`` of the card
+         against the CPU in float32 (the smoke's reference), in float64 (the
+         model's float32 tensors and upcasts made float64), and, at the
+         first set, one CPU thread and the AVX2 code paths of MKL and ATen;
+         each CPU run in float32 against float64; and whether the card's
+         wave repeats bit for bit, alone and beside a thread that keeps
+         matmuls running on another stream.  The CPU runs are subprocesses
+         of this script (``--logits-worker``) that read the weights it saved.
 
 ``psplit`` and ``tf32`` build ``csrc/flash_attention.cu`` once more with
 ``-DFLASH_PROBES`` into ``build/probes/``, and ``count`` builds
@@ -81,6 +92,11 @@ import chip_smoke as smoke
 
 SHARES = (0.25, 0.5, 0.125, 0.0625)     # visited forward, then backward
 PRICE_BUDGETS = (64 << 20, 128 << 20, 512 << 20, 1 << 30, 4 << 30)
+LOGIT_SEEDS = (("cuda", 0), ("cuda", 1), ("cpu", 0))   # generator device, seed
+# the CPU runs of probe_logits: environment of each subprocess
+LOGIT_CPU_RUNS = {"float32": {}, "float64": {},
+                  "one_thread": {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"},
+                  "avx2": {"MKL_ENABLE_INSTRUCTIONS": "AVX2", "ATEN_CPU_CAPABILITY": "avx2"}}
 
 
 def union_us(spans: list) -> float:
@@ -510,9 +526,111 @@ def probe_count(torch) -> dict:
     return out
 
 
+def first_wave(torch, mdl, params, prompts, device) -> tuple:
+    """The first wave's logits (``smoke.first_wave_logits``, float64 on
+    the host) and tokens of one ``ServeEngine.run`` over ``prompts``."""
+    logits = []
+    r = smoke.serve_on(torch, mdl, params, prompts, smoke.LM_NEW_TOKENS, device,
+                       smoke.LM_BATCH, smoke.LM_MAX_LEN, timed=False, logits=logits)
+    return ([t.cpu().double() for t in logits],
+            {i: r["results"][i] for i in range(smoke.LM_BATCH)})
+
+
+def logits_worker(run: str, tmp: str) -> int:
+    """One CPU run of probe_logits: the weights and prompts it saved in
+    ``tmp``, served on the CPU, logits and tokens saved as ``tmp/run.pt``."""
+    import torch
+
+    sys.path.insert(0, str(smoke.SRC))
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers, model as model_lib
+
+    if run == "float64":
+        layers.DTYPES["float32"] = torch.float64     # weights, caches, activations
+        torch.Tensor.float = torch.Tensor.double      # and the float32 upcasts
+    mdl = model_lib.build(get_config("tspm-mlho"))
+    params = mdl.init(torch.Generator("cpu").manual_seed(0))
+    params.load_state_dict(torch.load(os.path.join(tmp, "params.pt")))
+    prompts = torch.load(os.path.join(tmp, "prompts.pt"), weights_only=False)
+    logits, tokens = first_wave(torch, mdl, params, prompts, "cpu")
+    torch.save({"logits": logits, "tokens": tokens, "threads": torch.get_num_threads(),
+                "capability": torch.backends.cpu.get_cpu_capability()},
+               os.path.join(tmp, f"{run}.pt"))
+    return 0
+
+
+def probe_logits(torch) -> dict:
+    import subprocess
+    import threading
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+
+    dev = torch.device("cuda", 0)
+    mdl = model_lib.build(get_config("tspm-mlho"))
+    prompts = smoke.lm_prompts(smoke.make_raw_cohort())[:smoke.LM_BATCH]
+    out = {"host": smoke.host_facts(torch), "limit": smoke.LM_LOGIT_TOL, "sets": []}
+
+    def gap(a, b) -> float:
+        return smoke.logit_diff(torch, a[0], b[0], a[1], b[1])
+
+    def busy(stop) -> None:
+        a = torch.randn(4096, 4096, device=dev)
+        with torch.cuda.stream(torch.cuda.Stream(dev)):
+            while not stop.is_set():
+                a = a @ a
+                a = a / a.abs().max()
+
+    with tempfile.TemporaryDirectory(prefix="logit_probe_") as tmp:
+        torch.save(prompts, os.path.join(tmp, "prompts.pt"))
+        for n, (gen_device, seed) in enumerate(LOGIT_SEEDS):
+            t0 = time.perf_counter()
+            params = mdl.init(torch.Generator(gen_device).manual_seed(seed)).to(dev)
+            torch.save({k: v.cpu() for k, v in params.state_dict().items()},
+                       os.path.join(tmp, "params.pt"))
+            card = first_wave(torch, mdl, params, prompts, dev)
+            row = {"weights": f"{gen_device} generator, seed {seed}"}
+            if n == 0:
+                again = first_wave(torch, mdl, params, prompts, dev)
+                stop = threading.Event()
+                side = threading.Thread(target=busy, args=(stop,))
+                side.start()
+                try:
+                    loaded = first_wave(torch, mdl, params, prompts, dev)
+                finally:
+                    stop.set()
+                    side.join()
+                row["card_repeats"] = {"alone": all(torch.equal(a, b) for a, b in
+                                                    zip(card[0], again[0])),
+                                       "beside_load": all(torch.equal(a, b) for a, b in
+                                                          zip(card[0], loaded[0]))}
+            del params
+            torch.cuda.empty_cache()
+            cpu = {}
+            for run, env in LOGIT_CPU_RUNS.items():
+                if n and run not in ("float32", "float64"):
+                    continue
+                subprocess.run([sys.executable, os.path.abspath(__file__), "--logits-worker",
+                                run, tmp], env={**os.environ, **env}, check=True, timeout=900)
+                saved = torch.load(os.path.join(tmp, f"{run}.pt"), weights_only=False)
+                cpu[run] = (saved["logits"], saved["tokens"])
+                row.setdefault("cpu_threads", {})[run] = saved["threads"]
+                row.setdefault("cpu_capability", {})[run] = saved["capability"]
+            row["card_vs"] = {run: gap(card, got) for run, got in cpu.items()}
+            row["cpu_vs_float64"] = {run: gap(got, cpu["float64"]) for run, got in cpu.items()
+                                     if run != "float64"}
+            row["max_abs_logit"] = max(t.abs().max().item() for t in cpu["float64"][0])
+            row["seconds"] = time.perf_counter() - t0
+            out["sets"].append(row)
+            print(f"logits: {json.dumps(row)}", flush=True)
+    return out
+
+
 def main(argv: list[str]) -> int:
     import torch
 
+    if argv[:1] == ["--logits-worker"]:
+        return logits_worker(*argv[1:])
     if not torch.cuda.is_available():
         print("card_probe: no CUDA device is visible", file=sys.stderr)
         return 2
@@ -522,7 +640,7 @@ def main(argv: list[str]) -> int:
     _build.build_all()
     probes = {"idle": probe_idle, "share": probe_share, "price": probe_price,
               "scratch": probe_scratch, "flex": probe_flex, "psplit": probe_psplit,
-              "tf32": probe_tf32, "count": probe_count}
+              "tf32": probe_tf32, "count": probe_count, "logits": probe_logits}
     for name in argv or list(probes):
         t0 = time.perf_counter()
         result = probes[name](torch)

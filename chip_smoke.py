@@ -55,7 +55,10 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with
      versions) on the first 256 patients, byte for byte, for every engine
      (batch, chunked, files) under every screen (sorted, hash, fused), and
      for a 3-wave stream replay under a budget that evicts through the
-     host and disk tiers (same rows, table and tier placement);
+     host and disk tiers (same rows, table and tier placement), and the
+     same replay through 3 shards (balanced router, rebalancing every 2
+     ticks, 8 migrations after wave 2, a spilled patient among them: same
+     rows, merged table, tiers and router pins);
   6. times each kernel at the main path's full-size shapes with CUDA
      events, beside its bound, its plain version and a library call
      (``seq_hist`` at each of the fit's patient blocks of at most 2^26
@@ -83,7 +86,19 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with
      after (``tspm_delta`` launches = ticks); the sketch table must equal
      the batch engine's and the rows the batch rows as multisets (sorted on
      the card), the evicting replay the plain replay's rows of its patients
-     row for row; and times ``tspm_delta`` at the fit's largest slab;
+     row for row; then (e) the 8-wave replay through 4 shards
+     (``placement='host'``, hash router, rebalancing every 32 ticks, the 64
+     heaviest patients migrated after wave 2): ``tspm_delta`` launches =
+     shard ticks, merged table = the batch table, rows = the batch rows as
+     multisets; (f) the same under ``placement='devices'`` (every shard on
+     the card, two-pass ticks, async admits), checkpointed after wave 4,
+     restored in this process and finished there: byte-identical to (e);
+     then the streaming launcher (``python -m repro_torch.launch.stream
+     --shards 4 --router hash --rebalance-every 4``) runs through, stops
+     after wave 3 with a checkpoint, and resumes to the uninterrupted
+     run's ``state_digest``; and times ``tspm_delta`` at the fit's largest
+     slab and ``seq_hist`` at the stream's largest tick (beside its plain
+     version and ``torch.bincount``);
   9. serves LM requests (last, after phase 3b; the LM side's matmuls
      leave cuBLAS's workspace allocated, which the mining fits' absolute
      peaks would count against their budgets):
@@ -181,10 +196,27 @@ def require(cond, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
-def smi() -> str:
+def smi(fields: str = "name,power.limit") -> str:
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def host_facts(torch) -> dict:
+    """The card's driver, bus id and clocks, and the host CPU that computes
+    the plain versions: what tells two machines apart when a reading differs
+    between them."""
+    cpu = ""
+    try:
+        with open("/proc/cpuinfo") as f:
+            cpu = next((ln.split(":", 1)[1].strip() for ln in f
+                        if ln.startswith("model name")), "")
+    except OSError:
+        pass
+    return {"gpu": smi("driver_version,pci.bus_id,clocks.max.sm,temperature.gpu"),
+            "sms": torch.cuda.get_device_properties(0).multi_processor_count,
+            "cpu": cpu, "cpu_count": os.cpu_count(), "threads": torch.get_num_threads(),
+            "cpu_capability": torch.backends.cpu.get_cpu_capability()}
 
 
 def in_turns(torch, calls: dict, iters: int = 10) -> dict:
@@ -848,6 +880,7 @@ def check_card_vs_cpu(torch, db, device) -> dict:
                             f"{engine}/{screen}: card and CPU frames differ")
             rows[f"{engine}/{screen}"] = len(frames[0])
     rows["stream/hash"] = check_stream_card_vs_cpu(small, device)
+    rows["sharded/hash"] = check_sharded_card_vs_cpu(small, device)
     print(f"phase 5: card == CPU on {CHECK_PATIENTS} patients, every engine and "
           f"screen ({json.dumps(rows)})", flush=True)
     return {"patients": CHECK_PATIENTS, "rows": rows}
@@ -886,6 +919,62 @@ def check_stream_card_vs_cpu(db, device) -> dict:
         placed = {t: list(tiers[0].values()).count(t) for t in ("device", "host", "disk")}
         require(placed["host"] and placed["disk"], f"stream: tiers not all used {placed}")
         return {"rows": len(card.frame()), "placement": placed}
+
+
+def check_sharded_card_vs_cpu(db, device) -> dict:
+    """Phase 5 for the sharded engine: a 3-wave replay through 3 shards
+    (balanced router, rebalancing every 2 ticks) under a budget that evicts
+    through the host and disk tiers, with 8 migrations after wave 2 (the
+    first of them a spilled patient); the card and the CPU give the same
+    rows, merged table, tier of every key and router pins."""
+    from repro_torch.api import MiningConfig, MiningSession
+    from repro_torch.stream.shard import ShardRouter
+
+    moves: list = []
+
+    def migrate_eight(session, w):
+        svc = session.service
+        if w != 1:
+            return
+        if not moves:       # chosen on the card's run, replayed on the CPU's
+            spilled = [k for sh in svc.shards for k in sh.store.held_keys()]
+            require(spilled, "sharded: nothing spilled by wave 2")
+            resident = [k for k in sorted(svc.pids) if k not in spilled]
+            for k in [spilled[0]] + resident[:7]:
+                moves.append((k, (svc.router.route(k) + 1) % svc.n_shards))
+        for k, dst in moves:
+            svc.migrate(k, dst)
+
+    with tempfile.TemporaryDirectory(prefix="tspm_disk_") as tmp:
+        sessions = []
+        for d in (device, "cpu"):
+            cfg = MiningConfig(n_shards=3, router="balance", rebalance_every=2,
+                               screen="hash", threshold=THRESHOLD,
+                               budget_bytes=CHECK_BUDGET_BYTES,
+                               disk_bytes=CHECK_DISK_BYTES,
+                               disk_dir=os.path.join(tmp, str(d).replace(":", "")))
+            router = ShardRouter.balanced(list(range(db.n_patients)), db.nevents, 3)
+            session = MiningSession(cfg, device=d, router=router)
+            replay_waves(db, session, 3, after_wave=lambda w, s=session: migrate_eight(s, w))
+            sessions.append(session)
+        card, cpu = sessions
+        for g, w in zip(engine_rows(card.frame()), engine_rows(cpu.frame())):
+            require(g.dtype == w.dtype and g.tobytes() == w.tobytes(),
+                    "sharded: card and CPU rows differ")
+        a, b = card.service.snapshot().counts, cpu.service.snapshot().counts
+        require(a.dtype == b.dtype and a.tobytes() == b.tobytes(),
+                "sharded: card and CPU merged tables differ")
+        tiers = [{k: sh.store.tier_of(k) for sh in s.service.shards for k in sh.store.pids}
+                 for s in sessions]
+        require(tiers[0] == tiers[1], "sharded: card and CPU tier placement differ")
+        require(card.service.router.pinned == cpu.service.router.pinned and
+                card.service.migrations == cpu.service.migrations,
+                "sharded: card and CPU router pins or migrations differ")
+        require(len(card.service.migrations) >= len(moves) == 8, "sharded: 8 migrations")
+        placed = {t: list(tiers[0].values()).count(t) for t in ("device", "host", "disk")}
+        require(placed["host"] and placed["disk"], f"sharded: tiers not all used {placed}")
+        return {"rows": len(card.frame()), "placement": placed,
+                "migrations": len(card.service.migrations)}
 
 
 def check_files_vs_chunked(torch, db, device) -> dict:
@@ -1019,33 +1108,17 @@ def check_table2(torch, db, device) -> dict:
     return out, launches
 
 
-def wave_cuts(db, n_waves: int, seed: int = 0) -> list:
-    """Each patient's history cut into ~``n_waves`` chronological deltas,
-    as the reference's ``launch/stream.replay_waves`` cuts it (copied: the
-    launcher is not ported)."""
-    rng = np.random.default_rng(seed)
-    cuts = []
-    for p in range(db.n_patients):
-        n = int(db.nevents[p])
-        k = min(n_waves, max(n, 1))
-        edges = (np.sort(rng.choice(np.arange(1, n), size=k - 1, replace=False))
-                 if n > 1 and k > 1 else np.zeros(0, np.int64))
-        cuts.append(np.concatenate([[0], edges, [n]]).astype(np.int64))
-    return cuts
-
-
-def replay_waves(db, session, n_waves: int, seed: int = 0):
+def replay_waves(db, session, n_waves: int, seed: int = 0, after_wave=None):
     """Submit the deltas wave after wave (wave-major, as encounters
-    arrive), draining the queue with ``session.run()`` after each wave;
-    returns the live frame."""
-    cuts = wave_cuts(db, n_waves, seed)
-    for w in range(n_waves):
-        for p in range(db.n_patients):
-            c = cuts[p]
-            if w + 1 < len(c) and c[w] < c[w + 1]:
-                lo, hi = int(c[w]), int(c[w + 1])
-                session.submit(p, db.date[p, lo:hi], db.phenx[p, lo:hi])
+    arrive; ``launch.stream.replay_waves`` cuts them), draining the queue
+    with ``session.run()`` after each wave and then calling
+    ``after_wave(w)``; returns the live frame."""
+    from repro_torch.launch import stream as launch_stream
+
+    for w in launch_stream.replay_waves(db, session, n_waves, seed):
         session.run()
+        if after_wave is not None:
+            after_wave(w)
     return session.frame()
 
 
@@ -1125,7 +1198,7 @@ def check_stream(torch, db, device) -> tuple[dict, dict]:
     print(f"phase 8 (b, {STREAM_WAVES} waves): {json.dumps(out['b_waves'])}", flush=True)
 
     # (c) on the first STREAM_BUDGET_PATIENTS patients: the same wave cuts
-    # (wave_cuts draws patient after patient), and each wave's ticks take
+    # (replay_waves draws patient after patient), and each wave's ticks take
     # the queue in patient order, so its rows are (b)'s rows of those
     # patients, in (b)'s order
     n_c = STREAM_BUDGET_PATIENTS
@@ -1154,9 +1227,180 @@ def check_stream(torch, db, device) -> tuple[dict, dict]:
     require(np.array_equal(fd._corpus.counts(), b_table), "stream fused table")
     out["d_fused"]["kept_rows"] = int(keep.sum())
     print(f"phase 8 (d, fused): {json.dumps(out['d_fused'])}", flush=True)
-    del fd, want, kept, b_rows
+    del fd, kept, b_rows
+    torch.cuda.empty_cache()
+    out["e_sharded"], out["f_devices_checkpoint"] = check_sharded(torch, db, device,
+                                                                  want, b_table)
+    del want
     torch.cuda.empty_cache()
     return out, launches
+
+
+SHARDS = 4                     # shards of phase 8 (e) and (f)
+SHARD_MIGRATIONS = 64          # patients migrated after wave 2 in (e) and (f)
+
+
+def sharded_session(device, placement: str):
+    from repro_torch.api import MiningConfig, MiningSession
+
+    return MiningSession(MiningConfig(
+        n_shards=SHARDS, router="hash", rebalance_every=32, imbalance_threshold=1.05,
+        placement=placement, telemetry=True, screen="hash", threshold=THRESHOLD),
+        device=device)
+
+
+def migrate_heaviest(db, session) -> None:
+    """Phase 8 (e)/(f) after wave 2: the ``SHARD_MIGRATIONS`` patients with
+    the most events, each to the next shard."""
+    svc = session.service
+    for p in np.argsort(-db.nevents, kind="stable")[:SHARD_MIGRATIONS]:
+        svc.migrate(int(p), (svc.router.route(int(p)) + 1) % svc.n_shards)
+
+
+def sharded_readings(torch, session, wall: float, launches: dict, ticks: int) -> dict:
+    """What phase 8 (e)/(f) print: wall, sharded and shard ticks,
+    migrations, rebalances, both load signals, peak device memory and the
+    ``TickStats`` sums."""
+    svc = session.service
+    m = session.metrics()
+    return {"wall_s": wall, "sharded_ticks": svc.n_ticks, "shard_ticks": ticks,
+            "migrations": len(svc.migrations),
+            "rebalances": m["shard.rebalances"], "shard_loads": svc.shard_loads(),
+            "shard_load": svc.shard_load(), "launches": launches,
+            "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "dispatch_s": sum(st.dispatch_s for st in svc.stats),
+            "device_s": sum(st.device_s for st in svc.stats),
+            "collect_s": sum(st.collect_s for st in svc.stats),
+            "migration_wall_s": svc.migration_wall_s, "admit_wall_s": svc.admit_wall_s}
+
+
+def check_sharded(torch, db, device, want, b_table) -> tuple[dict, dict]:
+    """Phase 8 (e): the 8-wave Table 1 replay through 4 shards ('host'
+    placement, hash router, rebalancing every 32 ticks), the 64 heaviest
+    patients migrated after wave 2; its merged table must equal the batch
+    table and its rows the batch rows as multisets.  (f): the same replay
+    under 'devices' placement (every shard on the card, two-pass ticks,
+    async admits), checkpointed after wave 4, restored in this process
+    into a new session, waves 5-8 there; its snapshot, pids, pins and
+    migrations must equal (e)'s byte for byte."""
+    from repro_torch.api import MiningSession
+    from repro_torch.launch import stream as launch_stream
+
+    def after(session, w):
+        if w == 1:
+            migrate_heaviest(db, session)
+
+    session = sharded_session(device, "host")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    frame = replay_waves(db, session, STREAM_WAVES,
+                         after_wave=lambda w: after(session, w))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    svc = session.service
+    e = sharded_readings(torch, session, wall, launches, len(svc.stats))
+    require(launches["tspm_delta"] == len(svc.stats) > 0,
+            f"(e): tspm_delta launched {launches['tspm_delta']} times in "
+            f"{len(svc.stats)} shard ticks")
+    require(launches["seq_hist"] >= len(svc.stats), "(e): a shard tick skipped seq_hist")
+    require(len(svc.migrations) >= SHARD_MIGRATIONS,
+            f"(e): {len(svc.migrations)} migrations < {SHARD_MIGRATIONS}")
+    snap = svc.snapshot()
+    require(snap.counts.dtype == np.int64 and np.array_equal(snap.counts, b_table),
+            "(e): the merged table != the batch engine's table")
+    require_same_multiset(torch, engine_rows(frame), want, device, "(e) sharded replay")
+    print(f"phase 8 (e, {SHARDS} shards, host): {json.dumps(e)}", flush=True)
+    keep = {"snap": snap, "pids": dict(svc.pids), "pinned": dict(svc.router.pinned),
+            "migrations": list(svc.migrations)}
+    del session, svc, frame, snap
+    torch.cuda.empty_cache()
+
+    session = sharded_session(device, "devices")
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="tspm_ckpt_") as ckpt_dir:
+        saved, ticks = {}, 0
+        for w in launch_stream.replay_waves(db, session, STREAM_WAVES):
+            session.run()
+            after(session, w)
+            if w == 3:
+                require(session.service.placement == "devices" and
+                        session.service.async_migration, "(f): not 'devices' placement")
+                t1 = time.perf_counter()
+                saved["path"] = session.checkpoint(ckpt_dir, extra={"next_wave": w + 1})
+                saved["save_s"] = time.perf_counter() - t1
+                saved["bytes"] = sum(f.stat().st_size
+                                     for f in Path(saved["path"]).iterdir())
+                ticks = len(session.service.stats)
+                break
+        del session
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        session = MiningSession.restore(ckpt_dir, device=device)
+        restore_s = time.perf_counter() - t1
+        start = int(session.restore_extra["next_wave"])
+        require(start == 4, f"(f): restored at wave {start}")
+        for w in launch_stream.replay_waves(db, session, STREAM_WAVES, start_wave=start):
+            session.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_launches()
+    svc = session.service
+    f = sharded_readings(torch, session, wall, launches, ticks + len(svc.stats))
+    f.update(checkpoint_bytes=saved["bytes"], save_s=saved["save_s"], restore_s=restore_s)
+    require(launches["tspm_delta"] == f["shard_ticks"] > 0,
+            f"(f): tspm_delta launched {launches['tspm_delta']} times in "
+            f"{f['shard_ticks']} shard ticks")
+    snap = svc.snapshot()
+    for name in ("seq", "dur", "patient", "counts"):
+        a, b = getattr(snap, name), getattr(keep["snap"], name)
+        require(a.dtype == b.dtype and a.tobytes() == b.tobytes(),
+                f"(f): the restored 'devices' run differs from (e) in {name}")
+    require(svc.pids == keep["pids"] and svc.router.pinned == keep["pinned"]
+            and svc.migrations == keep["migrations"],
+            "(f): pids, router pins or migrations differ from (e)")
+    print(f"phase 8 (f, {SHARDS} shards, devices, checkpoint after wave 4): "
+          f"{json.dumps(f)}", flush=True)
+    return e, f
+
+
+LAUNCHER_ARGS = ["--shards", "4", "--router", "hash", "--rebalance-every", "4"]
+
+
+def check_launcher(tmp_root: str) -> dict:
+    """The streaming launcher on the card at its default cohort, three
+    times: through all waves, then checkpointing and stopping after wave 3,
+    then resuming; the resumed run's ``state_digest=`` must equal the
+    uninterrupted run's."""
+    import re
+
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    ckpt_dir = os.path.join(tmp_root, "launcher_ckpt")
+    runs = {"whole": [], "stopped": ["--checkpoint-dir", ckpt_dir, "--stop-after-wave", "3"],
+            "resumed": ["--checkpoint-dir", ckpt_dir, "--resume"]}
+    out = {}
+    for name, extra in runs.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.stream",
+                               *LAUNCHER_ARGS, *extra], cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=300)
+        require(proc.returncode == 0,
+                f"launcher ({name}) exited {proc.returncode}: {proc.stderr[-2000:]}")
+        digest = re.findall(r"^state_digest=([0-9a-f]{64})$", proc.stdout, re.M)
+        require(len(digest) == 1, f"launcher ({name}) printed no state_digest")
+        out[name] = {"s": time.perf_counter() - t0, "digest": digest[0],
+                     "ingested": [ln for ln in proc.stdout.splitlines()
+                                  if ln.startswith("ingested")]}
+    require(out["resumed"]["digest"] == out["whole"]["digest"],
+            "launcher: the resumed run's digest != the uninterrupted run's")
+    require(out["stopped"]["digest"] != out["whole"]["digest"],
+            "launcher: stopping after wave 3 changed nothing")
+    print(f"phase 8 (launcher {' '.join(LAUNCHER_ARGS)}): {json.dumps(out)}", flush=True)
+    return out
 
 
 def time_delta(torch, db, dev, err: dict) -> dict:
@@ -1204,8 +1448,10 @@ def time_delta(torch, db, dev, err: dict) -> dict:
 def time_hist_tick(torch, mined) -> dict:
     """``seq_hist`` at the stream fit's largest tick (16 patients' delta
     slab, every id novel: the sketch's row sort and first flags over empty
-    histories), in turns with the kernel before the partitioned design."""
+    histories), in turns with the kernel before the partitioned design,
+    beside its plain version and ``torch.bincount`` with weights."""
     from repro_torch.core import encoding, sparsity
+    from repro_torch.kernels.seq_hist import ref as hist_ref
 
     B = mined.seq.shape[0]
     flat = torch.where(mined.mask.reshape(B, -1), mined.seq.reshape(B, -1), encoding.SENTINEL)
@@ -1213,8 +1459,16 @@ def time_hist_tick(torch, mined) -> dict:
     del flat
     h, first = sparsity.hash_bucket(srt, H_DEFAULT), sparsity.row_first_flags(srt)
     del srt
-    out = time_hist_block(torch, h, first, 1 << H_DEFAULT, True)
-    del h, first
+    nb = 1 << H_DEFAULT
+    out = time_hist_block(torch, h, first, nb, True)
+    weights = first.reshape(-1).to(torch.float32)
+    lib = torch.bincount(h.reshape(-1), weights=weights, minlength=nb)
+    require(torch.equal(lib.to(torch.int32), hist_ref.hist_ref(h, first, nb)),
+            "bincount yardstick disagrees at the tick")
+    out["plain_ms"] = cuda_ms(torch, lambda: hist_ref.hist_ref(h, first, nb), 10)
+    out["library_ms"] = cuda_ms(torch, lambda: torch.bincount(
+        h.reshape(-1), weights=weights, minlength=nb), 10)
+    del h, first, weights, lib
     return out
 
 
@@ -1654,23 +1908,54 @@ def same_or_near_tie(torch, mdl, cpu_params, prompts, got: dict, want: dict) -> 
     return ties
 
 
-def logit_diff(torch, got_logits: list, want_logits: list, got: dict,
-               want: dict) -> float:
-    """Largest |got - want| of the first wave's logits, slot ``i`` holding
-    request ``i``; each request's steps are compared up to and including
-    the step whose token first differs between the two runs (after it the
-    two runs decode other inputs)."""
-    G = torch.stack([t.cpu() for t in got_logits])           # [T, B, V]
+def request_gaps(torch, got_logits: list, want_logits: list, got: dict,
+                 want: dict) -> tuple:
+    """The first wave's logits stacked ``[T, B, V]`` (slot ``i`` holding
+    request ``i``) and, per request, ``|got - want|`` over its compared
+    steps: up to and including the step whose token first differs between
+    the two runs (after it the two runs decode other inputs)."""
+    G = torch.stack([t.cpu() for t in got_logits])
     W = torch.stack([t.cpu() for t in want_logits])
     T = min(len(G), len(W))
-    worst = 0.0
+    gaps = {}
     for i, w in want.items():
         g = got[i]
         n = min(len(g), len(w), T)
         differs = np.nonzero(g[:n] != w[:n])[0]
         last = int(differs[0]) + 1 if len(differs) else n
-        worst = max(worst, (G[:last, i] - W[:last, i]).abs().max().item())
-    return worst
+        gaps[i] = (G[:last, i] - W[:last, i]).abs()
+    return G, W, gaps
+
+
+def logit_diff(torch, got_logits: list, want_logits: list, got: dict,
+               want: dict) -> float:
+    """Largest |got - want| of the first wave's logits (``request_gaps``)."""
+    gaps = request_gaps(torch, got_logits, want_logits, got, want)[2]
+    return max([0.0] + [gap.max().item() for gap in gaps.values()])
+
+
+def logit_gap_report(torch, mdl, params, first, dev, card_logits, cpu_logits,
+                     card_results, cpu_results) -> dict:
+    """What a failed logit check reports besides the gap: where the largest
+    gap lies (step, request, token id, the card's and the CPU's logit),
+    each step's largest gap, whether a second card run of the first wave
+    repeats the first bit for bit, and ``host_facts``."""
+    G, W, gaps = request_gaps(torch, card_logits, cpu_logits, card_results, cpu_results)
+    i = max(gaps, key=lambda r: gaps[r].max().item())
+    step, tok = divmod(int(gaps[i].argmax()), gaps[i].shape[1])
+    T = min(len(G), len(W))
+    again = []
+    serve_on(torch, mdl, params, first, LM_NEW_TOKENS, dev, LM_BATCH, LM_MAX_LEN,
+             timed=False, logits=again)
+    A = torch.stack([t.cpu() for t in again])
+    return {"largest": {"step": step, "request": i, "token": tok,
+                        "card": G[step, i, tok].item(), "cpu": W[step, i, tok].item()},
+            "step_gaps": [float(f"{x:.3g}") for x in
+                          (G[:T] - W[:T]).abs().amax(dim=(1, 2)).tolist()],
+            "second_card_run_equal": A.shape == G.shape and torch.equal(A, G),
+            "second_card_run_gap": ((A - G).abs().max().item()
+                                    if A.shape == G.shape else None),
+            "host": host_facts(torch)}
 
 
 def half_split_rope(torch, apply_rope):
@@ -1762,11 +2047,13 @@ def check_lm_serving(torch, raw_db, dev) -> tuple[dict, dict]:
                             cpu["results"])
     controls = logit_controls(torch, cfg, mdl, params, first, cpu_logits,
                               cpu["results"], dev)
-    require(len(card_logits) == len(cpu_logits) > 1
-            and logits_err <= LM_LOGIT_TOL,
-            f"tspm-mlho: the card's first-wave logits differ from the CPU's by "
-            f"{logits_err} over {len(card_logits)}/{len(cpu_logits)} steps "
-            f"(limit {LM_LOGIT_TOL})")
+    if not (len(card_logits) == len(cpu_logits) > 1 and logits_err <= LM_LOGIT_TOL):
+        report = logit_gap_report(torch, mdl, params, first, dev, card_logits,
+                                  cpu_logits, first_results, cpu["results"])
+        require(False, f"tspm-mlho: the card's first-wave logits differ from the "
+                       f"CPU's by {logits_err} over {len(card_logits)}/"
+                       f"{len(cpu_logits)} steps (limit {LM_LOGIT_TOL}); "
+                       f"{json.dumps(report)}")
     out["tspm_mlho"] = {k: r[k] for k in ("launches", "wall_s", "waves", "tokens",
                                           "tokens_per_s", "prefill_s_per_wave",
                                           "decode_ms_per_step", "decode_steps",
@@ -1894,7 +2181,7 @@ def main() -> int:
     t_start = time.perf_counter()
     name, card = torch.cuda.get_device_name(0), smi()
     print(f"device: {name} | nvidia-smi: {card} | torch {torch.__version__} "
-          f"cuda {torch.version.cuda}", flush=True)
+          f"cuda {torch.version.cuda} | {json.dumps(host_facts(torch))}", flush=True)
     t0 = time.perf_counter()
     per_source = _build.build_all(COUNT_PROBE_BUILDS)
     print(f"phase 2: built {sorted(per_source)} in {time.perf_counter() - t0:.1f} s "
@@ -1934,6 +2221,9 @@ def main() -> int:
                   screen_collect_s=main_path["hash"]["screen_collect_s"])
     stream, delta_launches = check_stream(torch, db, dev)
     lap("8_stream")
+    with tempfile.TemporaryDirectory(prefix="tspm_launcher_") as tmp:
+        stream["launcher"] = check_launcher(tmp)
+    lap("8_launcher")
     delta_t = time_delta(torch, db, dev, err)
     kernels.append(kernel_row(
         "tspm_delta", "src/repro/kernels/tspm_delta/delta.py:32", delta_launches, err,

@@ -1,9 +1,9 @@
 """MiningConfig + Plan: the façade's declarative knobs and planner output.
 
 The port accepts every knob of the reference's config, so a reference
-config carries over with :meth:`MiningConfig.from_dict`; the planner
-refuses the engines and options that are not ported yet (sharding, the
-journal).
+config carries over with :meth:`MiningConfig.from_dict` (and back with
+:meth:`MiningConfig.to_dict`); the planner refuses the option that is not
+ported yet (the journal).
 
 One frozen dataclass carries everything the four execution layers used to
 take as scattered keyword arguments — encoding (codec, duration fusing),
@@ -146,6 +146,16 @@ class MiningConfig:
         if "jax_annotations" in d:
             d["profiler_annotations"] = d.pop("jax_annotations")
         return cls(**d)
+
+    def to_dict(self) -> dict:
+        """The inverse of :meth:`from_dict`: this config in the reference's
+        keys (backend 'torch' as 'jnp', ``jax_annotations``), as a session
+        checkpoint stores it so that either package restores it."""
+        d = dataclasses.asdict(self)
+        if d["backend"] == "torch":
+            d["backend"] = "jnp"
+        d["jax_annotations"] = d.pop("profiler_annotations")
+        return d
 
 
 def _fmt_bytes(n: int | None) -> str:

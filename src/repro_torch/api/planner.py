@@ -21,16 +21,25 @@ On the card the chunk count is the card's plan
 scratch so that ``budget_bytes`` bounds the card's peak); on the CPU it is
 the reference's ``plan_chunks``.
 
+For the sharded engine the plan also resolves *placement*: with
+``placement='auto'`` shards are pinned one per device whenever sharding is
+on (``n_shards > 1``) and the session's device type has at least as many
+devices as shards (``torch.cuda.device_count()`` for the card, 1 for the
+CPU), else they stay host-serial on the session's device — so on one
+H100 ``n_shards=4`` gives ``'host'``, as the reference does with fewer
+devices than shards.  Both placements are byte-identical.
+
 ``MiningConfig.engine`` short-circuits the tree — the plan records that it
-was forced.  The port runs the ``batch``, ``chunked``, ``files`` and
-``stream`` engines with every screen, with or without telemetry; a plan
-that needs anything else (sharding, the journal) raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it, and
-never runs something else in its place.
+was forced.  The port runs the ``batch``, ``chunked``, ``files``,
+``stream`` and ``sharded`` engines with every screen, with or without
+telemetry; a plan that needs the journal raises ``NotImplementedError``
+naming the ROADMAP.md item that ports it, and never runs something else in
+its place.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.analysis import roofline
 from repro_torch.api.config import MiningConfig, Plan
@@ -41,8 +50,6 @@ _BYTES_PER_ROW = 17
 
 #: where each piece that is not ported yet is queued in ROADMAP.md
 NOT_PORTED = {
-    "sharded": "ROADMAP.md queue 1 item 12 (sharding)",
-    "checkpoint": "ROADMAP.md queue 1 item 13 (checkpoint and restore)",
     "journal": "ROADMAP.md queue 1 item 14 (journal/)",
     "serve": "ROADMAP.md queue 1 item 15 (serving/tspm/)",
 }
@@ -80,6 +87,20 @@ def _corpus_bytes(nevents: np.ndarray) -> int:
     return int(np.sum(n * (n - 1) // 2)) * _BYTES_PER_ROW
 
 
+def resolve_placement(config: MiningConfig, device="cuda") -> str:
+    """Shard placement for the sharded engine, 'auto' resolved against the
+    devices of ``device``'s type: one shard per device when there are
+    enough, else host-serial.  Forced 'devices' is honored even with fewer
+    devices than shards (round-robin, still correct)."""
+    if config.placement != "auto":
+        return config.placement
+    kind = torch.device(device).type
+    count = torch.cuda.device_count() if kind == "cuda" else 1
+    if config.n_shards > 1 and count >= config.n_shards:
+        return "devices"
+    return "host"
+
+
 def make_plan(config: MiningConfig, nevents=None, incremental: bool = False,
               device="cuda") -> Plan:
     """Decide the engine for a cohort (``nevents`` per patient) mined on
@@ -107,18 +128,23 @@ def make_plan(config: MiningConfig, nevents=None, incremental: bool = False,
     common = dict(working_set_bytes=ws, budget_bytes=budget,
                   disk_bytes=config.disk_bytes,
                   corpus_bytes=corpus, n_chunks=n_chunks,
-                  n_shards=config.n_shards, placement="host",
+                  n_shards=config.n_shards,
+                  placement=resolve_placement(config, device),
                   incremental=incremental, corpus_free=fused)
 
     if config.engine is not None:
         plan = Plan(config.engine,
                     "forced by MiningConfig.engine override", **common)
+    elif incremental and config.n_shards > 1:
+        plan = Plan("sharded", f"incremental input over {config.n_shards} "
+                    f"patient shards ({common['placement']} placement)",
+                    **common)
     elif incremental:
-        plan = Plan("sharded" if config.n_shards > 1 else "stream",
-                    "incremental input (submit/tick)", **common)
+        plan = Plan("stream", "incremental input (submit/tick)", **common)
     elif config.n_shards > 1:
         plan = Plan("sharded", f"config requests {config.n_shards} patient "
-                    "shards", **common)
+                    "shards; batch input replayed through them "
+                    f"({common['placement']} placement)", **common)
     elif config.spill_bytes is not None and corpus > config.spill_bytes:
         plan = Plan("files", "flat corpus exceeds spill_bytes; chunks spill "
                     "to disk and screen via the merged count table", **common)

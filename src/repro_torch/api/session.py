@@ -12,18 +12,22 @@
     (mine_to_files / load_files);
   * ``stream``  — the cohort replayed through a StreamService (the
     ``tspm_delta`` kernel on the card, one launch a tick);
+  * ``sharded`` — replayed through a ShardedStreamService over
+    ``n_shards`` (hash or LPT-balanced router; the shards on the
+    session's device, or one per device of the mesh);
 
 with ``screen='sorted'``, ``'hash'`` or ``'fused'`` (corpus-free counting,
 then survivors only: core.chunking.mine_fused on the batch engines, the
-sketch's survivors on the stream).  ``submit(key, dates, phenx)`` /
-``tick()`` / ``run()`` feed the same session incrementally (engine
-'stream'); ``tick`` ingests one wave and returns the live frame.
-``MiningConfig(telemetry=True)`` records metrics and spans
-(``metrics()``, ``trace()``).  The planner refuses the sharded engine and
-the journal with ``NotImplementedError``, and so do ``checkpoint``,
-``restore``, ``journal``, ``verify``, ``replay``, ``serve`` and
-``shard_load``, each naming its ROADMAP.md item.  The result lands in a
-:class:`~repro_torch.api.frame.SequenceFrame`.
+sketch's survivors on the streaming ones).  ``submit(key, dates, phenx)``
+/ ``tick()`` / ``run()`` feed the same session incrementally (engine
+'stream' or 'sharded' by ``n_shards``); ``tick`` ingests one wave and
+returns the live frame.  ``checkpoint`` / ``restore`` persist a live
+streaming session (the reference's ``tspm-session-v1`` format: either
+package restores the other's).  ``MiningConfig(telemetry=True)`` records
+metrics and spans (``metrics()``, ``trace()``).  The planner refuses the
+journal with ``NotImplementedError``, and so do ``journal``, ``verify``,
+``replay`` and ``serve``, each naming its ROADMAP.md item.  The result
+lands in a :class:`~repro_torch.api.frame.SequenceFrame`.
 
 The session runs on the card unless the caller asks for the CPU:
 ``device='cuda'`` is the default, and raises when no CUDA device is
@@ -54,8 +58,13 @@ from repro_torch.api.frame import SequenceFrame
 from repro_torch.core import chunking, mining, sparsity
 from repro_torch.core.encoding import Vocab
 from repro_torch.data.dbmart import DBMart
-from repro_torch.stream.events import EventTap
+from repro_torch.storage.state import pack_tree, unpack_tree
+from repro_torch.stream.events import CheckpointTaken, EventTap
 from repro_torch.stream.service import StreamService
+from repro_torch.stream.shard import ShardedStreamService, ShardRouter
+from repro_torch.training import checkpoint as ckpt_lib
+
+SESSION_FORMAT = "tspm-session-v1"
 
 
 def resolve_device(device) -> torch.device:
@@ -71,23 +80,30 @@ def resolve_device(device) -> torch.device:
 class MiningSession:
     """One mining session: a config, a device, a planner and a result frame.
 
-    ``vocab`` decodes frames when the dbmart has none.  Keyword overrides
-    fork the config: ``MiningSession(threshold=5)`` ==
+    ``mesh`` (``launch.mesh.make_data_mesh``) and a pre-built ``router``
+    are runtime resources of the sharded engine; ``vocab`` decodes frames
+    when the dbmart has none.  Keyword overrides fork the config:
+    ``MiningSession(threshold=5)`` ==
     ``MiningSession(MiningConfig(threshold=5))``.
     """
 
     def __init__(self, config: MiningConfig | None = None, *,
-                 device="cuda", vocab: Vocab | None = None, **overrides):
+                 device="cuda", mesh=None, router: ShardRouter | None = None,
+                 vocab: Vocab | None = None, **overrides):
         config = config if config is not None else MiningConfig()
         self.config = config.replace(**overrides) if overrides else config
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.router = router
         self.vocab = vocab
         self.telemetry = (obs_lib.Telemetry(
             profiler_annotations=self.config.profiler_annotations)
             if self.config.telemetry else obs_lib.NOOP)
-        self.service: StreamService | None = None
+        self.service: StreamService | ShardedStreamService | None = None
         self.last_plan: Plan | None = None
         self.last_frame: SequenceFrame | None = None
+        self.restore_extra: dict = {}   # user extras from the checkpoint
+        #                                 this session was restored from
 
     # --- planning -----------------------------------------------------------
     def plan(self, db: DBMart | None = None) -> Plan:
@@ -208,7 +224,18 @@ class MiningSession:
         svc.run()
 
     def _fit_stream(self, db: DBMart) -> SequenceFrame:
-        svc = self._make_service()
+        return self._fit_replayed(db, self._make_service(sharded=False))
+
+    def _fit_sharded(self, db: DBMart) -> SequenceFrame:
+        router = self.router
+        if router is None and self.config.router == "balance":
+            router = ShardRouter.balanced(
+                list(range(db.n_patients)), np.asarray(db.nevents),
+                self.config.n_shards)
+        return self._fit_replayed(db, self._make_service(sharded=True,
+                                                         router=router))
+
+    def _fit_replayed(self, db: DBMart, svc) -> SequenceFrame:
         self._replay(db, svc)
         # the service ends with the fit, so its snapshot-time gauges (plane
         # and set widths, occupancy) are sampled now or never
@@ -221,8 +248,8 @@ class MiningSession:
         self._ensure_service().submit(key, dates, phenx)
 
     def tick(self) -> SequenceFrame:
-        """Ingest one wave and return the live frame over the updated
-        corpus."""
+        """Ingest one wave (every shard with queued work) and return the
+        live frame over the updated corpus."""
         self._ensure_service().tick()
         return self.frame()
 
@@ -241,7 +268,7 @@ class MiningSession:
                                "submit() deltas first")
         return self._snap_frame(self.service, vocab=self.vocab)
 
-    def _ensure_service(self) -> StreamService:
+    def _ensure_service(self):
         if self.service is None:
             if self.last_frame is not None:
                 raise RuntimeError(
@@ -249,28 +276,112 @@ class MiningSession:
                     "for incremental submit/tick")
             plan = planner.make_plan(self.config, incremental=True,
                                      device=self.device)
-            if plan.engine != "stream":
+            if plan.engine not in ("stream", "sharded"):
                 raise ValueError(
                     f"engine {plan.engine!r} cannot ingest incrementally; "
-                    "leave MiningConfig.engine unset or pick stream")
+                    "leave MiningConfig.engine unset or pick stream/sharded")
             self.last_plan = plan
-            self.service = self._make_service()
+            self.service = self._make_service(sharded=plan.engine == "sharded",
+                                              router=self.router)
         return self.service
 
-    def _make_service(self) -> StreamService:
+    def _make_service(self, sharded: bool, router: ShardRouter | None = None):
+        """The stream service, or the sharded one (its shards on the
+        session's device under ``'host'`` placement, one per device of
+        the mesh under ``'devices'``)."""
         c = self.config
-        return StreamService(
-            tick_patients=c.tick_patients, codec=c.codec, backend=c.backend,
-            n_buckets_log2=c.n_buckets_log2, budget_bytes=c.budget_bytes,
-            fuse_duration=c.fuse_duration, bucket_days=c.bucket_days,
-            max_slot_events=c.max_slot_events, device=self.device,
-            telemetry=self.telemetry if self.telemetry.enabled else None,
-            disk_bytes=c.disk_bytes, disk_dir=c.disk_dir)
+        kw = dict(tick_patients=c.tick_patients, codec=c.codec,
+                  backend=c.backend, n_buckets_log2=c.n_buckets_log2,
+                  budget_bytes=c.budget_bytes, fuse_duration=c.fuse_duration,
+                  bucket_days=c.bucket_days, max_slot_events=c.max_slot_events,
+                  disk_bytes=c.disk_bytes, disk_dir=c.disk_dir,
+                  device=self.device,
+                  telemetry=self.telemetry if self.telemetry.enabled else None)
+        if not sharded:
+            return StreamService(**kw)
+        return ShardedStreamService(
+            n_shards=c.n_shards, router=router, mesh=self.mesh,
+            rebalance_every=c.rebalance_every,
+            imbalance_threshold=c.imbalance_threshold, min_gain=c.min_gain,
+            busy_weighted_rebalance=c.busy_weighted_rebalance,
+            placement=planner.resolve_placement(c, self.device), **kw)
 
-    def _snap_frame(self, svc: StreamService, vocab=None,
-                    n_patients=None) -> SequenceFrame:
+    # --- checkpoint / resume ------------------------------------------------
+    def checkpoint(self, ckpt_dir: str, step: int | None = None,
+                   extra: dict | None = None) -> str:
+        """Atomically capture the live streaming session to ``ckpt_dir``.
+
+        Everything that makes continuation byte-identical goes in: store
+        planes and residency tiers, sketch tables, queued deltas, the
+        mined corpus, router pins, in-flight migration payloads, and tick
+        counters — in the training checkpoint layout (``arrays.npz`` +
+        ``manifest.json`` in a tmp dir, atomically renamed), the config in
+        the reference's keys (``MiningConfig.to_dict``), so the reference
+        restores it too.  ``step`` defaults to the service's tick count;
+        ``extra`` is a JSON-able user dict surfaced as ``restore_extra``
+        after :meth:`restore`.  Returns the checkpoint path."""
+        if self.service is None:
+            raise RuntimeError("nothing to checkpoint: only live streaming "
+                               "sessions persist; submit()/tick() first "
+                               "(batch fit results are already a frame)")
+        with self.telemetry.tracer.span("checkpoint.save", cat="host"):
+            sharded = isinstance(self.service, ShardedStreamService)
+            state = self.service.state_dict()
+            if step is None:
+                step = int(state["tick_count"] if sharded
+                           else state["n_ticks"])
+            tree = {"format": SESSION_FORMAT,
+                    "engine": "sharded" if sharded else "stream",
+                    "config": self.config.to_dict(),
+                    "state": state}
+            json_tree, arrays = pack_tree(tree)
+            path = ckpt_lib.save(ckpt_dir, step, arrays,
+                                 extra={"session": json_tree,
+                                        "user": extra or {}})
+        if self.service.events.wants(CheckpointTaken):
+            self.service.events.emit(
+                CheckpointTaken(step=int(step), path=path))
+        return path
+
+    @classmethod
+    def restore(cls, ckpt_dir: str, *, device="cuda", mesh=None,
+                vocab: Vocab | None = None) -> "MiningSession":
+        """Rebuild a streaming session from a :meth:`checkpoint` directory
+        (or one specific ``step_*`` path inside it), written by this
+        package or the reference, and continue exactly where it left off.
+        Every tensor is rebuilt on ``device`` (the card unless the caller
+        asks for the CPU), whatever device wrote the checkpoint.  Runtime
+        resources (``mesh``, ``vocab``) are re-supplied by the caller, like
+        the constructor."""
+        path = ckpt_dir
+        if not os.path.exists(os.path.join(path, "manifest.json")):
+            found = ckpt_lib.latest(ckpt_dir)
+            if found is None:
+                raise FileNotFoundError(f"no checkpoint under {ckpt_dir!r}")
+            path = found
+        leaves, manifest = ckpt_lib.load(path)
+        tree = unpack_tree(manifest["extra"]["session"], leaves)
+        if tree.get("format") != SESSION_FORMAT:
+            raise ValueError(f"{path!r} is not a session checkpoint "
+                             f"(format {tree.get('format')!r})")
+        config = MiningConfig.from_dict(tree["config"])
+        session = cls(config, device=device, mesh=mesh, vocab=vocab)
+        plan = planner.make_plan(config, incremental=True,
+                                 device=session.device)
+        with session.telemetry.tracer.span("checkpoint.restore", cat="host"):
+            svc = session._make_service(sharded=tree["engine"] == "sharded")
+            svc.load_state_dict(tree["state"])
+            session.service = svc
+            session.last_plan = plan
+        session.restore_extra = manifest["extra"].get("user", {})
+        return session
+
+    def _snap_frame(self, svc, vocab=None, n_patients=None) -> SequenceFrame:
         snap = svc.snapshot()
-        p2k = {pid: k for k, pid in svc.store.pids.items()}
+        if isinstance(svc, ShardedStreamService):
+            p2k = svc.pid_to_key()
+        else:
+            p2k = {pid: k for k, pid in svc.store.pids.items()}
         if p2k and all(isinstance(k, (int, np.integer)) for k in p2k.values()):
             # patient column = original integer keys, via a pid lut (pids
             # are dense admission-order ints, possibly with retired holes)
@@ -322,15 +433,15 @@ class MiningSession:
                                "with MiningConfig(telemetry=True)")
         return self.telemetry.tracer
 
+    def shard_load(self) -> list[float]:
+        """Device-timed busy fraction per shard since the last poll
+        (sharded engine only; see ShardedStreamService.shard_load)."""
+        svc = self.service
+        if not isinstance(svc, ShardedStreamService):
+            raise RuntimeError("shard_load() needs a live sharded service")
+        return svc.shard_load()
+
     # --- not ported yet -----------------------------------------------------
-    def checkpoint(self, ckpt_dir: str, step: int | None = None,
-                   extra: dict | None = None) -> str:
-        raise planner.not_ported("MiningSession.checkpoint", "checkpoint")
-
-    @classmethod
-    def restore(cls, ckpt_dir: str, **kw) -> "MiningSession":
-        raise planner.not_ported("MiningSession.restore", "checkpoint")
-
     def journal(self):
         raise planner.not_ported("MiningSession.journal", "journal")
 
@@ -343,6 +454,3 @@ class MiningSession:
 
     def serve(self, **kw):
         raise planner.not_ported("MiningSession.serve", "serve")
-
-    def shard_load(self) -> list[float]:
-        raise planner.not_ported("MiningSession.shard_load", "sharded")

@@ -15,14 +15,16 @@ package keeps the screened sequence corpus continuously up to date:
                   with batch-screen counts (core/sparsity);
   * ``service`` — micro-batching ingest loop + snapshot queries;
   * ``events``  — the typed session-event union + the subscribe/emit
-                  dispatcher the service publishes through.
-
-Sharding (the reference's ``stream/shard.py``) is not ported yet.
+                  dispatcher the services publish through;
+  * ``shard``   — patient->shard router (sticky until migrated) +
+                  per-shard services on one device or one each; global
+                  screen by one table sum; live patient migration and
+                  load-triggered LPT rebalancing.
 
 Invariant (tested against the reference): replaying a dbmart
 event-by-event through ``service.StreamService`` yields the same corpus,
 support counts, and query masks as ``core.mining`` + ``core.sparsity`` on
 the full dbmart.
 """
-from repro_torch.stream import counts, delta, events, service, \
+from repro_torch.stream import counts, delta, events, service, shard, \
     store  # noqa: F401

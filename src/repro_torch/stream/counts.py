@@ -201,7 +201,7 @@ class OnlineSupportSketch:
     # --- migration handoff --------------------------------------------------
     def _bucket_transfer(self, ids: np.ndarray, sign: int) -> None:
         """Add ``sign`` to each id's bucket (a new table tensor)."""
-        h = sparsity.hash_bucket(torch.from_numpy(np.asarray(ids, np.int64)),
+        h = sparsity.hash_bucket(torch.from_numpy(np.array(ids, np.int64)),
                                  self.n_buckets_log2).to(torch.int64)
         w = torch.full(h.shape, sign, dtype=torch.int32)
         self.counts = self.counts.index_add(0, h.to(self.device), w.to(self.device))

@@ -23,6 +23,7 @@ hash-screen keep mask, exactly as on the batch path.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from collections import deque
 from typing import NamedTuple
@@ -183,6 +184,7 @@ class StreamService(SnapshotQueries):
                  budget_bytes: int | None = None, pad_multiple: int = 8,
                  fuse_duration: bool = False, bucket_days: int = 30,
                  max_slot_events: int = 512, device="cuda", telemetry=None,
+                 shard_tag: int | None = None, retrace_tracker=None,
                  disk_bytes: int | None = None, disk_dir: str | None = None):
         self.tick_patients = tick_patients
         self.max_slot_events = max_slot_events
@@ -192,15 +194,22 @@ class StreamService(SnapshotQueries):
         self.bucket_days = bucket_days
         self.device = torch.device(device)
         self.obs = telemetry if telemetry is not None else obs_lib.NOOP
+        self.shard_tag = shard_tag
         self.events = EventDispatcher(self.obs)
-        self.track = "stream"
+        self.track = "stream" if shard_tag is None else f"shard{shard_tag}"
+        labels = {} if shard_tag is None else {"shard": shard_tag}
+        if disk_dir is not None and shard_tag is not None:
+            # one blockstore per shard: a shared segment file would
+            # interleave two shards' appends
+            disk_dir = os.path.join(disk_dir, f"shard{shard_tag}")
         self.store = PatientStore(pad_multiple=pad_multiple,
                                   budget_bytes=budget_bytes, device=self.device,
-                                  telemetry=self.obs,
+                                  telemetry=self.obs, labels=labels,
                                   disk_bytes=disk_bytes, disk_dir=disk_dir)
         self.sketch = counts_lib.OnlineSupportSketch(n_buckets_log2,
                                                      device=self.device,
-                                                     telemetry=self.obs)
+                                                     telemetry=self.obs,
+                                                     labels=labels)
         self.queue: deque[Delta] = deque()
         self._corpus: list[tuple[np.ndarray, np.ndarray, np.ndarray]] = []
         # snapshot cache keyed (implicitly) on ``snapshot_version``: any
@@ -211,17 +220,18 @@ class StreamService(SnapshotQueries):
         self._snap_version = 0
         self.stats: list[TickStats] = []
         self._ticks_restored = 0    # ticks before the checkpoint we resumed
-        self._retrace = obs_lib.RetraceTracker() if self.obs.enabled else None
+        self._retrace = retrace_tracker if retrace_tracker is not None \
+            else (obs_lib.RetraceTracker() if self.obs.enabled else None)
         # metric objects resolved once; per-tick cost is inc/observe only
         m = self.obs.metrics
-        self._m_ticks = m.counter("stream.ticks")
-        self._m_events = m.counter("stream.events")
-        self._m_pairs = m.counter("stream.pairs")
-        self._m_retraces = m.counter("jit.retraces")
-        self._m_dispatch = m.histogram("stream.tick.dispatch_s")
-        self._m_collect = m.histogram("stream.tick.collect_s")
-        self._m_device = m.histogram("stream.tick.device_s")
-        self._m_queue = m.gauge("stream.queue_depth")
+        self._m_ticks = m.counter("stream.ticks", **labels)
+        self._m_events = m.counter("stream.events", **labels)
+        self._m_pairs = m.counter("stream.pairs", **labels)
+        self._m_retraces = m.counter("jit.retraces", **labels)
+        self._m_dispatch = m.histogram("stream.tick.dispatch_s", **labels)
+        self._m_collect = m.histogram("stream.tick.collect_s", **labels)
+        self._m_device = m.histogram("stream.tick.device_s", **labels)
+        self._m_queue = m.gauge("stream.queue_depth", **labels)
 
     # --- ingest -------------------------------------------------------------
     def submit(self, key, dates, phenx) -> None:
@@ -231,7 +241,8 @@ class StreamService(SnapshotQueries):
             return
         self.queue.append(Delta(key, dates, phenx))
         if self.events.wants(DeltaSubmitted):
-            self.events.emit(DeltaSubmitted(key, dates, phenx))
+            self.events.emit(DeltaSubmitted(key, dates, phenx,
+                                            shard=self.shard_tag))
 
     def _next_wave(self) -> list[Delta]:
         """Slot-level admission: up to ``tick_patients`` patient slots, and
@@ -373,11 +384,12 @@ class StreamService(SnapshotQueries):
             # the corpus log's own arrays — subscribers must not mutate
             tick_ev = TickCompleted(
                 tick=self.n_ticks + 1, service=self, keys=pending.keys,
-                slot_idx=slot, seq=seq_m, dur=dur_m)
+                slot_idx=slot, seq=seq_m, dur=dur_m, shard=self.shard_tag)
 
         evicted, demoted = self.store.evict_over_budget()
         if (evicted or demoted) and self.events.wants(Evicted):
-            self.events.emit(Evicted(tuple(evicted), tuple(demoted)))
+            self.events.emit(Evicted(tuple(evicted), tuple(demoted),
+                                     shard=self.shard_tag))
         t_end = time.perf_counter()
         st = TickStats(
             n_patients=B, n_events=int(pending.n_new.sum()),
@@ -491,7 +503,7 @@ class StreamService(SnapshotQueries):
             # an external handoff (the sharded service journals its own
             # migrations and keeps this silent by not subscribing here)
             self.events.emit(Migrated(state.key, src=None,
-                                      dst=0, state=state))
+                                      dst=self.shard_tag or 0, state=state))
         return pid
 
     def _extract_corpus(self, pid: int) -> tuple[np.ndarray, np.ndarray]:

@@ -557,3 +557,150 @@ def test_reduced_model_serves_on_card_as_on_cpu(cuda_device, arch):
         rng = np.random.default_rng(0)
     for rid in results[0]:
         np.testing.assert_array_equal(results[0][rid], results[1][rid])
+
+
+# --- the sharded engine and checkpoints on the card -------------------------
+def _cohort(seed: int, P: int = 12, E: int = 18):
+    """A random numeric dbmart (numpy, from a seed)."""
+    rng = np.random.default_rng(seed)
+    nevents = rng.integers(0, E + 1, P).astype(np.int32)
+    phenx = rng.integers(0, 25, (P, E)).astype(np.int32)
+    date = np.sort(rng.integers(0, 400, (P, E)), axis=1).astype(np.int32)
+    return dbmart.from_arrays(phenx, date, nevents)
+
+
+def _shard_ops(db, seed: int, n_shards: int) -> list:
+    """Submits of random chronological chunks with ticks, runs, migrations
+    (of queued, resident and spilled patients) and rebalances between."""
+    rng = np.random.default_rng(seed)
+    ops, cursors = [], np.zeros(db.n_patients, np.int64)
+    alive = [p for p in range(db.n_patients) if db.nevents[p] > 0]
+    while alive:
+        p = alive[int(rng.integers(len(alive)))]
+        lo = int(cursors[p])
+        hi = min(lo + int(rng.integers(1, 4)), int(db.nevents[p]))
+        ops.append(("submit", p, lo, hi))
+        cursors[p] = hi
+        if hi == int(db.nevents[p]):
+            alive.remove(p)
+        r = rng.random()
+        ops += [("tick",)] if r < 0.2 else [("run",)] if r < 0.35 else []
+        if rng.random() < 0.25:
+            ops.append(("migrate", p, int(rng.integers(n_shards))))
+        if rng.random() < 0.1:
+            ops.append(("rebalance",))
+    ops.append(("run",))
+    ops += [("migrate", p, (p + 1) % n_shards) for p in range(db.n_patients)
+            if db.nevents[p] > 0 and p % 3 == 0]
+    return ops
+
+
+def _apply(session, db, ops) -> None:
+    for op in ops:
+        if op[0] == "submit":
+            session.submit(op[1], db.date[op[1], op[2]:op[3]],
+                           db.phenx[op[1], op[2]:op[3]])
+        elif op[0] == "migrate":
+            if op[1] in session.service.pids:
+                session.service.migrate(op[1], op[2])
+        elif op[0] == "rebalance":
+            session.service.rebalance(imbalance_threshold=1.1)
+        else:
+            getattr(session.service, op[0])()
+
+
+def _assert_same_sharded(a, b) -> None:
+    sa, sb = a.service, b.service
+    x, y = sa.snapshot(), sb.snapshot()
+    for name in ("seq", "dur", "patient", "counts"):
+        assert_same(getattr(x, name), getattr(y, name), name)
+    assert sa.pids == sb.pids and sa.router.pinned == sb.router.pinned
+    assert sa.migrations == sb.migrations and sa.n_ticks == sb.n_ticks
+    for va, vb in zip(sa.shards, sb.shards):
+        assert {k: va.store.tier_of(k) for k in vb.store.pids} == \
+            {k: vb.store.tier_of(k) for k in vb.store.pids}
+
+
+def _shard_config(tmp_path, tag: str, placement: str = "host") -> MiningConfig:
+    return MiningConfig(n_shards=3, router="hash", placement=placement,
+                        tick_patients=3, n_buckets_log2=10, screen="hash",
+                        threshold=2, budget_bytes=20_000, disk_bytes=2_000,
+                        disk_dir=str(tmp_path / tag), rebalance_every=3,
+                        imbalance_threshold=1.1)
+
+
+@pytest.mark.parametrize("placement", ["host", "devices"])
+def test_sharded_replay_on_card_matches_cpu(cuda_device, tmp_path, placement):
+    """3 shards evicting through the host and disk tiers, migrations of
+    resident and spilled patients and rebalances: the card's replay equals
+    the CPU's byte for byte (rows, merged table, pins, tiers), with one
+    tspm_delta launch a shard tick."""
+    db = _cohort(5)
+    ops = _shard_ops(db, 6, 3)
+    sessions = []
+    for d in (cuda_device, "cpu"):
+        s = MiningSession(_shard_config(tmp_path, str(d).replace(":", ""), placement),
+                          device=d)
+        before = delta_ops.delta_pairgen.launches
+        _apply(s, db, ops)
+        sessions.append((s, delta_ops.delta_pairgen.launches - before))
+    (card, launches), (cpu, _) = sessions
+    assert launches == len(card.service.stats) > 0
+    assert card.service.migrations and all(
+        sv.device == cuda_device for sv in card.service.shards)
+    spilled = {sv.store.tier_of(k) for sv in card.service.shards
+               for k in sv.store.pids}
+    assert {"host", "disk"} <= spilled
+    _assert_same_sharded(card, cpu)
+    for g, w in zip(card.frame().screen().collect(), cpu.frame().screen().collect()):
+        assert_same(g, w)
+
+
+@pytest.mark.parametrize("writer,reader", [("cuda", "cpu"), ("cpu", "cuda")])
+def test_checkpoint_restores_across_devices(cuda_device, tmp_path, writer, reader):
+    """A session checkpointed on one device restores on the other (every
+    tensor rebuilt there) and continues as an uninterrupted run does."""
+    db = _cohort(8)
+    ops = _shard_ops(db, 9, 3)
+    cut = len(ops) // 2
+    dev = {"cuda": cuda_device, "cpu": torch.device("cpu")}
+    first = MiningSession(_shard_config(tmp_path, "w", "devices"), device=dev[writer])
+    _apply(first, db, ops[:cut])
+    path = first.checkpoint(str(tmp_path / "ck"), extra={"cut": cut})
+    resumed = MiningSession.restore(path, device=dev[reader])
+    assert resumed.restore_extra == {"cut": cut}
+    assert all(sv.sketch.counts.device.type == reader and
+               sv.store.phenx.device.type == reader for sv in resumed.service.shards)
+    _apply(resumed, db, ops[cut:])
+    whole = MiningSession(_shard_config(tmp_path, "u", "devices"), device=dev[reader])
+    _apply(whole, db, ops)
+    _assert_same_sharded(resumed, whole)
+
+
+def test_merge_sharded_counts_on_card(cuda_device):
+    from repro_torch.distributed.sharding import merge_sharded_counts
+    from repro_torch.launch.mesh import make_data_mesh
+
+    rng = np.random.default_rng(3)
+    tables = [torch.from_numpy(rng.integers(0, 50, 1 << 10).astype(np.int32))
+              for _ in range(4)]
+    want = sum(t.to(torch.int64) for t in tables).to(torch.int32)
+    for mesh in (None, make_data_mesh()):
+        got = merge_sharded_counts([t.to(cuda_device) for t in tables], mesh)
+        assert got.device == cuda_device and got.dtype == torch.int32
+        assert_same(got, want)
+
+
+def test_devices_placement_over_two_cards(tmp_path):
+    """One shard a card on a host with two or more cards; equals 'host'."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices (one shard a card)")
+    db = _cohort(11)
+    ops = _shard_ops(db, 12, 3)
+    out = []
+    for placement in ("devices", "host"):
+        s = MiningSession(_shard_config(tmp_path, placement, placement), device="cuda")
+        _apply(s, db, ops)
+        out.append(s)
+    assert len({sv.device for sv in out[0].service.shards}) >= 2
+    _assert_same_sharded(*out)

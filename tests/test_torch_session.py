@@ -182,9 +182,20 @@ def test_config_and_planner_refuse_what_is_not_ported():
         plan = t_planner.make_plan(MiningConfig(**kw), nev, device="cpu")
         assert plan.engine == j_planner.make_plan(JConfig(**kw), nev).engine, kw
         assert plan.corpus_free == (kw.get("screen") == "fused")
-    for kw in [dict(n_shards=2), dict(journal_dir="journal")]:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            t_planner.make_plan(MiningConfig(**kw), nev, device="cpu")
+    # n_shards > 1 now plans the reference's engine and placement
+    for kw in [dict(n_shards=2), dict(n_shards=4, placement="devices"),
+               dict(n_shards=3, router="balance")]:
+        for incremental in (False, True):
+            plan = t_planner.make_plan(MiningConfig(**kw), nev, device="cpu",
+                                       incremental=incremental)
+            jplan = j_planner.make_plan(JConfig(**kw), nev, incremental=incremental)
+            assert (plan.engine, plan.placement, plan.n_shards) == \
+                (jplan.engine, jplan.placement, jplan.n_shards) == \
+                ("sharded", jplan.placement, kw["n_shards"]), kw
+    # one card has fewer devices than 4 shards: 'auto' gives 'host'
+    assert t_planner.resolve_placement(MiningConfig(n_shards=4)) == "host"
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 14"):
+        t_planner.make_plan(MiningConfig(journal_dir="journal"), nev, device="cpu")
     plan = t_planner.make_plan(MiningConfig(budget_bytes=1 << 30), nev, device="cpu")
     jplan = j_planner.make_plan(JConfig(budget_bytes=1 << 30), nev)
     assert (plan.engine, plan.working_set_bytes, plan.corpus_bytes) == \
@@ -335,16 +346,22 @@ def test_incremental_frames_match_reference(engine_cohort, screen):
 
 
 def test_refused_session_methods_raise():
-    """What is still to port raises NotImplementedError naming its item."""
+    """What is still to port (the journal, item 14; query serving, item 15)
+    raises NotImplementedError naming its item; the sharded engine,
+    checkpoint/restore and shard_load are ported and no longer raise it."""
     s = MiningSession(MiningConfig(), device="cpu")
-    calls = [lambda: s.checkpoint("ckpt"), lambda: MiningSession.restore("ckpt"),
-             s.journal, s.verify, lambda: MiningSession.replay("j"), s.serve,
-             s.shard_load]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 1[2-5]"):
+    for call, item in ((s.journal, 14), (s.verify, 14),
+                       (lambda: MiningSession.replay("j"), 14), (s.serve, 15)):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 item {item}"):
             call()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        MiningSession(MiningConfig(n_shards=2), device="cpu").submit(0, [1], [2])
+    with pytest.raises(NotImplementedError, match="item 14"):
+        MiningSession(MiningConfig(journal_dir="j"), device="cpu").submit(0, [1], [2])
+    sharded = MiningSession(MiningConfig(n_shards=2), device="cpu")
+    sharded.submit(0, [1, 2], [3, 4])
+    assert sharded.plan().engine == "sharded" and len(sharded.run()) == 1
+    assert len(sharded.shard_load()) == 2
+    with pytest.raises(RuntimeError, match="sharded"):
+        s.shard_load()
 
 
 def test_cuda_device_without_a_card_raises():
@@ -415,7 +432,10 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.models.model, repro_torch.models.convert, "
             "repro_torch.serving, repro_torch.serving.engine, "
             "repro_torch.launch.serve, repro_torch.kernels.flash_attention.ops, "
-            "repro_torch.data.tokenize, repro_torch.configs; "
+            "repro_torch.data.tokenize, repro_torch.configs, "
+            "repro_torch.launch.stream, repro_torch.launch.mesh, "
+            "repro_torch.training.checkpoint, repro_torch.data.pipeline, "
+            "repro_torch.distributed.sharding, repro_torch.core.baseline_tspm; "
             "[repro_torch.configs.get_config(a) for a in repro_torch.configs.ARCHS]; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "assert not bad, bad")
@@ -441,3 +461,57 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                            capture_output=True, text=True, timeout=120)
         assert r.returncode != 0
         assert '"ok": true' not in r.stdout
+
+
+@pytest.mark.parametrize("router", ["hash", "balance"])
+@pytest.mark.parametrize("screen", ["hash", "fused"])
+def test_sharded_fit_matches_reference(engine_cohort, router, screen):
+    """engine='sharded' fit (the balanced router built from the cohort's
+    event counts, auto-rebalancing on): collect() and screen().collect()
+    byte-identical to the reference session's and to the batch engine."""
+    cfg = dict(n_shards=3, router=router, screen=screen, threshold=2,
+               n_buckets_log2=10, tick_patients=4, rebalance_every=2,
+               imbalance_threshold=1.1)
+    want = JSession(JConfig(**cfg)).fit(engine_cohort)
+    session = MiningSession(MiningConfig(**cfg), device="cpu")
+    got = session.fit(port_db(engine_cohort))
+    assert session.plan().engine == "sharded" and session.plan().placement == "host"
+    _assert_result(got.collect(), want.collect(), "sharded")
+    _assert_result(got.screen().collect(), want.screen().collect(), "screened")
+    batch = MiningSession(MiningConfig(screen=screen, threshold=2,
+                                       n_buckets_log2=10), device="cpu")
+    _assert_result(got.collect(), batch.fit(port_db(engine_cohort)).collect(),
+                   "sharded == batch")
+
+
+def test_incremental_sharded_and_guards():
+    """Twin of tests/test_api.py::test_incremental_sharded_and_guards."""
+    sess = MiningSession(MiningConfig(n_shards=3, tick_patients=2,
+                                      n_buckets_log2=10), device="cpu")
+    sess.submit("a", [1, 2], [3, 4])
+    sess.submit("b", [1], [5])
+    frame = sess.run()
+    assert sess.plan().engine == "sharded"
+    assert len(frame) == 1               # only patient 'a' mined one pair
+    with pytest.raises(RuntimeError):
+        sess.fit(port_db(random_dbmart(np.random.default_rng(0))))
+    with pytest.raises(ValueError):
+        MiningSession(MiningConfig(engine="batch"), device="cpu").submit("a", [1], [2])
+
+
+def test_shard_load_fractions():
+    """Twin of tests/test_obs.py::test_shard_load_fractions, through the
+    session: busy fractions in [0, 1], something ran, the window resets."""
+    rng = np.random.default_rng(4)
+    db = port_db(random_dbmart(rng, n_patients=8, max_events=10))
+    sess = MiningSession(MiningConfig(n_shards=2, tick_patients=3,
+                                      n_buckets_log2=10), device="cpu")
+    for p in range(db.n_patients):
+        n = int(db.nevents[p])
+        if n:
+            sess.submit(p, db.date[p, :n], db.phenx[p, :n])
+    sess.run()
+    fracs = sess.shard_load()
+    assert len(fracs) == 2 and all(0.0 <= f <= 1.0 for f in fracs)
+    assert any(f > 0.0 for f in fracs)
+    assert all(f < 0.5 for f in sess.shard_load())
