@@ -50,7 +50,12 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with
      one ``budget_bytes``, and the ``chunked`` engine again at 512 MiB, and
      requires the same rows in the same order, the same bucket table (no
      host sort: rows come in patient order) and each fit's peak device
-     memory within its ``budget_bytes``;
+     memory within its ``budget_bytes``; in between (phase 4c) the hash
+     session serves its Table 1 frame through ``session.serve()``: the
+     reference's serving mix (24 distinct plans, 2,048 zipf-drawn queries
+     from 32 client threads), each distinct plan's keep mask equal to the
+     frame chain's, the predicate op timed alone, and every byte of device
+     memory the server took given back when it goes;
   5. holds the session on the card against the session on the CPU (plain
      versions) on the first 256 patients, byte for byte, for every engine
      (batch, chunked, files) under every screen (sorted, hash, fused), and
@@ -58,7 +63,12 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with
      host and disk tiers (same rows, table and tier placement), and the
      same replay through 3 shards (balanced router, rebalancing every 2
      ticks, 8 migrations after wave 2, a spilled patient among them: same
-     rows, merged table, tiers and router pins);
+     rows, merged table, tiers and router pins); and live query serving
+     on an 8-wave stream replay (a server built before the first submit,
+     streaming features; the 24-plan pool queried after each wave and
+     through the background loop while the next wave ticks): every mask
+     equals the frame chain on its view, and the card's ``query_batch``
+     results and ``features()`` equal the CPU's;
   6. times each kernel at the main path's full-size shapes with CUDA
      events, beside its bound, its plain version and a library call
      (``seq_hist`` at each of the fit's patient blocks of at most 2^26
@@ -92,11 +102,19 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with
      shard ticks, merged table = the batch table, rows = the batch rows as
      multisets; (f) the same under ``placement='devices'`` (every shard on
      the card, two-pass ticks, async admits), checkpointed after wave 4,
-     restored in this process and finished there: byte-identical to (e);
-     then the streaming launcher (``python -m repro_torch.launch.stream
+     restored in this process and finished there: byte-identical to (e),
+     journaled across the restore, and its journal verifies; (g) (c) again
+     with a tick journal: byte-identical to (c), the journal verifies
+     (``tspm_delta`` launched once a replayed tick), replays on the card to
+     the live ``state_digest``, stops at ``upto_tick``, and convicts a
+     flipped segment byte and a re-chained forged delta; then the
+     streaming launcher (``python -m repro_torch.launch.stream
      --shards 4 --router hash --rebalance-every 4``) runs through, stops
      after wave 3 with a checkpoint, and resumes to the uninterrupted
-     run's ``state_digest``; and times ``tspm_delta`` at the fit's largest
+     run's ``state_digest``, and runs with ``--journal-dir`` and then
+     ``--replay-journal`` to the same digest; ``launch.serve --workload
+     queries`` and ``examples/quickstart_torch.py`` run in their own
+     processes; and times ``tspm_delta`` at the fit's largest
      slab and ``seq_hist`` at the stream's largest tick (beside its plain
      version and ``torch.bincount``);
   9. serves LM requests (last, after phase 3b; the LM side's matmuls
@@ -795,8 +813,9 @@ def fit_engine(torch, db, device, **config) -> dict:
     frame = session.fit(db)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    return dict(frame=frame, plan=session.plan(), launches=read_launches(),
-                fit_s=fit_s, peak_device_bytes=torch.cuda.max_memory_allocated())
+    return dict(session=session, frame=frame, plan=session.plan(),
+                launches=read_launches(), fit_s=fit_s,
+                peak_device_bytes=torch.cuda.max_memory_allocated())
 
 
 def engine_rows(frame):
@@ -817,13 +836,15 @@ def run_main_path(torch, db, screen: str, device) -> dict:
     t2 = time.perf_counter()
     result = frame.screen().collect()
     t3 = time.perf_counter()
-    return dict(frame=frame, seq=seq, dur=dur, patient=patient, result=result,
-                keep=frame.screen().keep_mask(), launches=r["launches"],
+    return dict(session=r["session"], frame=frame, seq=seq, dur=dur, patient=patient,
+                result=result, keep=frame.screen().keep_mask(), launches=r["launches"],
                 peak_device_bytes=r["peak_device_bytes"], fit_s=r["fit_s"],
                 canonicalize_s=t2 - t1, screen_collect_s=t3 - t2)
 
 
-def check_main_path(torch, db, device) -> dict:
+def check_main_path(torch, db, device) -> tuple[dict, object]:
+    """Phase 4; returns its readings and the ``screen='hash'`` session,
+    whose frame phase 4c serves (its canonical sort already paid)."""
     from repro_torch.core import mining
 
     n_seq = int(mining.count_sequences(db.nevents))
@@ -858,6 +879,198 @@ def check_main_path(torch, db, device) -> dict:
     require(not (s["keep"] & ~h["keep"]).any(), "exact kept set not inside hash kept set")
     out.update(rows=n_seq, distinct_pairs=pairs,
                patients=db.n_patients, max_events=db.max_events)
+    return out, h["session"]
+
+
+SERVE_BATCH = 32        # QueryServer batch_size of phases 4c and 5
+SERVE_DISTINCT = 24     # distinct plans of the serving mix (phase 5)
+# phase 4c draws from half as many: each distinct plan's frame-chain oracle
+# takes ~2.8 s at Table 1 on the host (H100 80GB HBM3 machine, 8 cores), and
+# 24 of them pushed the smoke past 900 s
+STATIC_SERVE_DISTINCT = 12
+SERVE_QUERIES = 2048    # queries drawn from them with zipf weights (phase 4c)
+SERVE_CLIENTS = 32      # client threads of phase 4c
+SERVE_SEED = 7
+
+
+def serving_mix(codes, n_distinct: int = SERVE_DISTINCT, n_queries: int = SERVE_QUERIES,
+                seed: int = SERVE_SEED):
+    """The reference's serving mix (``benchmarks/serving_latency.py``): a
+    pool of distinct plans over the cohort's codes —
+    ``screen().starts_with``, ``.ends_with``, ``.min_duration`` and
+    ``.starts_with().top_k`` in turn — and a stream of queries drawn from
+    it with zipf weights."""
+    from repro_torch.serving.tspm import plan
+
+    rng = np.random.default_rng(seed)
+    pool = []
+    while len(pool) < n_distinct:
+        kind = len(pool) % 4
+        c = int(rng.choice(codes))
+        if kind == 0:
+            pool.append(plan().screen().starts_with(c))
+        elif kind == 1:
+            pool.append(plan().screen().ends_with(c))
+        elif kind == 2:
+            pool.append(plan().screen().min_duration(int(rng.integers(1, 120))))
+        else:
+            pool.append(plan().screen().starts_with(c).top_k(int(rng.integers(1, 16))))
+    weights = 1.0 / np.arange(1, len(pool) + 1)
+    stream = [pool[i] for i in rng.choice(len(pool), size=n_queries,
+                                          p=weights / weights.sum())]
+    return pool, stream
+
+
+def drive_clients(server, stream, n_clients: int = SERVE_CLIENTS):
+    """``n_clients`` threads, each submitting its strided share of
+    ``stream`` to the running server and waiting for each result; returns
+    the submit-to-result latencies, the wall and the (plan, result) pairs."""
+    import threading
+
+    lats, results, errors = [], [], []
+    lock = threading.Lock()
+    barrier = threading.Barrier(n_clients + 1)
+
+    def client(chunk):
+        barrier.wait()
+        mine = []
+        try:
+            for p in chunk:
+                t0 = time.perf_counter()
+                r = server.submit(p).result(timeout=900)
+                mine.append((time.perf_counter() - t0, p, r))
+        except BaseException as ex:          # surfaced below, on the main thread
+            errors.append(ex)
+        with lock:
+            lats.extend(m[0] for m in mine)
+            results.extend(m[1:] for m in mine)
+
+    threads = [threading.Thread(target=client, args=(stream[i::n_clients],))
+               for i in range(n_clients)]
+    for t in threads:
+        t.start()
+    barrier.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    require(not errors, f"a serving client failed: {errors[:1]}")
+    return lats, wall, results
+
+
+def percentile_ms(lats, q: float) -> float:
+    lat = np.sort(np.asarray(lats))
+    return float(lat[int(q * (len(lat) - 1))]) * 1e3
+
+
+def frame_chain_masks(frame, plans) -> dict:
+    """Each plan's keep mask by the frame chain (``QueryPlan.apply``: the
+    plan's ops applied to ``frame`` in order), keyed by the resolved ops,
+    with the frame of each shared op prefix built once, so chains share
+    their forced prefixes."""
+    frames = {(): frame}
+    for p in plans:
+        ops = p.resolve(THRESHOLD).ops
+        for i in range(1, len(ops) + 1):
+            if ops[:i] not in frames:
+                kind, arg = ops[i - 1]
+                frames[ops[:i]] = getattr(frames[ops[:i - 1]], kind)(arg)
+    return {p.resolve(THRESHOLD).ops: frames[p.resolve(THRESHOLD).ops].keep_mask()
+            for p in plans}
+
+
+def same_mask(got, want) -> bool:
+    return got.dtype == want.dtype and got.shape == want.shape and np.array_equal(got, want)
+
+
+def check_static_serving(torch, session, db, device) -> dict:
+    """Phase 4c: phase 4's ``screen='hash'`` session serves its Table 1
+    frame (its canonical sort already paid) through
+    ``session.serve(batch_size=32)``: the serving mix's 2,048 queries (over
+    ``STATIC_SERVE_DISTINCT`` distinct plans) from 32 client threads
+    against ``server.start()``; each distinct plan's
+    keep mask must equal the frame chain's, evaluated once a plan (and
+    timed); the predicate op is timed alone at one dispatch of 32
+    descriptors; dropping the server must give back every byte of device
+    memory it took."""
+    import gc
+
+    def serve() -> dict:
+        from repro_torch.serving.tspm import server as server_mod
+
+        frame = session.last_frame
+        server = session.serve(batch_size=SERVE_BATCH)
+        view = server.view()
+        require(view.frame is frame, "4c: the server does not serve the fitted frame")
+        t0 = time.perf_counter()
+        cols = view.columns()
+        torch.cuda.synchronize()
+        out = {"rows": view.n_rows, "npad": int(cols.start.shape[0]),
+               "column_build_s": time.perf_counter() - t0,
+               "column_bytes": sum(getattr(cols, f).nbytes
+                                   for f in ("start", "end", "dur", "screen", "valid"))}
+        require(cols.start.device == device and cols.n_rows == len(frame),
+                "4c: columns not on the card or not the frame's rows")
+        pool, stream = serving_mix(np.unique(db.phenx[db.phenx >= 0]),
+                                   n_distinct=STATIC_SERVE_DISTINCT)
+        frame._corpus._prefix_cache.clear()
+        server.start()
+        lats, wall, results = drive_clients(server, stream)
+        server.stop()
+        st = server.stats()
+        out.update(queries=st["queries"], waves=st["waves"],
+                   cache_hit_ratio=st["cache_hit_ratio"], wall_s=wall,
+                   p50_ms=percentile_ms(lats, 0.50), p99_ms=percentile_ms(lats, 0.99),
+                   distinct_plans=len(pool),
+                   predicate_rows=len(view.pred_cache))
+        require(st["queries"] == len(stream), "4c: queries went missing")
+        descs = sorted({d for p in pool for d in p.resolve(THRESHOLD).split_canonical()[0]})
+        codes = np.zeros(SERVE_BATCH, np.int32)
+        args = np.zeros(SERVE_BATCH, np.int32)
+        for i, (kind, arg) in enumerate(descs[:SERVE_BATCH]):
+            codes[i], args[i] = server_mod._OP_CODE[kind], arg
+        codes_d, args_d = torch.from_numpy(codes).to(device), torch.from_numpy(args).to(device)
+        out["predicate_op_ms"] = cuda_ms(torch, lambda: server_mod._pred_kernel(
+            cols.start, cols.end, cols.dur, cols.screen, codes_d, args_d), 5)
+        out["predicate_op_descriptors"] = min(len(descs), SERVE_BATCH)
+        out["allocated_while_serving"] = torch.cuda.memory_allocated()
+        served: dict = {}
+        for p, r in results:
+            served.setdefault(p.ops, {})[id(r.keep)] = r.keep
+        del results
+        oracle_s = []
+        for p in pool:
+            masks = served.get(p.ops, {})
+            r = server.query(p)
+            masks[id(r.keep)] = r.keep
+            frame._corpus._prefix_cache.clear()
+            t0 = time.perf_counter()
+            want = p.resolve(THRESHOLD).apply(frame).keep_mask()
+            oracle_s.append(time.perf_counter() - t0)
+            for keep in masks.values():
+                require(same_mask(keep, want), f"4c: served mask of {p} != the frame chain's")
+        frame._corpus._prefix_cache.clear()
+        out.update(oracle_median_s=float(np.median(oracle_s)),
+                   oracle_total_s=float(np.sum(oracle_s)),
+                   checked_masks=sum(len(m) for m in served.values()) + len(pool))
+        return out
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = serve()
+    out["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out.update(allocated_before=before, allocated_after=torch.cuda.memory_allocated(),
+               phase_s=time.perf_counter() - t0)
+    require(out["allocated_after"] == before,
+            f"4c: {out['allocated_after'] - before} B stay allocated after the server went")
+    print(f"phase 4c (static serving at Table 1): {json.dumps(out)}", flush=True)
     return out
 
 
@@ -881,9 +1094,102 @@ def check_card_vs_cpu(torch, db, device) -> dict:
             rows[f"{engine}/{screen}"] = len(frames[0])
     rows["stream/hash"] = check_stream_card_vs_cpu(small, device)
     rows["sharded/hash"] = check_sharded_card_vs_cpu(small, device)
+    live = check_live_serving_card_vs_cpu(small, device)
     print(f"phase 5: card == CPU on {CHECK_PATIENTS} patients, every engine and "
           f"screen ({json.dumps(rows)})", flush=True)
-    return {"patients": CHECK_PATIENTS, "rows": rows}
+    print(f"phase 5 (live serving, card == CPU): {json.dumps(live)}", flush=True)
+    return {"patients": CHECK_PATIENTS, "rows": rows, "live_serving": live}
+
+
+def check_live_serving_card_vs_cpu(db, device) -> dict:
+    """Phase 5 live serving: an 8-wave replay of the 256 patients on a
+    stream session with ``screen='hash'`` and a server built before the
+    first submit, streaming the features of the 64 most supported ids of
+    the batch frame.  After each wave the 24-plan pool is queried at once
+    (``query_batch``), then submitted again through the background loop
+    while the next wave ticks.  Every result's keep mask must equal the
+    frame chain on the view it ran against; the card's and the CPU's
+    ``query_batch`` results (view tick and keep bytes a plan) and
+    ``features()`` must be identical.  (The background results' views
+    depend on thread timing, so they are held to the frame chain only.)"""
+    import gc
+
+    import torch
+
+    from repro_torch.api import MiningConfig, MiningSession
+    from repro_torch.launch import stream as launch_stream
+
+    cfg = MiningConfig(screen="hash", threshold=THRESHOLD)
+    ids = MiningSession(cfg, device=device).fit(db).top_k(64).unique()[0]
+    pool, _ = serving_mix(np.unique(db.phenx[db.phenx >= 0]))
+    runs = {}
+    for d in (device, "cpu"):
+        session = MiningSession(cfg, device=d)
+        server = session.serve(batch_size=SERVE_BATCH, feature_ids=ids)
+        publish_s = []
+
+        def timed_publish(orig=server.replica.publish, publish_s=publish_s):
+            t0 = time.perf_counter()
+            view = orig()
+            publish_s.append(time.perf_counter() - t0)
+            return view
+
+        server.replica.publish = timed_publish
+        server.start()
+        waves, background, tickets, first_s = [], [], [], []
+        for _ in launch_stream.replay_waves(db, session, STREAM_WAVES):
+            session.run()            # the wave's ticks; last wave's tickets race them
+            background += [(t.plan, t.result(timeout=600)) for t in tickets]
+            t0 = time.perf_counter()
+            res = server.query_batch(pool)
+            first_s.append(time.perf_counter() - t0)
+            require(len({id(r.view) for r in res}) == 1, "live: one wave, several views")
+            waves.append({"tick": res[0].view.tick, "view": res[0].view,
+                          "keep": [r.keep for r in res], "features": server.features()})
+            tickets = [server.submit(p) for p in pool]
+        background += [(t.plan, t.result(timeout=600)) for t in tickets]
+        server.stop()
+        # every result against the frame chain on its own view, one chain
+        # evaluation of the pool a view
+        got: dict = {}
+        for w in waves:
+            got.setdefault(id(w["view"]), (w["view"], []))[1].extend(zip(pool, w["keep"]))
+        for p, r in background:
+            got.setdefault(id(r.view), (r.view, []))[1].append((p, r.keep))
+        checked = 0
+        for view, results in got.values():
+            want = frame_chain_masks(view.frame, pool)
+            for p, keep in results:
+                require(same_mask(keep, want[p.resolve(THRESHOLD).ops]),
+                        f"live ({d}): {p} != the frame chain on its view (tick {view.tick})")
+                checked += 1
+        require(server.replica.published == session.service.n_ticks + 1,
+                f"live ({d}): {server.replica.published} publications for "
+                f"{session.service.n_ticks} ticks")
+        runs[str(d)] = {"waves": waves, "checked": checked,
+                        "publications": server.replica.published,
+                        "publish_s": publish_s, "first_query_s": first_s,
+                        "background_views": sorted({r.view.tick for _, r in background})}
+        del server, session, got, background
+        gc.collect()     # the timed publish hook closes a reference cycle
+    card, cpu = runs[str(device)], runs["cpu"]
+    for a, b in zip(card["waves"], cpu["waves"]):
+        require(a["tick"] == b["tick"], "live: card and CPU views differ in tick")
+        for p, x, y in zip(pool, a["keep"], b["keep"]):
+            require(x.tobytes() == y.tobytes(), f"live: card and CPU masks of {p} differ")
+        for x, y in zip(a["features"], b["features"]):      # CPU tensors
+            require(x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y),
+                    "live: card and CPU features() differ")
+    pub = np.asarray(card["publish_s"])
+    return {"patients": db.n_patients, "ticks": card["waves"][-1]["tick"],
+            "rows": card["waves"][-1]["view"].n_rows,
+            "publications": card["publications"],
+            "publish_s": {"median": float(np.median(pub)), "max": float(pub.max()),
+                          "total": float(pub.sum())},
+            "first_query_s": card["first_query_s"],
+            "cpu_first_query_s": cpu["first_query_s"],
+            "checked_masks": {"card": card["checked"], "cpu": cpu["checked"]},
+            "background_view_ticks": card["background_views"]}
 
 
 def check_stream_card_vs_cpu(db, device) -> dict:
@@ -1122,15 +1428,18 @@ def replay_waves(db, session, n_waves: int, seed: int = 0, after_wave=None):
     return session.frame()
 
 
-def run_stream(torch, db, device, waves: int | None = None, **config):
+def run_stream(torch, db, device, waves: int | None = None, on_session=None,
+               **config):
     """One stream-engine run through the entry points (``fit``, or a wave
     replay through ``submit``/``run``) with telemetry on, the launch
     counts zeroed just before and read just after; returns the frame and
-    what the run measured."""
+    what the run measured (``on_session`` gets the session first)."""
     from repro_torch.api import MiningConfig, MiningSession
 
     session = MiningSession(MiningConfig(engine="stream", threshold=THRESHOLD,
                                          telemetry=True, **config), device=device)
+    if on_session is not None:
+        on_session(session)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
@@ -1203,8 +1512,10 @@ def check_stream(torch, db, device) -> tuple[dict, dict]:
     # patients, in (b)'s order
     n_c = STREAM_BUDGET_PATIENTS
     sub = db.slice_patients(0, n_c)
+    held = []
     fc, out["c_budget"] = run_stream(torch, sub, device, waves=STREAM_WAVES, screen="hash",
-                                     budget_bytes=STREAM_BUDGET_BYTES)
+                                     budget_bytes=STREAM_BUDGET_BYTES,
+                                     on_session=held.append)
     out["c_budget"].update(budget_bytes=STREAM_BUDGET_BYTES, patients=n_c)
     print(f"phase 8 (c, {STREAM_WAVES} waves, {n_c} patients, budget): "
           f"{json.dumps(out['c_budget'])}", flush=True)
@@ -1219,6 +1530,8 @@ def check_stream(torch, db, device) -> tuple[dict, dict]:
     require(out["c_budget"]["evictions"] > 0 and out["c_budget"]["host_restores"] > 0,
             "the 1 GiB budget spilled or restored nothing")
     del fb, fc, rows_b, mine_c, sub_batch
+    out["g_journal"] = check_journaled_replay(torch, sub, device, held.pop(),
+                                              out["c_budget"]["wall_s"])
 
     fd, out["d_fused"] = run_stream(torch, db, device, screen="fused")
     keep = host_keep(torch, b_rows[0], b_table, device)
@@ -1236,17 +1549,177 @@ def check_stream(torch, db, device) -> tuple[dict, dict]:
     return out, launches
 
 
+JOURNAL_COMMIT_EVERY = 16      # journal_commit_every of phase 8 (g)
+JOURNAL_UPTO_TICK = 312        # the partial replay of phase 8 (g)
+
+
+def journal_readings(jdir: str) -> dict:
+    """Entries by kind, segments and bytes on disk of a journal."""
+    from repro_torch.journal import read_journal
+    from repro_torch.journal.entries import entry_kind
+
+    kinds: dict = {}
+    for e, _ in read_journal(jdir):
+        k = entry_kind(e)
+        kinds[k] = kinds.get(k, 0) + 1
+    return {"entries": kinds,
+            "disk_bytes": sum(f.stat().st_size for f in Path(jdir).iterdir())}
+
+
+def commit_span_s(session) -> float:
+    return float(sum(sp.duration_s for sp in session.trace().spans
+                     if sp.name == "journal.commit" and sp.t1 is not None))
+
+
+def forge_torn_segment(src: str, dst: str) -> str:
+    """A copy of a journal with one byte flipped in the middle of its
+    middle segment's blob in ``blocks.dat``; returns that segment's key."""
+    import shutil
+
+    shutil.copytree(src, dst)
+    with open(os.path.join(dst, "index.json")) as f:
+        index = json.load(f)
+    segs = sorted((k[1], v) for k, v in index["entries"] if str(k[1]).startswith("jseg"))
+    key, (offset, nbytes, *_rest) = segs[len(segs) // 2]
+    with open(os.path.join(dst, "blocks.dat"), "r+b") as f:
+        f.seek(offset + nbytes // 2)
+        b = f.read(1)
+        f.seek(offset + nbytes // 2)
+        f.write(bytes([b[0] ^ 0x01]))
+    return key
+
+
+def forge_delta(src: str, dst: str, tick_keys: list) -> tuple[int, int]:
+    """A re-chained copy of a journal (``write_journal``) in which the
+    first delta entry after the first commit carries other phenX codes;
+    returns that entry's index and the first tick that mined the delta
+    (from the live run's per-tick patient keys)."""
+    from repro_torch.journal import read_journal, write_journal
+    from repro_torch.journal.entries import decode_entry, encode_entry, entry_kind
+    from repro_torch.storage.codec import decode_key
+
+    raw = [e for e, _ in read_journal(src)]
+    kinds = [entry_kind(e) for e in raw]
+    first_commit = kinds.index("commit")
+    i = next(j for j in range(first_commit, len(raw)) if kinds[j] == "delta")
+    kind, fields, arrays, blobs = decode_entry(raw[i])
+    raw[i] = encode_entry(kind, fields, dict(arrays, phenx=arrays["phenx"] + 1000), blobs)
+    write_journal(dst, raw)
+    key, done = decode_key(fields["key"]), kinds[:i].count("tick")
+    tick = next(t for t, keys in tick_keys if t > done and key in keys)
+    return i, tick
+
+
+def check_journaled_replay(torch, db, device, plain, plain_wall: float) -> dict:
+    """Phase 8 (g): (c) again (the first 1,248 patients, 8 waves, 1 GiB)
+    with ``journal_dir`` set (a commit every 16 ticks).  It must end
+    byte-identical to (c) (snapshot and the tier of every key); the
+    journal must verify (its replay launching ``tspm_delta`` once a tick),
+    ``MiningSession.replay`` on the card must reach the live
+    ``state_digest`` and ``upto_tick=312`` must stop at tick 312; a flipped
+    byte in a segment must give a proof naming the segment, and a
+    re-chained journal with one delta's codes changed a ``Divergence`` at
+    the first tick that mined that delta."""
+    import gc
+
+    from repro_torch.api import MiningSession
+    from repro_torch.journal import Divergence, TornSegment
+    from repro_torch.launch.stream import state_digest
+    from repro_torch.stream.events import TickCompleted
+
+    tick_keys, held = [], []
+
+    def watch(session):
+        held.append(session)
+        session._ensure_service().subscribe(
+            lambda ev: tick_keys.append((ev.tick, set(ev.keys))), kinds=TickCompleted)
+
+    with tempfile.TemporaryDirectory(prefix="tspm_journal_") as root:
+        jdir = os.path.join(root, "g")
+        fg, out = run_stream(torch, db, device, waves=STREAM_WAVES, screen="hash",
+                             budget_bytes=STREAM_BUDGET_BYTES, journal_dir=jdir,
+                             journal_commit_every=JOURNAL_COMMIT_EVERY, on_session=watch)
+        live = held.pop()
+        a, b = live.service.snapshot(), plain.service.snapshot()
+        for name in ("seq", "dur", "patient", "counts"):
+            x, y = getattr(a, name), getattr(b, name)
+            require(x.dtype == y.dtype and x.tobytes() == y.tobytes(),
+                    f"(g): the journaled replay differs from (c) in {name}")
+        tiers = [{k: s.service.store.tier_of(k) for k in s.service.store.pids}
+                 for s in (live, plain)]
+        require(tiers[0] == tiers[1], "(g): tier placement differs from (c)")
+        del plain, fg
+        m = live.metrics()
+        j = live.journal()
+        out.update(plain_wall_s=plain_wall, overhead=out["wall_s"] / plain_wall - 1,
+                   commits=j.n_commits, commit_span_s=commit_span_s(live),
+                   journal_metrics={k: m[k] for k in ("journal.entries", "journal.commits",
+                                                      "journal.bytes")})
+        j.flush()
+        out.update(journal_readings(jdir))
+        ticks = live.service.n_ticks
+        require(ticks > JOURNAL_UPTO_TICK, f"(g): {ticks} ticks")
+
+        zero_launches()
+        t0 = time.perf_counter()
+        res = live.verify()
+        torch.cuda.synchronize()
+        out["verify_s"] = time.perf_counter() - t0
+        out["verify_launches"] = read_launches()
+        require(res.ok, f"(g): verify failed: {res}")
+        require(out["verify_launches"]["tspm_delta"] == ticks,
+                f"(g): the verify's replay launched tspm_delta "
+                f"{out['verify_launches']['tspm_delta']} times for {ticks} ticks")
+        out["verify"] = str(res)
+        gc.collect()
+
+        t0 = time.perf_counter()
+        replayed = MiningSession.replay(jdir, device=device)
+        torch.cuda.synchronize()
+        out["replay_s"] = time.perf_counter() - t0
+        out["state_digest"] = state_digest(live.service)
+        require(replayed.device == device and
+                state_digest(replayed.service) == out["state_digest"],
+                "(g): the replay on the card missed the live state_digest")
+        del replayed
+        t0 = time.perf_counter()
+        part = MiningSession.replay(jdir, upto_tick=JOURNAL_UPTO_TICK, device=device)
+        out["replay_upto_s"] = time.perf_counter() - t0
+        require(part.service.n_ticks == JOURNAL_UPTO_TICK,
+                f"(g): replay(upto_tick={JOURNAL_UPTO_TICK}) stopped at "
+                f"{part.service.n_ticks}")
+        del part
+        gc.collect()
+
+        seg = forge_torn_segment(jdir, os.path.join(root, "torn"))
+        res = live.verify(os.path.join(root, "torn"))
+        require(not res.ok and isinstance(res.proof, TornSegment) and seg in res.proof.reason,
+                f"(g): a flipped byte in {seg} was not convicted by name: {res}")
+        out["torn_proof"] = str(res.proof)
+        index, tick = forge_delta(jdir, os.path.join(root, "forged"), tick_keys)
+        t0 = time.perf_counter()
+        res = live.verify(os.path.join(root, "forged"))
+        out["forged_verify_s"] = time.perf_counter() - t0
+        require(not res.ok and isinstance(res.proof, Divergence) and res.proof.tick == tick,
+                f"(g): the forged delta (entry {index}, mined at tick {tick}) gave {res}")
+        out["forged_proof"] = str(res.proof)
+        del live
+    gc.collect()
+    print(f"phase 8 (g, (c) journaled): {json.dumps(out)}", flush=True)
+    return out
+
+
 SHARDS = 4                     # shards of phase 8 (e) and (f)
 SHARD_MIGRATIONS = 64          # patients migrated after wave 2 in (e) and (f)
 
 
-def sharded_session(device, placement: str):
+def sharded_session(device, placement: str, journal_dir: str | None = None):
     from repro_torch.api import MiningConfig, MiningSession
 
     return MiningSession(MiningConfig(
         n_shards=SHARDS, router="hash", rebalance_every=32, imbalance_threshold=1.05,
-        placement=placement, telemetry=True, screen="hash", threshold=THRESHOLD),
-        device=device)
+        placement=placement, telemetry=True, screen="hash", threshold=THRESHOLD,
+        journal_dir=journal_dir), device=device)
 
 
 def migrate_heaviest(db, session) -> None:
@@ -1283,6 +1756,8 @@ def check_sharded(torch, db, device, want, b_table) -> tuple[dict, dict]:
     async admits), checkpointed after wave 4, restored in this process
     into a new session, waves 5-8 there; its snapshot, pids, pins and
     migrations must equal (e)'s byte for byte."""
+    import gc
+
     from repro_torch.api import MiningSession
     from repro_torch.launch import stream as launch_stream
 
@@ -1318,7 +1793,9 @@ def check_sharded(torch, db, device, want, b_table) -> tuple[dict, dict]:
     del session, svc, frame, snap
     torch.cuda.empty_cache()
 
-    session = sharded_session(device, "devices")
+    jroot = tempfile.TemporaryDirectory(prefix="tspm_journal_")
+    jdir = os.path.join(jroot.name, "f")
+    session = sharded_session(device, "devices", journal_dir=jdir)
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
     t0 = time.perf_counter()
@@ -1337,6 +1814,8 @@ def check_sharded(torch, db, device, want, b_table) -> tuple[dict, dict]:
                                      for f in Path(saved["path"]).iterdir())
                 ticks = len(session.service.stats)
                 break
+        saved["commit_span_s"] = commit_span_s(session)
+        session.journal().close()     # the restored session reopens the journal
         del session
         torch.cuda.empty_cache()
         t1 = time.perf_counter()
@@ -1363,7 +1842,27 @@ def check_sharded(torch, db, device, want, b_table) -> tuple[dict, dict]:
     require(svc.pids == keep["pids"] and svc.router.pinned == keep["pinned"]
             and svc.migrations == keep["migrations"],
             "(f): pids, router pins or migrations differ from (e)")
-    print(f"phase 8 (f, {SHARDS} shards, devices, checkpoint after wave 4): "
+    # the journal, continued in its directory after the restore, verifies
+    # over the whole run
+    f["commit_span_s"] = saved["commit_span_s"] + commit_span_s(session)
+    session.journal().flush()
+    f["journal"] = journal_readings(jdir)
+    kinds = f["journal"]["entries"]
+    require(kinds.get("open") == 1 and kinds.get("checkpoint") == 1 and
+            kinds.get("migrate", 0) >= SHARD_MIGRATIONS,
+            f"(f): journal entries by kind {kinds}")
+    t1 = time.perf_counter()
+    res = session.verify()
+    torch.cuda.synchronize()
+    f["verify_s"] = time.perf_counter() - t1
+    f["verify"] = str(res)
+    require(res.ok, f"(f): the journal of the checkpointed run failed to verify: {res}")
+    session.journal().close()
+    del session, svc
+    gc.collect()          # sharded services and replayed sessions hold cycles
+    torch.cuda.empty_cache()
+    jroot.cleanup()
+    print(f"phase 8 (f, {SHARDS} shards, devices, checkpoint after wave 4, journaled): "
           f"{json.dumps(f)}", flush=True)
     return e, f
 
@@ -1372,16 +1871,22 @@ LAUNCHER_ARGS = ["--shards", "4", "--router", "hash", "--rebalance-every", "4"]
 
 
 def check_launcher(tmp_root: str) -> dict:
-    """The streaming launcher on the card at its default cohort, three
+    """The streaming launcher on the card at its default cohort, five
     times: through all waves, then checkpointing and stopping after wave 3,
     then resuming; the resumed run's ``state_digest=`` must equal the
-    uninterrupted run's."""
+    uninterrupted run's.  Then through all waves with ``--journal-dir``
+    (the run verifies its journal), and ``--replay-journal`` on that
+    journal in a new process: both digests must equal the uninterrupted
+    run's."""
     import re
 
     env = {**os.environ, "PYTHONPATH": str(SRC)}
     ckpt_dir = os.path.join(tmp_root, "launcher_ckpt")
+    journal_dir = os.path.join(tmp_root, "launcher_journal")
     runs = {"whole": [], "stopped": ["--checkpoint-dir", ckpt_dir, "--stop-after-wave", "3"],
-            "resumed": ["--checkpoint-dir", ckpt_dir, "--resume"]}
+            "resumed": ["--checkpoint-dir", ckpt_dir, "--resume"],
+            "journaled": ["--journal-dir", journal_dir],
+            "replayed": ["--replay-journal", journal_dir]}
     out = {}
     for name, extra in runs.items():
         t0 = time.perf_counter()
@@ -1394,12 +1899,40 @@ def check_launcher(tmp_root: str) -> dict:
         require(len(digest) == 1, f"launcher ({name}) printed no state_digest")
         out[name] = {"s": time.perf_counter() - t0, "digest": digest[0],
                      "ingested": [ln for ln in proc.stdout.splitlines()
-                                  if ln.startswith("ingested")]}
+                                  if ln.startswith(("ingested", "journal ", "replayed "))]}
     require(out["resumed"]["digest"] == out["whole"]["digest"],
             "launcher: the resumed run's digest != the uninterrupted run's")
     require(out["stopped"]["digest"] != out["whole"]["digest"],
             "launcher: stopping after wave 3 changed nothing")
+    require(out["journaled"]["digest"] == out["replayed"]["digest"] == out["whole"]["digest"],
+            "launcher: the journaled run, its replay and the uninterrupted run differ")
     print(f"phase 8 (launcher {' '.join(LAUNCHER_ARGS)}): {json.dumps(out)}", flush=True)
+    return out
+
+
+def check_serving_launchers() -> dict:
+    """``python -m repro_torch.launch.serve --workload queries`` at its
+    defaults and ``python examples/quickstart_torch.py``, each in its own
+    process on the card with a time limit."""
+    import re
+
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    out = {}
+    for name, cmd, expect in (
+            ("serve_queries", ["-m", "repro_torch.launch.serve", "--workload", "queries"],
+             "served 128 queries"),
+            ("quickstart", [str(ROOT / "examples" / "quickstart_torch.py")],
+             "served 3 queries")):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *cmd], cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=300)
+        require(proc.returncode == 0 and expect in proc.stdout,
+                f"{name} exited {proc.returncode}: {proc.stdout[-1500:]} {proc.stderr[-1500:]}")
+        lines = proc.stdout.splitlines()
+        out[name] = {"s": time.perf_counter() - t0,
+                     "lines": [ln.strip() for ln in lines
+                               if re.search(r"serving|served|latency|serve ", ln)]}
+    print(f"serving launchers: {json.dumps(out)}", flush=True)
     return out
 
 
@@ -2166,6 +2699,8 @@ def flash_rows(routes: dict, lm: dict, timing: dict) -> list:
 
 
 def main() -> int:
+    import gc
+
     import torch
 
     if not torch.cuda.is_available():
@@ -2204,8 +2739,11 @@ def main() -> int:
           f"{db.total_events} events, built in {time.perf_counter() - t0:.1f} s",
           flush=True)
     lap("table1_cohort")
-    main_path = check_main_path(torch, db, dev)
+    main_path, hash_session = check_main_path(torch, db, dev)
     lap("4_main_path")
+    main_path["static_serving"] = check_static_serving(torch, hash_session, db, dev)
+    del hash_session
+    lap("4c_static_serving")
     files_vs_chunked = check_files_vs_chunked(torch, db, dev)
     lap("4b_chunked_files")
     card_vs_cpu = check_card_vs_cpu(torch, db, dev)
@@ -2224,6 +2762,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="tspm_launcher_") as tmp:
         stream["launcher"] = check_launcher(tmp)
     lap("8_launcher")
+    stream["serving_launchers"] = check_serving_launchers()
+    lap("serving_launchers")
     delta_t = time_delta(torch, db, dev, err)
     kernels.append(kernel_row(
         "tspm_delta", "src/repro/kernels/tspm_delta/delta.py:32", delta_launches, err,
@@ -2236,6 +2776,15 @@ def main() -> int:
     del db
     lap("6_delta_timing")
 
+    # phase 7's fits plan their chunks against what is allocated at their
+    # start: nothing of the phases before may linger, and unreachable
+    # sessions in reference cycles (a live session and its server) hold
+    # the card until the collector runs
+    held = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"allocated before phase 7: {held} B, {torch.cuda.memory_allocated()} B after "
+          f"collecting garbage", flush=True)
     t0 = time.perf_counter()
     db2 = make_cohort(TABLE2_PATIENTS, TABLE2_EVENTS)
     print(f"cohort: {db2.n_patients} patients, E={db2.max_events}, "

@@ -2,8 +2,8 @@
 
 The port accepts every knob of the reference's config, so a reference
 config carries over with :meth:`MiningConfig.from_dict` (and back with
-:meth:`MiningConfig.to_dict`); the planner refuses the option that is not
-ported yet (the journal).
+:meth:`MiningConfig.to_dict`, the keys that session checkpoints and the
+tick journal's open entry store).
 
 One frozen dataclass carries everything the four execution layers used to
 take as scattered keyword arguments — encoding (codec, duration fusing),
@@ -92,7 +92,7 @@ class MiningConfig:
 
     # --- journaling ---------------------------------------------------------
     journal_dir: str | None = None  # hash-chained tick journal location
-    #                                 (not ported); None = no journal.
+    #                                 (journal/); None = no journal.
     #                                 Streaming engines only: every delta,
     #                                 tick, eviction, migration, and
     #                                 rebalance is recorded, replayable

@@ -32,9 +32,7 @@ devices than shards.  Both placements are byte-identical.
 ``MiningConfig.engine`` short-circuits the tree — the plan records that it
 was forced.  The port runs the ``batch``, ``chunked``, ``files``,
 ``stream`` and ``sharded`` engines with every screen, with or without
-telemetry; a plan that needs the journal raises ``NotImplementedError``
-naming the ROADMAP.md item that ports it, and never runs something else in
-its place.
+telemetry and the tick journal.
 """
 from __future__ import annotations
 
@@ -47,17 +45,6 @@ from repro_torch.core import chunking, mining
 
 # flat corpus row: 8B seq + 4B dur + 4B patient + 1B mask
 _BYTES_PER_ROW = 17
-
-#: where each piece that is not ported yet is queued in ROADMAP.md
-NOT_PORTED = {
-    "journal": "ROADMAP.md queue 1 item 14 (journal/)",
-    "serve": "ROADMAP.md queue 1 item 15 (serving/tspm/)",
-}
-
-
-def not_ported(what: str, key: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: {NOT_PORTED[key]}")
-
 
 def _working_set(nevents: np.ndarray, backend: str,
                  pad_multiple: int = 8) -> int:
@@ -106,10 +93,7 @@ def make_plan(config: MiningConfig, nevents=None, incremental: bool = False,
     """Decide the engine for a cohort (``nevents`` per patient) mined on
     ``device`` (the card unless the caller asks for the CPU, as the
     session) or an incremental session (``incremental=True``, no cohort
-    known up front); raises ``NotImplementedError`` for what is not
-    ported."""
-    if config.journal_dir is not None:
-        raise not_ported("MiningConfig(journal_dir=...)", "journal")
+    known up front)."""
     nevents = (np.zeros(0, np.int64) if nevents is None
                else np.asarray(nevents, np.int64))
     fused = config.screen == "fused"
@@ -155,6 +139,4 @@ def make_plan(config: MiningConfig, nevents=None, incremental: bool = False,
     else:
         plan = Plan("chunked", "working set exceeds budget_bytes; mining "
                     f"adaptively in {n_chunks} patient chunks", **common)
-    if plan.engine in NOT_PORTED:
-        raise not_ported(f"engine {plan.engine!r} ({plan.reason})", plan.engine)
     return plan

@@ -24,10 +24,12 @@ sketch's survivors on the streaming ones).  ``submit(key, dates, phenx)``
 returns the live frame.  ``checkpoint`` / ``restore`` persist a live
 streaming session (the reference's ``tspm-session-v1`` format: either
 package restores the other's).  ``MiningConfig(telemetry=True)`` records
-metrics and spans (``metrics()``, ``trace()``).  The planner refuses the
-journal with ``NotImplementedError``, and so do ``journal``, ``verify``,
-``replay`` and ``serve``, each naming its ROADMAP.md item.  The result
-lands in a :class:`~repro_torch.api.frame.SequenceFrame`.
+metrics and spans (``metrics()``, ``trace()``).
+``MiningConfig(journal_dir=...)`` journals every event of a streaming
+session into a hash-chained tick journal (``journal/``): ``journal()``,
+``verify()`` and ``replay()`` read it.  ``serve()`` stands up the query
+server (``serving/tspm``) over the session.  The result lands in a
+:class:`~repro_torch.api.frame.SequenceFrame`.
 
 The session runs on the card unless the caller asks for the CPU:
 ``device='cuda'`` is the default, and raises when no CUDA device is
@@ -44,6 +46,7 @@ Quickstart::
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import shutil
 import tempfile
@@ -58,6 +61,7 @@ from repro_torch.api.frame import SequenceFrame
 from repro_torch.core import chunking, mining, sparsity
 from repro_torch.core.encoding import Vocab
 from repro_torch.data.dbmart import DBMart
+from repro_torch.journal.journal import TickJournal
 from repro_torch.storage.state import pack_tree, unpack_tree
 from repro_torch.stream.events import CheckpointTaken, EventTap
 from repro_torch.stream.service import StreamService
@@ -100,6 +104,7 @@ class MiningSession:
             profiler_annotations=self.config.profiler_annotations)
             if self.config.telemetry else obs_lib.NOOP)
         self.service: StreamService | ShardedStreamService | None = None
+        self._journal = None      # TickJournal when config.journal_dir is set
         self.last_plan: Plan | None = None
         self.last_frame: SequenceFrame | None = None
         self.restore_extra: dict = {}   # user extras from the checkpoint
@@ -268,6 +273,25 @@ class MiningSession:
                                "submit() deltas first")
         return self._snap_frame(self.service, vocab=self.vocab)
 
+    # --- serving ------------------------------------------------------------
+    def serve(self, **kw):
+        """Stand up a :class:`~repro_torch.serving.tspm.server.QueryServer`
+        over this session — the read path.
+
+        Live streaming sessions get a replica that re-publishes at every
+        tick boundary (queries never block ``submit``/``tick`` and never
+        see a half-applied tick); batch-fit sessions serve a static view
+        of ``last_frame``.  Keywords forward to ``QueryServer``:
+        ``batch_size``, ``cache_entries``, ``feature_ids`` (streams the
+        per-patient feature matrix), ``auto_publish``.  Calling ``serve``
+        on a fresh incremental session stands the service up first so the
+        server can subscribe to tick boundaries.  Predicates are evaluated
+        on the session's device."""
+        from repro_torch.serving.tspm import QueryServer
+        if self.service is None and self.last_frame is None:
+            self._ensure_service()
+        return QueryServer(self, **kw)
+
     def _ensure_service(self):
         if self.service is None:
             if self.last_frame is not None:
@@ -288,7 +312,8 @@ class MiningSession:
     def _make_service(self, sharded: bool, router: ShardRouter | None = None):
         """The stream service, or the sharded one (its shards on the
         session's device under ``'host'`` placement, one per device of
-        the mesh under ``'devices'``)."""
+        the mesh under ``'devices'``), with a tick journal attached when
+        ``journal_dir`` is set."""
         c = self.config
         kw = dict(tick_patients=c.tick_patients, codec=c.codec,
                   backend=c.backend, n_buckets_log2=c.n_buckets_log2,
@@ -298,13 +323,23 @@ class MiningSession:
                   device=self.device,
                   telemetry=self.telemetry if self.telemetry.enabled else None)
         if not sharded:
-            return StreamService(**kw)
-        return ShardedStreamService(
-            n_shards=c.n_shards, router=router, mesh=self.mesh,
-            rebalance_every=c.rebalance_every,
-            imbalance_threshold=c.imbalance_threshold, min_gain=c.min_gain,
-            busy_weighted_rebalance=c.busy_weighted_rebalance,
-            placement=planner.resolve_placement(c, self.device), **kw)
+            svc = StreamService(**kw)
+        else:
+            svc = ShardedStreamService(
+                n_shards=c.n_shards, router=router, mesh=self.mesh,
+                rebalance_every=c.rebalance_every,
+                imbalance_threshold=c.imbalance_threshold, min_gain=c.min_gain,
+                busy_weighted_rebalance=c.busy_weighted_rebalance,
+                placement=planner.resolve_placement(c, self.device), **kw)
+        if c.journal_dir is not None:
+            # the config goes in the reference's keys, so either package
+            # replays the journal
+            self._journal = TickJournal(c.journal_dir,
+                                        commit_every=c.journal_commit_every,
+                                        telemetry=kw["telemetry"])
+            self._journal.attach(svc, engine="sharded" if sharded else "stream",
+                                 config=c.to_dict())
+        return svc
 
     # --- checkpoint / resume ------------------------------------------------
     def checkpoint(self, ckpt_dir: str, step: int | None = None,
@@ -441,16 +476,61 @@ class MiningSession:
             raise RuntimeError("shard_load() needs a live sharded service")
         return svc.shard_load()
 
-    # --- not ported yet -----------------------------------------------------
+    # --- journal ------------------------------------------------------------
     def journal(self):
-        raise planner.not_ported("MiningSession.journal", "journal")
+        """The live :class:`~repro_torch.journal.journal.TickJournal`, or
+        None when the session was built without ``journal_dir``."""
+        return self._journal
 
     def verify(self, journal_dir: str | None = None):
-        raise planner.not_ported("MiningSession.verify", "journal")
+        """Verify a journal against this live session -> ``VerifyResult``.
+
+        With no argument, verifies the session's own journal; pass a
+        ``journal_dir`` to check a foreign copy (an auditor's, a claimed
+        fork).  Three layers (see :mod:`repro_torch.journal.verify`):
+        segment/chain structure, byte-exact replay on this session's
+        device through a shadow journal (merkle commitments re-derived and
+        compared), and — because a live session is present — an
+        entry-by-entry fork check against the session's own log plus a
+        final-state comparison.  Any failure carries a typed
+        ``FraudProof`` naming the first divergent tick."""
+        from repro_torch.journal import verify as jv
+        own = self._journal
+        if own is not None:
+            own.flush()
+        target = journal_dir if journal_dir is not None else \
+            (own.root if own is not None else None)
+        if target is None:
+            raise RuntimeError("nothing to verify: the session has no "
+                               "journal (set MiningConfig.journal_dir) and "
+                               "no journal_dir was given")
+        res, replayed = jv.verify_replay(target, device=self.device,
+                                         mesh=self.mesh, vocab=self.vocab)
+        if not res.ok:
+            return res
+        if own is not None and journal_dir is not None \
+                and os.path.abspath(journal_dir) != os.path.abspath(own.root):
+            proof = jv.compare_journals(own.entries(),
+                                        jv.read_journal(journal_dir))
+            if proof is not None:
+                return dataclasses.replace(res, ok=False, proof=proof)
+        if self.service is not None and replayed is not None:
+            proof = jv.state_divergence(self.service, replayed.service,
+                                        n_ticks=res.n_ticks)
+            if proof is not None:
+                return dataclasses.replace(res, ok=False, proof=proof)
+        return res
 
     @classmethod
-    def replay(cls, journal_dir: str, upto_tick: int | None = None, **kw):
-        raise planner.not_ported("MiningSession.replay", "journal")
-
-    def serve(self, **kw):
-        raise planner.not_ported("MiningSession.serve", "serve")
+    def replay(cls, journal_dir: str, upto_tick: int | None = None, *,
+               device="cuda", mesh=None,
+               vocab: Vocab | None = None) -> "MiningSession":
+        """Reconstruct a session on ``device`` (the card unless the caller
+        asks for the CPU) from a journal of either package by re-applying
+        its recorded commands — corpus, sketch table, and router pins are
+        byte-identical to the recorded run's state (optionally only
+        through ``upto_tick``).  Complements :meth:`restore`: a checkpoint
+        is a state snapshot, the journal is the full audited history."""
+        from repro_torch.journal import verify as jv
+        return jv.replay(journal_dir, upto_tick=upto_tick, device=device,
+                         mesh=mesh, vocab=vocab)

@@ -1,15 +1,21 @@
-"""Serving launcher: LM generation on the card.
+"""Serving launcher: LM generation or tSPM+ query serving, on the card.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tspm-mlho
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tspm-mlho --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload queries \\
+      --patients 64 --clients 32 --queries 128
 
 ``--workload lm`` (default) runs batched generation over the LM wave
-scheduler with random weights from ``--seed``.  ``--workload queries``
-(tSPM+ query serving, ``serving/tspm``) is not ported yet.
+scheduler with random weights from ``--seed``; ``--workload queries``
+mines a synthetic cohort through a live streaming session on ``--device``,
+stands up ``session.serve()``, and drives concurrent clients through the
+batched query path, printing wave/cache stats and the per-query latency
+spread.
 """
 from __future__ import annotations
 
 import argparse
+import threading
 import time
 
 import numpy as np
@@ -47,6 +53,65 @@ def main_lm(args):
     return results
 
 
+def main_queries(args):
+    from repro_torch.api import MiningConfig, MiningSession
+    from repro_torch.data import dbmart, synthea
+    from repro_torch.serving.tspm import plan
+
+    pats, dates, phx, _ = synthea.generate_cohort(
+        n_patients=args.patients, avg_events=16, seed=args.seed)
+    db = dbmart.from_rows(pats, dates, phx)
+    session = MiningSession(MiningConfig(threshold=args.threshold,
+                                         tick_patients=8), device=args.device)
+    server = session.serve(batch_size=args.batch)
+    for p in range(db.n_patients):
+        n = int(db.nevents[p])
+        if n:
+            session.submit(p, db.date[p, :n], db.phenx[p, :n])
+    session.run()
+    view = server.view()
+    print(f"serving {view.n_rows:,} mined rows at tick {view.tick} on "
+          f"{session.device} (batch={args.batch}, clients={args.clients})")
+
+    rng = np.random.default_rng(args.seed)
+    codes = np.unique(db.phenx[db.phenx >= 0]) if db.phenx.size else [0]
+    plans = [plan().screen().starts_with(int(rng.choice(codes)))
+             for _ in range(args.queries)]
+
+    lats: list[float] = []
+    lock = threading.Lock()
+    server.start()
+
+    def client(chunk):
+        for p in chunk:
+            t0 = time.perf_counter()
+            server.submit(p).result(timeout=60)
+            dt = time.perf_counter() - t0
+            with lock:
+                lats.append(dt)
+
+    threads = [threading.Thread(
+        target=client, args=(plans[i::args.clients],))
+        for i in range(args.clients)]
+    t0 = time.time()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.time() - t0
+    server.stop()
+
+    lat = np.sort(np.asarray(lats))
+    p50 = float(lat[int(0.50 * (len(lat) - 1))]) * 1e3
+    p99 = float(lat[int(0.99 * (len(lat) - 1))]) * 1e3
+    st = server.stats()
+    print(f"served {st['queries']} queries in {wall:.2f}s "
+          f"({st['queries']/wall:.0f} q/s) over {st['waves']} waves")
+    print(f"  latency p50={p50:.2f}ms p99={p99:.2f}ms  "
+          f"cache hit ratio={st['cache_hit_ratio']:.2f}")
+    return st
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", choices=("lm", "queries"), default="lm")
@@ -60,11 +125,16 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    # queries workload
+    ap.add_argument("--patients", type=int, default=64)
+    ap.add_argument("--threshold", type=int, default=3)
+    ap.add_argument("--clients", type=int, default=32)
+    ap.add_argument("--queries", type=int, default=128)
     args = ap.parse_args(argv)
     if args.workload == "queries":
-        raise NotImplementedError(
-            "--workload queries (serving/tspm, session.serve()) is not ported "
-            "yet (ROADMAP queue 1, item 15)")
+        if args.batch == 4:     # lm default is too small for query waves
+            args.batch = 32
+        return main_queries(args)
     return main_lm(args)
 
 

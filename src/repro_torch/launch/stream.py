@@ -14,8 +14,12 @@ the same arguments, so a run, a checkpointed run stopped with
 ``--stop-after-wave`` and its ``--resume`` can be compared across
 processes and packages.
 
-``--journal-dir`` and ``--replay-journal`` (the tick journal) are not
-ported yet: they raise ``NotImplementedError`` before any work.
+``--journal-dir DIR`` journals every session event into a hash-chained
+tick journal (``repro_torch.journal``) and verifies it on ``--device``
+after the run; ``--replay-journal DIR`` skips ingest entirely and
+reconstructs the session on ``--device`` from a journal of either package
+instead.  Both modes print the ``state_digest=`` line, so a replay drill
+can diff a journaled run against its replay across processes.
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ import time
 
 import numpy as np
 
-from repro_torch.api import MiningConfig, MiningSession, planner
+from repro_torch.api import MiningConfig, MiningSession
 from repro_torch.data import dbmart, synthea
 from repro_torch.stream.shard import ShardedStreamService, ShardRouter
 
@@ -58,8 +62,8 @@ def replay_waves(db, svc, n_waves: int, seed: int = 0, start_wave: int = 0):
 
 def state_digest(svc) -> str:
     """One hex digest over the final corpus, sketch table and pid table —
-    the cross-process comparison key of a resume drill (and the
-    reference's journal replay drill)."""
+    the cross-process comparison key of a resume drill and of a journal
+    replay drill."""
     snap = svc.snapshot()
     h = hashlib.sha256()
     for name in ("seq", "dur", "patient", "counts"):
@@ -138,16 +142,27 @@ def main(argv=None):
                     help="weight LPT rebalancing by the device-timed "
                          "shard_load() busy fractions")
     ap.add_argument("--journal-dir", default=None, metavar="DIR",
-                    help="not ported yet: raises NotImplementedError")
+                    help="append a hash-chained tick journal of every "
+                         "session event here and verify it after the run")
     ap.add_argument("--journal-commit-every", type=int, default=16,
                     metavar="N", help="merkle commitment cadence (ticks) "
                                       "for --journal-dir")
     ap.add_argument("--replay-journal", default=None, metavar="DIR",
-                    help="not ported yet: raises NotImplementedError")
+                    help="skip ingest: reconstruct the session on --device "
+                         "from this journal directory (cohort/engine flags "
+                         "are ignored — the journal's open entry carries "
+                         "the config) and print its state digest")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.replay_journal:
-        raise planner.not_ported("--replay-journal", "journal")
+        t0 = time.perf_counter()
+        session = MiningSession.replay(args.replay_journal, device=args.device)
+        dt = time.perf_counter() - t0
+        svc = session.service
+        print(f"replayed {args.replay_journal} in {dt:.2f}s "
+              f"({svc.n_ticks} ticks)")
+        print(f"state_digest={state_digest(svc)}")
+        return session
     if args.rebalance_every and args.shards <= 1:
         ap.error("--rebalance-every requires --shards > 1 "
                  "(rebalancing migrates patients between shards)")
@@ -170,8 +185,6 @@ def main(argv=None):
         busy_weighted_rebalance=args.busy_weighted_rebalance,
         journal_dir=args.journal_dir,
         journal_commit_every=args.journal_commit_every)
-    # the planner refuses what is not ported (the journal) before any work
-    planner.make_plan(config, incremental=True, device=args.device)
 
     pats, dates, phx, _ = synthea.generate_cohort(
         n_patients=args.patients, avg_events=args.avg_events, seed=args.seed)
@@ -232,6 +245,14 @@ def main(argv=None):
         print(f"migrations={len(svc.migrations)} shard_load_mb=" +
               "/".join(f"{b / (1 << 20):.1f}" for b in loads) +
               " shard_busy=" + "/".join(f"{f:.2f}" for f in busy))
+
+    if args.journal_dir:
+        res = session.verify()
+        j = session.journal()
+        print(f"journal {args.journal_dir}: {j.n_entries} entries, "
+              f"{j.n_commits} commitments -> {res}")
+        if not res.ok:
+            raise SystemExit(f"journal verification failed: {res.proof}")
 
     if args.metrics_json:
         import json

@@ -255,9 +255,14 @@ class ShardedStreamService(SnapshotQueries):
         if self._collector_installed:
             return
         self._collector_installed = True
+        # the collector holds the buffers, not the service: a closure over
+        # ``self`` would make every subscribed service a reference cycle,
+        # whose device tensors outlive ``del`` until the garbage collector
+        # runs
+        collected = self._collected
         for svc in self.shards:
             svc.events.subscribe(
-                lambda ev: self._collected[ev.shard].append(ev),
+                lambda ev: collected[ev.shard].append(ev),
                 kinds=(TickCompleted, Evicted), isolate=False)
 
     def subscribe(self, fn, kinds=None, isolate: bool = True):
@@ -290,8 +295,9 @@ class ShardedStreamService(SnapshotQueries):
         """Re-emit the tick's buffered per-shard events at the cohort
         boundary: evictions per shard, then one aggregated
         ``TickCompleted`` — all in shard-index order."""
-        col, self._collected = \
-            self._collected, [[] for _ in range(self.n_shards)]
+        col = [list(evs) for evs in self._collected]
+        for evs in self._collected:
+            evs.clear()
         if not (self.events.wants(TickCompleted)
                 or self.events.wants(Evicted)):
             return

@@ -2,9 +2,10 @@
 
 ``core/baseline_tspm`` (string mining, the dictionary screen) must equal
 the reference's list for list; ``examples/postcovid_torch.py`` must print
-exactly what ``examples/postcovid.py`` prints on the same cohort, and
-``examples/mlho_integration_torch.py`` what ``examples/mlho_integration.py``
-prints, with its logistic regression's weights within ``LOGREG_TOL`` of
+exactly what ``examples/postcovid.py`` prints on the same cohort,
+``examples/quickstart_torch.py`` what ``examples/quickstart.py`` prints,
+and ``examples/mlho_integration_torch.py`` what
+``examples/mlho_integration.py`` prints, with its logistic regression's weights within ``LOGREG_TOL`` of
 the original's (float32 gradient steps; the original has no test of its
 own, so the tolerance is 1e-5).
 """
@@ -87,3 +88,16 @@ def test_mlho_twin_matches_the_original(capsys):
     twin.main(["--device", "cpu"])
     got = capsys.readouterr().out
     assert "held-out" in got and got == want
+
+
+def test_quickstart_twin_prints_the_original(capsys):
+    """The quickstart twin on the CPU prints the original's lines, line
+    for line (the plan's repr included: no line is exempt), through the
+    batch fit, the fused screen, the checkpointed stream and the query
+    server."""
+    load_example("quickstart").main()
+    want = capsys.readouterr().out
+    load_example("quickstart_torch").main(["--device", "cpu"])
+    got = capsys.readouterr().out
+    assert "served 3 queries" in got and "MiningPlan(engine=" in got
+    assert got.splitlines() == want.splitlines()

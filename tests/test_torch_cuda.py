@@ -704,3 +704,129 @@ def test_devices_placement_over_two_cards(tmp_path):
         out.append(s)
     assert len({sv.device for sv in out[0].service.shards}) >= 2
     _assert_same_sharded(*out)
+
+
+# --- the tick journal and query serving on the card --------------------------
+def _journal_config(tmp_path, tag: str, **kw) -> MiningConfig:
+    return _shard_config(tmp_path, tag).replace(
+        journal_dir=str(tmp_path / f"journal_{tag}"), journal_commit_every=2, **kw)
+
+
+def _journaled_run(tmp_path, device, tag: str):
+    """A journaled 3-shard replay on ``device``: eviction through the host
+    and disk tiers, migrations of resident and spilled patients, an
+    external admit and a checkpoint, then more ticks."""
+    from repro_torch.stream.service import StreamService
+
+    db = _cohort(5)
+    ops = _shard_ops(db, 6, 3)
+    donor = StreamService(tick_patients=2, n_buckets_log2=10, device=device)
+    donor.submit(99, [1, 2, 9], [3, 4, 6])
+    donor.run()
+    s = MiningSession(_journal_config(tmp_path, tag), device=device)
+    before = delta_ops.delta_pairgen.launches
+    _apply(s, db, ops)
+    s.service.admit_patient(donor.extract_patient(99), dst=1)
+    s.checkpoint(str(tmp_path / f"ckpt_{tag}"))
+    s.submit(99, [12], [5])
+    s.submit(0, [500], [7])
+    s.service.run()
+    return s, delta_ops.delta_pairgen.launches - before
+
+
+def test_journaled_replay_on_card_verifies_and_crosses_devices(cuda_device, tmp_path):
+    """A journal written on the card verifies there (its replay launching
+    tspm_delta once a shard tick) and replays on the CPU to the card's
+    state; a journal written on the CPU replays on the card the same way."""
+    from repro_torch.journal import read_journal
+    from repro_torch.journal.entries import entry_kind
+
+    card, launches = _journaled_run(tmp_path, cuda_device, "card")
+    assert launches == len(card.service.stats) > 0
+    spilled = {sv.store.tier_of(k) for sv in card.service.shards for k in sv.store.pids}
+    assert {"host", "disk"} <= spilled and card.service.migrations
+    kinds = [entry_kind(e) for e, _ in read_journal(card.config.journal_dir)]
+    assert {"evict", "migrate", "checkpoint", "commit"} <= set(kinds)
+    before = delta_ops.delta_pairgen.launches
+    res = card.verify()
+    assert res.ok, str(res)
+    assert delta_ops.delta_pairgen.launches - before == len(card.service.stats)
+    on_cpu = MiningSession.replay(card.config.journal_dir, device="cpu")
+    assert on_cpu.device.type == "cpu"
+    _assert_same_sharded(on_cpu, card)
+
+    cpu, _ = _journaled_run(tmp_path, "cpu", "cpu")
+    on_card = MiningSession.replay(cpu.config.journal_dir, device=cuda_device)
+    assert all(sv.device == cuda_device for sv in on_card.service.shards)
+    _assert_same_sharded(on_card, cpu)
+    _assert_same_sharded(on_card, card)
+
+
+def test_server_on_card_matches_cpu(cuda_device):
+    """A server on a card stream session gives the CPU's keep masks and
+    features() at every tick; its columns and predicate rows lie on the
+    card."""
+    from repro_torch.serving.tspm import plan
+
+    db = _cohort(31, P=10, E=16)
+    codes = np.unique(db.phenx[db.phenx >= 0])
+    plans = [plan().screen(), plan().screen(1).starts_with(int(codes[0])),
+             plan().min_duration(30).ends_with(int(codes[-1])),
+             plan().screen().top_k(4), plan().starts_with(int(codes[1])).screen(2),
+             plan().transitive_ends_with(int(codes[0])).screen()]
+    ids = None
+    pair = []
+    for d in (cuda_device, "cpu"):
+        s = MiningSession(MiningConfig(threshold=2, tick_patients=3, n_buckets_log2=10,
+                                       screen="hash"), device=d)
+        if ids is None:
+            batch = MiningSession(MiningConfig(threshold=1, screen="hash",
+                                               n_buckets_log2=10), device="cpu").fit(db)
+            ids = np.unique(batch.arrays()[0])[::7].astype(np.int64)
+        pair.append((s, s.serve(batch_size=4, feature_ids=ids)))
+    for s, _ in pair:
+        for p in range(db.n_patients):
+            n = int(db.nevents[p])
+            if n:
+                s.submit(p, db.date[p, :n], db.phenx[p, :n])
+    (card, srv), (cpu, cpu_srv) = pair
+    while card.service.queue:
+        card.service.tick()
+        cpu.service.tick()
+        got, want = srv.query_batch(plans), cpu_srv.query_batch(plans)
+        for p, g, w in zip(plans, got, want):
+            assert g.view.tick == w.view.tick
+            assert_same(g.keep, w.keep, str(p))
+        for a, b in zip(srv.features(), cpu_srv.features()):
+            assert_same(a, b)
+    view = srv.view()
+    cols = view.columns()
+    assert all(getattr(cols, f).device == cuda_device
+               for f in ("start", "end", "dur", "screen", "valid"))
+    assert view.pred_cache and all(r.device == cuda_device
+                                   for r in view.pred_cache.values())
+
+
+def test_dropping_the_server_frees_its_device_memory(cuda_device):
+    """A static server's columns and predicate rows go with the server."""
+    import gc
+
+    from repro_torch.serving.tspm import plan
+
+    db = _cohort(41, P=16, E=24)
+    session = MiningSession(MiningConfig(threshold=2, screen="hash", n_buckets_log2=10),
+                            device=cuda_device)
+    session.fit(db)
+    session.frame().keep_mask()
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    srv = session.serve(batch_size=8)
+    with srv:
+        res = [srv.submit(plan().screen(t).min_duration(d)).result(timeout=60)
+               for t in (1, 2) for d in (0, 30)]
+    assert torch.cuda.memory_allocated() > before
+    assert all(r.keep.dtype == np.bool_ for r in res)
+    del srv, res
+    gc.collect()
+    assert torch.cuda.memory_allocated() == before

@@ -5,8 +5,9 @@
 it must equal the reference launcher's ``state_digest`` of its session for
 the same arguments (one shard and four, both routers, auto-rebalancing),
 and a run stopped after a wave with ``--checkpoint-dir`` then resumed
-with ``--resume`` must end at the uninterrupted run's digest.  The
-journal flags raise before any work, naming their ROADMAP.md item.
+with ``--resume`` must end at the uninterrupted run's digest.  A run with
+``--journal-dir`` verifies its journal, and ``--replay-journal`` on it
+prints that run's digest, which is the reference launcher's.
 """
 import re
 
@@ -62,8 +63,29 @@ def test_stop_and_resume_gives_the_uninterrupted_digest(tmp_path, capsys, shards
     assert digest_of(out) == whole
 
 
-@pytest.mark.parametrize("flag", ["--journal-dir", "--replay-journal"])
-def test_journal_flags_raise_naming_item_14(tmp_path, capsys, flag):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        stream.main(COHORT + ["--device", "cpu", flag, str(tmp_path / "j")])
-    assert "state_digest" not in capsys.readouterr().out
+@pytest.mark.parametrize("shards", ["1", "4"])
+def test_journal_flags_give_the_reference_digest(tmp_path, capsys, shards):
+    """``--journal-dir`` journals and verifies the run; ``--replay-journal``
+    on that journal prints the same ``state_digest=``, which equals the
+    reference launcher's for the same arguments (and the reference's
+    replay of the port's journal)."""
+    argv = COHORT + ["--shards", shards, "--router", "hash"]
+    if shards != "1":
+        argv += ["--rebalance-every", "4"]
+    jdir = str(tmp_path / "j")
+    stream.main(argv + ["--device", "cpu", "--journal-dir", jdir,
+                        "--journal-commit-every", "4"])
+    out = capsys.readouterr().out
+    assert re.search(r"^journal .*: \d+ entries, \d+ commitments -> "
+                     r"VerifyResult\(ok: ", out, re.M), out
+    journaled = digest_of(out)
+    session = stream.main(["--device", "cpu", "--replay-journal", jdir])
+    out = capsys.readouterr().out
+    assert "replayed" in out and digest_of(out) == journaled
+    assert session.device.type == "cpu"
+    ref = j_stream.main(argv)
+    capsys.readouterr()
+    assert journaled == j_stream.state_digest(ref.service)
+    ref = j_stream.main(["--replay-journal", jdir])
+    capsys.readouterr()
+    assert journaled == j_stream.state_digest(ref.service)

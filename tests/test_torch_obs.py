@@ -280,3 +280,79 @@ def test_retrace_budget_over_growing_stream():
     budget = 6 * int(np.ceil(np.log2(total_events + 2))) + 12
     assert 0 < snap["jit.retraces"] == tracker.sample() <= budget
     assert tracker.total() == obs.specialization_count(obs.default_hot_functions())
+
+
+# --- serving metrics: recorded when on, the shared no-ops when off ----------
+def _served_sessions(telemetry: bool):
+    """The same cohort fitted by the port (on the CPU) and the reference."""
+    rng = np.random.default_rng(59)
+    db = random_dbmart(rng, n_patients=6, max_events=10)
+    kw = dict(threshold=2, screen="hash", n_buckets_log2=H, telemetry=telemetry)
+    port = MiningSession(MiningConfig(**kw), device="cpu")
+    port.fit(port_db(db))
+    ref = JSession(JConfig(**kw))
+    ref.fit(db)
+    return port, ref, int(np.unique(db.phenx[db.phenx >= 0])[0])
+
+
+def test_serve_metrics_disabled_are_noop_singletons():
+    """With telemetry off every serve.* instrument is the shared no-op,
+    the session records nothing, and ``stats()`` still counts, as the
+    reference's does."""
+    from repro.serving.tspm import plan as j_plan
+    from repro_torch.serving.tspm import plan
+
+    session, ref, code = _served_sessions(telemetry=False)
+    server = session.serve()
+    for m in (server._m_queries, server._m_waves, server._m_occupancy,
+              server._m_hits, server._m_misses, server._m_evictions,
+              server._m_hit_ratio, server._m_staleness, server._m_wait,
+              server._m_eval):
+        assert m is obs.NOOP_METRIC
+    assert server._tracer is obs.NOOP_TRACER
+    server.query(plan().screen(2).starts_with(code))
+    server.query(plan().screen(2).starts_with(code))
+    st = server.stats()
+    assert st["queries"] == 2 and st["cache_hits"] == 1
+    assert session.telemetry.metrics.snapshot() == {}
+    jserver = ref.serve()
+    for _ in range(2):
+        jserver.query(j_plan().screen(2).starts_with(code))
+    assert st == jserver.stats()
+
+
+def test_serve_metrics_and_spans_recorded():
+    """With telemetry on the serve.* metrics and the serve.wait /
+    serve.eval spans are recorded, and the metrics equal the reference's
+    for the same queries."""
+    from repro.serving.tspm import plan as j_plan
+    from repro_torch.serving.tspm import plan
+
+    session, ref, code = _served_sessions(telemetry=True)
+    snaps = []
+    for s, mk in ((session, plan), (ref, j_plan)):
+        with s.serve() as server:
+            p = mk().screen(2).starts_with(code)
+            server.submit(p).result(timeout=60)
+            server.query(p)
+        snaps.append(s.telemetry.metrics.snapshot())
+    snap = snaps[0]
+    assert snap["serve.queries"] == 2
+    assert snap["serve.waves"] == 1            # the second query was a hit
+    assert snap["serve.cache.hits"] == 1
+    assert snap["serve.cache.misses"] == 1
+    assert snap["serve.cache.hit_ratio"] == 0.5
+    assert snap["serve.batch_occupancy"]["count"] == 1
+    assert snap["serve.eval_s"]["count"] == 2
+    assert snap["serve.wait_s"]["count"] == 1  # only the submitted query
+    serve_keys = sorted(k for k in snap if k.startswith("serve."))
+    assert serve_keys == sorted(k for k in snaps[1] if k.startswith("serve."))
+    for k in serve_keys:
+        a, b = snap[k], snaps[1][k]
+        if isinstance(a, dict):                # histograms: counts, not times
+            assert a["count"] == b["count"], k
+        else:
+            assert a == b, k
+    names = {s["name"] for s in session.trace().to_chrome_trace()["traceEvents"]
+             if "name" in s}
+    assert {"serve.eval", "serve.wait"} <= names

@@ -10,6 +10,8 @@ the reference's tokens, within 2e-5.  Temperature and top-k sampling draw
 from a ``torch.Generator`` and cannot match ``jax.random`` bit for bit,
 so only their properties are checked.
 """
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -164,8 +166,21 @@ def test_launcher_runs_on_the_cpu(capsys):
     assert sorted(results) == list(range(8))
     assert all(len(v) <= 24 for v in results.values())
     assert "served 8 requests" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 15"):
-        serve.main(["--workload", "queries", "--device", "cpu"])
+    # the queries workload serves --queries queries, as the reference's
+    # does; its waves and latencies depend on thread timing
+    argv = ["--workload", "queries", "--patients", "24", "--queries", "48",
+            "--clients", "8"]
+    st = serve.main(argv + ["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert st["queries"] == 48 and 0 < st["waves"] <= 48
+    assert "served 48 queries" in out and "cache hit ratio=" in out
+    assert re.search(r"latency p50=[0-9.]+ms p99=[0-9.]+ms", out), out
+    from repro.launch import serve as j_serve
+    j_st = j_serve.main(argv)
+    j_out = capsys.readouterr().out
+    assert j_st["queries"] == st["queries"]
+    served = r"serving ([0-9,]+) mined rows at tick (\d+)"
+    assert re.search(served, out).groups() == re.search(served, j_out).groups()
 
 
 def test_engine_and_launcher_default_to_the_card():

@@ -167,7 +167,7 @@ def test_session_first_occurrence_cohort():
     _assert_result(got.screen().collect(), want.screen().collect(), "hash")
 
 
-def test_config_and_planner_refuse_what_is_not_ported():
+def test_config_and_planner_plan_every_ported_option():
     assert MiningConfig().backend == "auto"
     assert MiningConfig.from_dict(dataclasses.asdict(JConfig())).backend == "torch"
     with pytest.raises(ValueError):
@@ -194,8 +194,14 @@ def test_config_and_planner_refuse_what_is_not_ported():
                 ("sharded", jplan.placement, kw["n_shards"]), kw
     # one card has fewer devices than 4 shards: 'auto' gives 'host'
     assert t_planner.resolve_placement(MiningConfig(n_shards=4)) == "host"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 14"):
-        t_planner.make_plan(MiningConfig(journal_dir="journal"), nev, device="cpu")
+    # the journal is ported: journal_dir plans the reference's engine
+    for incremental in (False, True):
+        plan = t_planner.make_plan(MiningConfig(journal_dir="journal"), nev,
+                                   device="cpu", incremental=incremental)
+        jplan = j_planner.make_plan(JConfig(journal_dir="journal"), nev,
+                                    incremental=incremental)
+        assert plan.engine == jplan.engine
+    assert not hasattr(t_planner, "NOT_PORTED") and not hasattr(t_planner, "not_ported")
     plan = t_planner.make_plan(MiningConfig(budget_bytes=1 << 30), nev, device="cpu")
     jplan = j_planner.make_plan(JConfig(budget_bytes=1 << 30), nev)
     assert (plan.engine, plan.working_set_bytes, plan.corpus_bytes) == \
@@ -345,17 +351,47 @@ def test_incremental_frames_match_reference(engine_cohort, screen):
     _assert_result(ts.frame().collect(), batch.collect(), "stream == batch")
 
 
-def test_refused_session_methods_raise():
-    """What is still to port (the journal, item 14; query serving, item 15)
-    raises NotImplementedError naming its item; the sharded engine,
-    checkpoint/restore and shard_load are ported and no longer raise it."""
+def test_journal_verify_replay_and_serve_match_reference(tmp_path):
+    """The journal and query serving are ported:
+    ``journal``, ``verify``, ``replay`` and ``serve`` give the reference's
+    results; the sharded engine, checkpoint/restore and shard_load work
+    as before."""
+    from repro.serving.tspm import plan as j_plan
+    from repro_torch.serving.tspm import plan
+
     s = MiningSession(MiningConfig(), device="cpu")
-    for call, item in ((s.journal, 14), (s.verify, 14),
-                       (lambda: MiningSession.replay("j"), 14), (s.serve, 15)):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 item {item}"):
-            call()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        MiningSession(MiningConfig(journal_dir="j"), device="cpu").submit(0, [1], [2])
+    assert s.journal() is None
+    with pytest.raises(RuntimeError, match="nothing to verify"):
+        s.verify()
+    cfg = dict(tick_patients=2, threshold=1, screen="hash",
+               journal_dir=str(tmp_path / "j"), journal_commit_every=1)
+    sessions = []
+    for cls, kw in ((JSession, {}), (MiningSession, {"device": "cpu"})):
+        config = JConfig(**cfg) if cls is JSession else \
+            MiningConfig(**cfg, backend="torch")
+        js = cls(config, **kw)
+        js.submit(0, [1, 2, 9], [3, 4, 6])
+        js.submit(1, [5, 8], [4, 3])
+        js.run()
+        res = js.verify()
+        assert res.ok, str(res)
+        sessions.append((js, str(res), js.journal().n_entries))
+        if cls is JSession:
+            js.journal().close()
+            for p in (tmp_path / "j").iterdir():
+                p.unlink()
+    (ref, ref_res, ref_n), (port, port_res, port_n) = sessions
+    assert (port_res, port_n) == (ref_res, ref_n)
+    replayed = MiningSession.replay(cfg["journal_dir"], device="cpu")
+    jreplayed = JSession.replay(cfg["journal_dir"])
+    for name in ("seq", "dur", "patient", "counts"):
+        assert_same(getattr(replayed.service.snapshot(), name),
+                    getattr(jreplayed.service.snapshot(), name), name)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            MiningSession.replay(cfg["journal_dir"])
+    keep = port.serve().query(plan().screen(2)).keep
+    assert_same(keep, ref.serve().query(j_plan().screen(2)).keep)
     sharded = MiningSession(MiningConfig(n_shards=2), device="cpu")
     sharded.submit(0, [1, 2], [3, 4])
     assert sharded.plan().engine == "sharded" and len(sharded.run()) == 1
