@@ -37,7 +37,21 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with
      widths, GQA groups 1/2/4/8, windows 1 and 300 with softcap 50 and rows
      that see no key at D = 256; the float32 cases at D = 64 (with a window
      of 300 and softcap 50 added at S = 700) take the tf32x3 route; each
-     case must launch the route ``ops.route`` names for it;
+     case must launch the route ``ops.route`` names for it; then
+     ``flash_attention_bwd`` (each build's registers, spill and shared
+     memory printed once) against ``attention_bwd_ref`` in float64 at
+     S = 1/127/128/129, Sq != Skv causal and not, D = 16/32/64/128/256,
+     GQA groups 1/2/3/8, windows 1/16, softcap 50 and rows that see no key,
+     in both dtypes, and at tspm-mlho's (q [8,12,256,64], float32, causal)
+     and gemma2-2b's (q [1,8,2048,256], bfloat16, window 4,096, softcap
+     50) training shapes, each run twice for identical bytes; the limit
+     (``ref.attention_bwd_limit``) is ``BWD_ERR_FACTOR`` times the float32
+     plain version's own distance from
+     float64 (plus the rounding to bfloat16), printed per case beside a
+     planted fault (the first query row's output gradient dropped) that it
+     must catch; and times the backward at both training shapes beside its
+     bound, its plain version and ``scaled_dot_product_attention``'s
+     backward;
   4. drives the main path — ``MiningSession(...).fit(db)`` then
      ``frame.screen().collect()`` — on the paper's Table 1 cohort (4,985
      patients at ~471 events, first-occurrence filter) with
@@ -139,7 +153,21 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with
      its bound, its plain version and (tspm-mlho)
      ``scaled_dot_product_attention``, and at tspm-mlho's shape the ffma
      route is timed in turns with tf32x3, and tf32x3's pre-pass and main
-     kernel are timed on the device from a ``torch.profiler`` trace.
+     kernel are timed on the device from a ``torch.profiler`` trace;
+ 10. trains (last): (a) tspm-mlho at full width cut to 2 layers, batch 8
+     x 256 tokens of the launcher's corpus, initialised on the CPU and
+     copied to the card: step 1's gradients per parameter within
+     ``TRAIN_GRAD_SHARE`` of its max |g|, and 3 train steps' loss, ce and
+     grad norm within ``TRAIN_RTOL`` of the CPU's; (b) ``python -m
+     repro_torch.launch.train --arch tspm-mlho --batch 8 --seq 256
+     --patients 512 --ckpt-dir D`` in its own process, stopped at step 150
+     (``--steps 150``), then rerun with ``--steps 300``, which must resume
+     at step 150 from a state whose digest equals the saved one's; over
+     the two runs' 300 steps, falling ce and 12 backward launches a step;
+     each run's step time, tokens/s and peak device memory; (c)
+     gemma2-2b at full width (every block checkpointed) takes 3 steps on
+     one batch of 1 x 2,048 random tokens: finite, falling loss, 26
+     backward launches a step, its step time and peak device memory.
 
 Every failed check raises, so the script exits non-zero.  The last three
 lines of its output are the ``nvidia-smi`` line, the ``kernels`` JSON line
@@ -773,7 +801,8 @@ def launch_counters() -> dict:
     return {"tspm_pairgen": pg_ops.pairgen, "seq_hist": hist_ops.hist,
             "tspm_fused": fused_ops.fused_bucket_counts,
             "tspm_delta": delta_ops.delta_pairgen,
-            "flash_attention": flash_ops.attention}
+            "flash_attention": flash_ops.attention,
+            "flash_attention_bwd": flash_ops.attention_bwd}
 
 
 ROUTED = ("seq_hist", "flash_attention")      # kernels that count launches by route
@@ -2338,6 +2367,184 @@ def time_flash(torch, q, k, v, *, causal, window, softcap, sdpa: bool,
     return r
 
 
+# ---- flash_attention's backward (phase 3b) -------------------------------
+
+BWD_MODEL_SHAPES = {   # (B, Hq, Hkv, Sq, Skv, D), dtype, mask: a training step's layer
+    "tspm_mlho": ((8, 12, 4, 256, 256, 64), "float32", dict(causal=True)),
+    "gemma2_2b": ((1, 8, 4, 2048, 2048, 256), "bfloat16",
+                  dict(causal=True, window=4096, softcap=50.0)),
+}
+
+
+def flash_bwd_edge_cases():
+    """(B, Hq, Hkv, Sq, Skv, D, options) of the backward's checks: one-row
+    and ragged tiles (S = 1/127/128/129), Sq != Skv causal and not, every
+    head width, GQA groups 1, 2, 3 and 8, windows 1 and 16, softcap 50 (with
+    a window at D = 256, where the kernel takes 32-key tiles), and rows that
+    see no key (non-causal with a window, Sq > Skv)."""
+    for S in (1, 127, 128, 129):
+        yield 2, 4, 2, S, S, 64, dict(causal=True)
+    for Sq, Skv in ((100, 260), (260, 100)):
+        for causal in (True, False):
+            yield 1, 4, 4, Sq, Skv, 64, dict(causal=causal)
+    for D in (16, 32, 64, 128, 256):
+        yield 1, 4, 2, 130, 130, D, dict(causal=True)
+    for Hq, Hkv in ((8, 8), (8, 4), (6, 2), (8, 1)):
+        yield 1, Hq, Hkv, 96, 96, 64, dict(causal=True)
+    for window in (1, 16):
+        yield 1, 2, 1, 300, 300, 64, dict(causal=True, window=window)
+    yield 1, 4, 2, 200, 200, 128, dict(causal=True, softcap=50.0)
+    yield 1, 4, 2, 300, 300, 256, dict(causal=True, window=64, softcap=50.0)
+    yield 1, 4, 2, 96, 40, 64, dict(causal=False, window=16)
+
+
+def bwd_inputs(torch, dev, shape, dtype: str, seed: int):
+    """q, k, v, do from a seeded generator on the card."""
+    B, Hq, Hkv, Sq, Skv, D = shape
+    g = torch.Generator(dev).manual_seed(seed)
+    return [torch.randn(B, H, S, D, generator=g, device=dev).to(getattr(torch, dtype))
+            for H, S in ((Hq, Sq), (Hkv, Skv), (Hkv, Skv), (Hq, Sq))]
+
+
+def bwd_reading(torch, got, q, k, v, o, do, kw) -> dict:
+    """The backward's result ``got`` held to its limit
+    (``ref.attention_bwd_limit``) beside a planted fault: the plain
+    version's result with the first query row's output gradient dropped (a
+    kernel that skips a row).  Per tensor: the largest |got - want64| over
+    its limit (``ratio``, must be <= 1), the fault's (``fault_ratio``; one
+    of the three must exceed 1), the float32 plain version's own error
+    ``e32`` and |got - plain| (``max_abs_err``, plain = the float32 plain
+    version rounded to the inputs' dtype, as on the CPU)."""
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+
+    want64, want32, e32s, limits = flash_ref.attention_bwd_limit(q, k, v, o, do, **kw)
+    t64 = [t.double() for t in (q, k, v, o, do)]
+    t64[4][:, :, 0] = 0
+    fault = flash_ref.attention_bwd_ref(*t64, **kw)
+    out = {}
+    for name, g, w32, w64, f, e32, limit in zip(("dq", "dk", "dv"), got, want32, want64,
+                                                fault, e32s, limits):
+        require(g.dtype == q.dtype and g.shape == w64.shape, f"{name}: {g.dtype} {g.shape}")
+        limit = torch.where(limit > 0, limit, torch.full_like(limit, 1e-300))
+        diff = (g.double() - w64).abs()
+        out[name] = {"ratio": (diff / limit).max().item(),
+                     "fault_ratio": ((f - w64).abs() / limit).max().item(),
+                     "e32": e32, "max_want": w64.abs().max().item(),
+                     "max_diff64": diff.max().item(),
+                     "max_abs_err": (g.float() - w32.to(g.dtype).float()).abs().max().item()}
+        require(out[name]["ratio"] <= 1.0,
+                f"flash_attention_bwd {name} beyond its limit: {json.dumps(out[name])}")
+    require(max(r["fault_ratio"] for r in out.values()) > 1.0,
+            f"the backward's limit passes a dropped query row: {json.dumps(out)}")
+    return out
+
+
+def check_flash_bwd_kernel(torch, dev) -> dict:
+    """Phase 3b for ``flash_attention_bwd``: each build's registers, spill
+    and shared memory (once), the kernel against the plain version at every
+    edge case in both dtypes and at tspm-mlho's and gemma2-2b's training
+    shapes (each run twice: identical bytes), one count a call."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops, ref as flash_ref
+
+    info = {f"{dt} D={D}": flash_ops.bwd_kernel_info(getattr(torch, dt), D)
+            for dt in ("float32", "bfloat16") for D in flash_ops.HEAD_DIMS}
+    print(f"phase 3b flash_attention_bwd builds: {json.dumps(info)}", flush=True)
+    cases, worst = [], {}
+    for i, (B, Hq, Hkv, Sq, Skv, D, kw) in enumerate(flash_bwd_edge_cases()):
+        for dtype in ("float32", "bfloat16"):
+            q, k, v, do = bwd_inputs(torch, dev, (B, Hq, Hkv, Sq, Skv, D), dtype, i)
+            o = flash_ops.attention(q, k, v, **kw)
+            before = flash_ops.attention_bwd.launches
+            got = flash_ops.attention_bwd(q, k, v, o, do, **kw)
+            require(flash_ops.attention_bwd.launches == before + 1, "a backward call not counted")
+            r = bwd_reading(torch, got, q, k, v, o, do, kw)
+            cases.append({"case": [B, Hq, Hkv, Sq, Skv, D], "kw": kw, "dtype": dtype,
+                          **{n: [round(x["ratio"], 4), round(x["fault_ratio"], 2)]
+                             for n, x in r.items()}})
+            for n, x in r.items():
+                w = worst.setdefault(f"{dtype} {n}", {"ratio": 0.0, "max_abs_err": 0.0})
+                w["ratio"] = max(w["ratio"], x["ratio"])
+                w["max_abs_err"] = max(w["max_abs_err"], x["max_abs_err"])
+    print(f"phase 3b flash_attention_bwd cases ([ratio to limit, fault's ratio] per "
+          f"tensor): {json.dumps(cases)}", flush=True)
+    models = {}
+    for name, (shape, dtype, kw) in BWD_MODEL_SHAPES.items():
+        q, k, v, do = bwd_inputs(torch, dev, shape, dtype, 7)
+        o = flash_ops.attention(q, k, v, **kw)
+        got = flash_ops.attention_bwd(q, k, v, o, do, **kw)
+        again = flash_ops.attention_bwd(q, k, v, o, do, **kw)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"{name}: two backward runs differ")
+        models[name] = bwd_reading(torch, got, q, k, v, o, do, kw)
+        for n, x in models[name].items():
+            w = worst.setdefault(f"{dtype} {n}", {"ratio": 0.0, "max_abs_err": 0.0})
+            w["ratio"] = max(w["ratio"], x["ratio"])
+            w["max_abs_err"] = max(w["max_abs_err"], x["max_abs_err"])
+        del q, k, v, do, o, got, again
+    torch.cuda.empty_cache()
+    out = {"comparisons": len(cases) + len(models), "worst": worst, "models": models,
+           "repeat_identical": True, "factor": flash_ref.BWD_ERR_FACTOR,
+           "bf16_rel": flash_ref.BWD_BF16_REL,
+           "max_abs_err": max(w["max_abs_err"] for w in worst.values())}
+    print(f"phase 3b flash_attention_bwd: {json.dumps(out)}", flush=True)
+    return out
+
+
+def time_flash_bwd(torch, dev, name: str) -> dict:
+    """The backward at a model's training shape (``BWD_MODEL_SHAPES``):
+    ``ops.attention_bwd`` with CUDA events (its three launches and the
+    scratch), each kernel's device time from a profiler trace, the plain
+    version, and ``scaled_dot_product_attention``'s backward at the same
+    shape as a yardstick (gemma2-2b's without the softcap, which it does not
+    take).  Late in the smoke a trace keeps only part of the kernels' events
+    (on one H100 their sum came to 29% of the CUDA-event time, the
+    forward's tf32x3 pair to 43%), so each kernel's share of the sum is printed
+    beside its reading.  Bound: 10*D flops a visible pair plus 2*D for the pre-pass's
+    recompute, at the float32 tensor-core rate as 3xTF32 (three TF32
+    products each) or the bf16 rate, or the bytes (q, k, v, o, do read, dq,
+    dk, dv written) over 3.35 TB/s if larger; ``bound_ffma_ms`` the same
+    operations at the FFMA rate."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as flash_ops, ref as flash_ref
+
+    shape, dtype, kw = BWD_MODEL_SHAPES[name]
+    B, Hq, Hkv, Sq, Skv, D = shape
+    q, k, v, do = bwd_inputs(torch, dev, shape, dtype, 11)
+    o = flash_ops.attention(q, k, v, **kw)
+    call = lambda: flash_ops.attention_bwd(q, k, v, o, do, **kw)  # noqa: E731
+    ms = [cuda_ms(torch, call, 10) for _ in range(2)]
+    dev_ms = kernel_device_ms(torch, call, 10)
+    by_kernel = {n: sum(t for kn, t in dev_ms.items() if f"{n}_kernel" in kn)
+                 for n in flash_ops.BWD_KERNELS}
+    plain = cuda_ms(torch, lambda: flash_ref.attention_bwd_ref(q, k, v, o, do, **kw), 2)
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+    so = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True, enable_gqa=True)
+    lib = cuda_ms(torch, lambda: torch.autograd.grad(so, (qr, kr, vr), do,
+                                                     retain_graph=True), 10)
+    pairs = B * Hq * visible_pairs(Sq, Skv, kw["causal"], kw.get("window"))
+    flops = 12 * D * pairs
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, o, do)) \
+        + sum(t.numel() * t.element_size() for t in (q, k, v))
+    f32 = dtype == "float32"
+    bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": (3 * flops / TF32_OPS_PER_S if f32 else flops / BF16_OPS_PER_S) * 1e3}
+    by = max(bound, key=bound.get)
+    total = sum(by_kernel.values())
+    r = {"ms": sum(ms) / len(ms), "ms_runs": ms, "device_ms": by_kernel,
+         "device_share": {n: t / total if total else None for n, t in by_kernel.items()},
+         "plain_ms": plain, "library_ms": lib, "library_same_function": "softcap" not in kw
+         or kw["softcap"] is None, "bound_ms": bound[by], "bound_by": by,
+         "bound_ffma_ms": max(bound["bytes"], flops / FP32_OPS_PER_S * 1e3),
+         "visible_pairs": pairs,
+         "shape": f"q {[B, Hq, Sq, D]} k/v {[B, Hkv, Skv, D]} {dtype} {kw}"}
+    print(f"phase 3b flash_attention_bwd timing ({name}): {json.dumps(r)}", flush=True)
+    del q, k, v, do, o, qr, kr, vr, so
+    torch.cuda.empty_cache()
+    return r
+
+
 def lm_prompts(raw_db) -> list:
     """The first ``LM_PROMPT_LEN`` tokens of each of the first
     ``LM_REQUESTS`` Table 1 patients whose document is that long.  The
@@ -2564,8 +2771,8 @@ def check_lm_serving(torch, raw_db, dev) -> tuple[dict, dict]:
             f"all on the tf32x3 route")
     ffma_launches = r["launches"]["flash_attention.ffma"]
     require(all(v == 0 for n, v in r["launches"].items()
-                if not n.startswith("flash_attention")),
-            f"serving launched a mining kernel: {r['launches']}")
+                if not n.startswith("flash_attention") or n == "flash_attention_bwd"),
+            f"serving launched a mining kernel or the backward: {r['launches']}")
     require(sorted(r["results"]) == list(range(LM_REQUESTS)), "tspm-mlho: lost requests")
     t0 = time.perf_counter()
     cpu_params = copy.deepcopy(params).to("cpu")
@@ -2637,6 +2844,7 @@ def check_lm_serving(torch, raw_db, dev) -> tuple[dict, dict]:
     require(g["launches"]["flash_attention"] == gcfg.n_layers * g["waves"] == gcfg.n_layers
             == wgmma_launches,
             f"gemma2-2b: {g['launches']} flash launches, all on the wgmma route")
+    require(g["launches"]["flash_attention_bwd"] == 0, "gemma2-2b: serving ran a backward")
     ffma_launches += g["launches"]["flash_attention.ffma"]
     require(all(len(t) == GEMMA_NEW_TOKENS or t[-1] == 2 for t in g["results"].values()),
             "gemma2-2b: short outputs")
@@ -2663,6 +2871,206 @@ def check_lm_serving(torch, raw_db, dev) -> tuple[dict, dict]:
     out["flash_launches"] = {"tf32x3": tf32_launches, "wgmma": wgmma_launches,
                              "ffma": ffma_launches}
     return out, timing
+
+
+# ---- phase 10: training -----------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_PATIENTS = 8, 256, 512   # examples/train_lm_torch.py --full
+TRAIN_STEPS, TRAIN_STOP = 300, 150
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_STEPS = 2, 3           # (a): tspm-mlho cut to 2 layers
+# (a)'s limits, card against CPU: each step's loss, ce and grad norm within
+# TRAIN_RTOL relative, and step 1's gradient of each parameter within
+# TRAIN_GRAD_SHARE of that parameter's largest |g| on the CPU.  Set from
+# the first card run (H100 80GB HBM3, 700 W): 1.2e-7 and 1.4e-6 at most,
+# so each limit is ~100x its reading (another host CPU rounds its own way)
+TRAIN_RTOL = 1e-5
+TRAIN_GRAD_SHARE = 1e-4
+TRAIN_CKPT_EVERY = 100     # (b)'s stop/resume runs: one periodic save each
+GEMMA_TRAIN_SEQ, GEMMA_TRAIN_STEPS, GEMMA_TRAIN_LR = 2048, 3, 1e-4
+
+
+def train_batches(n: int):
+    """The launcher's data (``launch/train.py`` at ``--full``'s sizes):
+    ``TRAIN_PATIENTS`` synthetic patients, packed into ``TRAIN_SEQ``-token
+    rows, ``n`` batches of ``TRAIN_BATCH`` from the seed; and the corpus's
+    vocabulary."""
+    from repro_torch.data import dbmart, synthea, tokenize
+
+    pats, dates, phx, _ = synthea.generate_cohort(n_patients=TRAIN_PATIENTS,
+                                                  avg_events=40, seed=SEED)
+    corpus = tokenize.pack_corpus(dbmart.from_rows(pats, dates, phx), seq_len=TRAIN_SEQ)
+    it = tokenize.lm_batches(corpus, TRAIN_BATCH, seed=SEED)
+    return [next(it) for _ in range(n)], corpus.vocab_size
+
+
+def check_train_card_vs_cpu(torch, dev) -> dict:
+    """Phase 10 (a): tspm-mlho at full width cut to 2 layers, initialised
+    on the CPU and copied to the card; step 1's gradients (one loss and
+    backward on each), then 3 train steps on each from the same state, with
+    the launch counts zeroed just before the card's work and read after."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.training import optimizer as opt_lib, train_loop
+
+    batches, vocab = train_batches(TRAIN_CHECK_STEPS)
+    cfg = get_config("tspm-mlho").replace(n_layers=TRAIN_CHECK_LAYERS)
+    cfg = cfg.replace(vocab_size=max(cfg.vocab_size, vocab))
+    mdl = model_lib.build(cfg)
+    cpu = train_loop.init_state(mdl, torch.Generator("cpu").manual_seed(SEED))
+    params = copy.deepcopy(cpu.params).to(dev)
+    card = train_loop.TrainState(params, opt_lib.init(dict(params.named_parameters())))
+    loss_fn = train_loop.make_loss_fn(mdl)
+
+    def grads(model, device):
+        names, ps = zip(*model.named_parameters())
+        loss, _ = loss_fn(model, {k: torch.as_tensor(v, device=device)
+                                  for k, v in batches[0].items()})
+        return dict(zip(names, torch.autograd.grad(loss, ps)))
+
+    zero_launches()
+    t0 = time.perf_counter()
+    g_card = grads(card.params, dev)
+    torch.cuda.synchronize()
+    g_cpu = grads(cpu.params, "cpu")
+    share = {n: ((g_card[n].cpu() - g).abs().max() / g.abs().max()).item()
+             for n, g in g_cpu.items()}
+    del g_card, g_cpu
+    opt_cfg = opt_lib.OptConfig(peak_lr=1e-3, warmup_steps=20, decay_steps=TRAIN_STEPS)
+    step = train_loop.make_train_step(mdl, opt_cfg)
+    steps = []
+    for b in batches:
+        card, mc = step(card, b)
+        cpu, mp = step(cpu, b)
+        steps.append({k: {"card": float(mc[k]), "cpu": float(mp[k]),
+                          "rel": abs(float(mc[k]) - float(mp[k])) / abs(float(mp[k]))}
+                      for k in ("loss", "ce", "grad_norm")})
+    launches = read_launches()
+    out = {"layers": cfg.n_layers, "d_model": cfg.d_model, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "steps": steps, "grad_share_max": max(share.values()),
+           "grad_share_worst": max(share, key=share.get), "rtol": TRAIN_RTOL,
+           "grad_share_limit": TRAIN_GRAD_SHARE, "s": time.perf_counter() - t0,
+           "launches": {k: launches[k] for k in ("flash_attention", "flash_attention_bwd")}}
+    print(f"phase 10 (a, card vs CPU): {json.dumps(out)}", flush=True)
+    require(all(m["rel"] <= TRAIN_RTOL for s in steps for m in s.values()),
+            "phase 10 (a): a step's loss, ce or grad norm differs from the CPU's")
+    require(out["grad_share_max"] <= TRAIN_GRAD_SHARE,
+            f"phase 10 (a): step 1's gradient of {out['grad_share_worst']} differs")
+    passes = 1 + TRAIN_CHECK_STEPS                    # the gradient pass + the steps
+    require(launches["flash_attention_bwd"] == cfg.n_layers * passes
+            == launches["flash_attention"],
+            f"phase 10 (a): {launches} attention launches on the card")
+    del card, cpu, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_train_launcher(extra: list, timeout: int = 400) -> dict:
+    """``python -m repro_torch.launch.train --arch tspm-mlho`` at
+    ``--full``'s sizes in its own process on the card, with ``extra``;
+    returns its logged ce values, throughput line, digests and wall."""
+    import re
+
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                           "--arch", "tspm-mlho", "--batch", str(TRAIN_BATCH),
+                           "--seq", str(TRAIN_SEQ), "--patients", str(TRAIN_PATIENTS),
+                           *extra], cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    require(proc.returncode == 0, f"launch.train {extra} exited {proc.returncode}: "
+                                  f"{proc.stdout[-1500:]} {proc.stderr[-2500:]}")
+    text = proc.stdout
+    m = re.search(r"throughput on (\S+): mean step (\S+)s, tokens/s (\S+), "
+                  r"peak_device_bytes (\S+), flash_attention launches (\d+), "
+                  r"flash_attention_bwd launches (\d+)", text)
+    require(m is not None, f"launch.train printed no throughput line: {text[-1500:]}")
+    return {"s": time.perf_counter() - t0, "device": m.group(1),
+            "step_s": float(m.group(2)), "tokens_per_s": float(m.group(3)),
+            "peak_device_bytes": None if m.group(4) == "None" else int(m.group(4)),
+            "flash_attention": int(m.group(5)), "flash_attention_bwd": int(m.group(6)),
+            "ce": [float(x) for x in re.findall(r"^step \d+: loss=\S+ ce=(\S+)", text, re.M)],
+            "saved": re.findall(r"^checkpoint (\S+) state_digest=([0-9a-f]{64})$", text, re.M),
+            "resumed": re.findall(r"^resumed from (\S+) at step (\d+)$", text, re.M),
+            "restored": re.findall(r"^restored state_digest=([0-9a-f]{64})$", text, re.M),
+            "lines": [ln for ln in text.splitlines()
+                      if ln.startswith(("corpus", "model", "done", "throughput"))]}
+
+
+def check_train_launcher(tmp_root: str) -> dict:
+    """Phase 10 (b): the launcher trains full-width tspm-mlho with
+    ``--ckpt-dir``, stopping at step 150; a rerun resumes at step 150 from
+    a state whose digest equals the one saved and trains to step 300.  The
+    two runs' 300 steps log falling ce and launch the backward 12 times a
+    step."""
+    n_layers = 12
+    ckpt = os.path.join(tmp_root, "train_ckpt")
+    every = ["--ckpt-every", str(TRAIN_CKPT_EVERY)]
+    stopped = run_train_launcher(["--steps", str(TRAIN_STOP), "--ckpt-dir", ckpt, *every])
+    resumed = run_train_launcher(["--steps", str(TRAIN_STEPS), "--ckpt-dir", ckpt, *every])
+    runs = {"stopped": stopped, "resumed": resumed}
+    print(f"phase 10 (b, launch.train stopped at {TRAIN_STOP}, resumed to {TRAIN_STEPS}): "
+          f"{json.dumps(runs)}", flush=True)
+    saved_path, saved_digest = stopped["saved"][-1]
+    require(saved_path.endswith(f"step_{TRAIN_STOP:08d}"), f"phase 10 (b): saved {saved_path}")
+    require(resumed["resumed"] == [(saved_path, str(TRAIN_STOP))]
+            and resumed["restored"] == [saved_digest],
+            f"phase 10 (b): the rerun did not resume from the saved state: {resumed}")
+    ce = stopped["ce"] + resumed["ce"]
+    require(len(ce) >= 10 and ce[-1] < ce[0] and sum(ce[-3:]) < sum(ce[:3]),
+            f"phase 10 (b): ce does not fall: {ce}")
+    for name, r, steps in (("stopped", stopped, TRAIN_STOP),
+                           ("resumed", resumed, TRAIN_STEPS - TRAIN_STOP)):
+        require(r["flash_attention_bwd"] == n_layers * steps == r["flash_attention"],
+                f"phase 10 (b): the {name} run's launches {r}")
+    return {**runs, "launches": {k: stopped[k] + resumed[k]
+                                 for k in ("flash_attention", "flash_attention_bwd")}}
+
+
+def check_gemma_training(torch, dev) -> dict:
+    """Phase 10 (c): gemma2-2b at full width (26 layers, bf16 parameters,
+    float32 moments) takes 3 steps on one batch of 1 x 2,048 random tokens,
+    every block checkpointed (``remat="dots"``, ``torch.utils.checkpoint``);
+    the loss must be finite and fall, with 26 backward launches a step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.training import optimizer as opt_lib, train_loop
+
+    cfg = get_config("gemma2-2b")
+    require(cfg.remat == "dots", "gemma2-2b's config no longer checkpoints")
+    mdl = model_lib.build(cfg)
+    state = train_loop.init_state(mdl, torch.Generator(dev).manual_seed(SEED))
+    rng = np.random.default_rng(SEED)
+    toks = rng.integers(4, cfg.vocab_size, (1, GEMMA_TRAIN_SEQ + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "loss_mask": np.ones((1, GEMMA_TRAIN_SEQ), bool)}
+    step = train_loop.make_train_step(mdl, opt_lib.OptConfig(
+        peak_lr=GEMMA_TRAIN_LR, warmup_steps=0, decay_steps=100))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    losses, times = [], []
+    for _ in range(GEMMA_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    launches = read_launches()
+    out = {"params": model_lib.param_count(state.params), "losses": losses,
+           "step_s": times, "tokens_per_s": GEMMA_TRAIN_SEQ / (sum(times[1:]) / (len(times) - 1)),
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "launches": {k: launches[k] for k in ("flash_attention", "flash_attention_bwd",
+                                                 "flash_attention.wgmma")}}
+    print(f"phase 10 (c, gemma2-2b): {json.dumps(out)}", flush=True)
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"phase 10 (c): gemma2-2b's loss is not finite and falling: {losses}")
+    require(launches["flash_attention_bwd"] == cfg.n_layers * GEMMA_TRAIN_STEPS,
+            f"phase 10 (c): {launches}")
+    del state
+    torch.cuda.empty_cache()
+    return out
 
 
 def flash_rows(routes: dict, lm: dict, timing: dict) -> list:
@@ -2696,6 +3104,26 @@ def flash_rows(routes: dict, lm: dict, timing: dict) -> list:
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                      "shape": t["shape"], **extra})
     return rows
+
+
+def flash_bwd_row(bwd: dict, timing: dict, train: dict) -> dict:
+    """The ``kernels`` line's row of ``flash_attention_bwd``: timed at
+    tspm-mlho's training shape (gemma2-2b's beside it), launches from the
+    launcher's 300 tspm-mlho steps (phase 10 (b)'s two runs), max_abs_err over
+    phase 3b's comparisons against the plain version."""
+    t = timing["tspm_mlho"]
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention/flash.py:24",
+            "note": "the gradient of that kernel, which has no Pallas backward (jax.grad "
+                    "through it fails); three launches a call, no atomics",
+            "launches": train["b_launcher"]["launches"]["flash_attention_bwd"],
+            "max_abs_err": bwd["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "bound_ffma_ms": t["bound_ffma_ms"], "device_share": t["device_share"],
+            "shape": t["shape"], "gemma2_2b": timing["gemma2_2b"],
+            "gemma2_2b_launches": train["c_gemma2_2b"]["launches"]["flash_attention_bwd"]}
 
 
 def main() -> int:
@@ -2805,10 +3233,21 @@ def main() -> int:
           f"|diff| {json.dumps(flash)}; by route {json.dumps(flash_routes)}); {left} B "
           f"stay allocated after them", flush=True)
     print(f"phase 3b bfloat16 readings: {json.dumps(bf16_readings)}", flush=True)
+    bwd = check_flash_bwd_kernel(torch, dev)
+    bwd_t = {name: time_flash_bwd(torch, dev, name) for name in BWD_MODEL_SHAPES}
     lap("3b_flash_checks")
     lm, flash_t = check_lm_serving(torch, raw, dev)
     del raw
     lap("9_lm_serving")
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = {"a_card_vs_cpu": check_train_card_vs_cpu(torch, dev)}
+    lap("10a_train_card_vs_cpu")
+    with tempfile.TemporaryDirectory(prefix="tspm_train_") as tmp:
+        train["b_launcher"] = check_train_launcher(tmp)
+    lap("10b_train_launcher")
+    train["c_gemma2_2b"] = check_gemma_training(torch, dev)
+    lap("10c_train_gemma2_2b")
     kernels.append(kernel_row(
         "tspm_fused", "src/repro/kernels/tspm_fused/fused.py:134", fused_launches,
         err, fused_t2["ms"], fused_t2["plain_ms"], fused_t2["bound"], None,
@@ -2822,10 +3261,11 @@ def main() -> int:
                              "launches": fused_t1_launches, "shape": fused_t1["shape"],
                              **{k: fused_t1[k] for k in fused_keys}}
     kernels += flash_rows(flash_routes, lm, flash_t)
+    kernels.append(flash_bwd_row(bwd, bwd_t, train))
     print(json.dumps({"fit_phases": phases, "main_path": main_path,
                       "files_vs_chunked": files_vs_chunked, "card_vs_cpu": card_vs_cpu,
                       "seq_hist_paths": hist_paths, "table2": table2, "stream": stream,
-                      "lm_serving": lm,
+                      "lm_serving": lm, "training": train,
                       "phase_s": laps, "wall_s": time.perf_counter() - t_start}),
           flush=True)
     print(f"phase seconds: {json.dumps(laps)}", flush=True)

@@ -15,6 +15,16 @@ raises, and so does anything the kernels do not take: there is no
 fallback, from one route to another either.  ``attention.launches`` counts
 calls that launch (a tf32x3 call is its pre-pass and main kernel, one
 count) and ``attention.route_launches`` counts them by route.
+
+Gradients.  On a CUDA tensor, with gradients enabled and q, k or v
+requiring one, ``attention`` goes through ``_Attention``, a
+``torch.autograd.Function``: its forward is the same launch, and its
+backward launches ``csrc/flash_attention_bwd.cu`` through
+``attention_bwd`` (FFMA, three launches, no atomics; every dtype and D
+that the forward takes).  Without a gradient to take the path and its
+launches are the same, so serving does not change.  On a CPU tensor
+autograd differentiates the plain version.  ``attention_bwd.launches``
+counts backward calls that launch (its three kernels, one count).
 """
 from __future__ import annotations
 
@@ -22,6 +32,7 @@ import ctypes
 import functools
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ref
@@ -62,6 +73,39 @@ ENTRIES = {
 }
 
 
+_BWD_NAME = "flash_attention_bwd"
+_BWD_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + _MASK_ARGS
+             + [ctypes.c_void_p])   # q, k, v, o, do, dq, dk, dv, scratch, B..D, dtype, ..
+BWD_TILE_ROWS = 64        # query rows of the backward's query-major tiles
+BWD_MIN_KEY_ROWS = 32     # keys of its smallest key-major tile (D = 256)
+BWD_KERNELS = ("prepass", "dq", "dkv")
+
+
+@functools.cache
+def _bwd_kernel():
+    """The backward's C entry."""
+    fn = _build.load(_BWD_NAME).flash_attention_bwd
+    fn.argtypes = _BWD_ARGS
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def bwd_kernel_info(dtype: torch.dtype, D: int) -> dict:
+    """Registers a thread, local (spill) bytes, dynamic shared memory and
+    key rows of a tile of each of the backward's three kernels at
+    ``(dtype, D)``, as the card's runtime reports them
+    (``cudaFuncGetAttributes``)."""
+    fn = _build.load(_BWD_NAME).flash_attention_bwd_info
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = {}
+    for which, name in enumerate(BWD_KERNELS):
+        vals = (ctypes.c_int * 4)()
+        _build.check(_BWD_NAME, fn(DTYPES.index(dtype), D, which, ctypes.addressof(vals)))
+        out[name] = dict(zip(("registers", "local_bytes", "shared_bytes", "key_rows"), vals))
+    return out
+
+
 @functools.cache
 def _kernel(r: str):
     """The C entry of route ``r``."""
@@ -76,20 +120,19 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
               softcap: float | None = None):
     """Blocked attention with scale ``D ** -0.5``; the result is
     ``ref.attention_ref``'s."""
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
-            or q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3]:
-        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)}: expected [B,Hq,Sq,D] and [B,Hkv,Skv,D]")
-    Hq, Hkv, Skv = q.shape[1], k.shape[1], k.shape[2]
-    if Hkv == 0 or Hq % Hkv:
-        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
-    if Skv == 0:
-        raise ValueError("attention over zero keys (Skv == 0)")
+    _check_shapes(q, k, v)
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"attention runs on CUDA or CPU tensors, not {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _Attention.apply(q, k, v, causal, window, softcap)
+    return _forward(q, k, v, causal=causal, window=window, softcap=softcap)
+
+
+def _forward(q, k, v, *, causal, window, softcap):
+    """The forward launch on checked CUDA tensors, counted."""
     r = kernel_route(q, k, v)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     if out.numel() == 0:
@@ -99,6 +142,80 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
     attention.launches += 1
     attention.route_launches[r] += 1
     return out
+
+
+class _Attention(torch.autograd.Function):
+    """``attention`` on CUDA tensors with a gradient: the forward launch,
+    and ``attention_bwd``'s kernel as its backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        o = _forward(q, k, v, causal=causal, window=window, softcap=softcap)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.mask = dict(causal=causal, window=window, softcap=softcap)
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = attention_bwd(q, k, v, o, do.contiguous(), **ctx.mask)
+        return dq, dk, dv, None, None, None
+
+
+def attention_bwd(q, k, v, o, do, *, causal: bool = True, window: int | None = None,
+                  softcap: float | None = None):
+    """``(dq, dk, dv)`` of ``attention`` at ``q, k, v`` for its output ``o``
+    and the output's gradient ``do`` (both ``[B, Hq, Sq, D]``): for CUDA
+    tensors ``csrc/flash_attention_bwd.cu``, for CPU tensors
+    ``ref.attention_bwd_ref``; any other device, and anything the kernel
+    does not take, raises."""
+    _check_shapes(q, k, v)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must have q's "
+                         f"shape {tuple(q.shape)}")
+    if q.device.type == "cpu":
+        return ref.attention_bwd_ref(q, k, v, o, do, causal=causal, window=window,
+                                     softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention_bwd runs on CUDA or CPU tensors, not {q.device}")
+    kernel_route(q, k, v)
+    if any(t.device != q.device or t.dtype != q.dtype for t in (o, do)):
+        raise ValueError("o and do must have q's device and dtype")
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    if B * Hq * -(-Sq // BWD_TILE_ROWS) > _INT32_MAX \
+            or B * Hkv * -(-Skv // BWD_MIN_KEY_ROWS) > _INT32_MAX:
+        raise ValueError(f"shape q {tuple(q.shape)} k {tuple(k.shape)} exceeds the "
+                         f"backward kernel's int32 grid")
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if dq.numel() == 0:         # no query: no key gets a gradient
+        return dq, torch.zeros_like(k), torch.zeros_like(v)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))
+    scratch = torch.empty(2 * B * Hq * Sq, dtype=torch.float32, device=q.device)
+    ptrs, mask = entry_args(q, k, v, o, causal=causal, window=window, softcap=softcap)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _bwd_kernel()(*ptrs[:4], do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                           dv.data_ptr(), scratch.data_ptr(), *ptrs[4:],
+                           DTYPES.index(q.dtype), *mask, stream)
+    _build.check(_BWD_NAME, rc)
+    attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+def _check_shapes(q, k, v) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
+            or q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3]:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}: expected [B,Hq,Sq,D] and [B,Hkv,Skv,D]")
+    Hq, Hkv, Skv = q.shape[1], k.shape[1], k.shape[2]
+    if Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
+    if Skv == 0:
+        raise ValueError("attention over zero keys (Skv == 0)")
 
 
 def kernel_route(q, k, v) -> str:
@@ -181,3 +298,4 @@ def _launch(q, k, v, out, *, causal, window, softcap, force_route: str | None = 
 
 attention.launches = 0
 attention.route_launches = dict.fromkeys(ROUTES, 0)
+attention_bwd.launches = 0

@@ -1,8 +1,10 @@
-"""Naive full-softmax attention oracle (f32) with the same mask options.
+"""Naive full-softmax attention oracle (f32) with the same mask options, and
+its backward.
 
-The plain version of ``csrc/flash_attention.cu``: ``ops.attention`` takes
-it for CPU tensors, and the tests and the smoke script hold the kernel
-against it.  Layout ``[B, H, S, D]``, as the reference's
+``attention_ref`` is the plain version of ``csrc/flash_attention.cu`` and
+``attention_bwd_ref`` of ``csrc/flash_attention_bwd.cu``: ``ops`` takes
+them for CPU tensors, and the tests and the smoke script hold the kernels
+against them.  Layout ``[B, H, S, D]``, as the reference's
 ``kernels/flash_attention/ref.attention_ref``.
 """
 from __future__ import annotations
@@ -79,3 +81,89 @@ def tf32x3_operands(k, v):
     vp[:, :Skv] = v.reshape(B * Hkv, Skv, D)
     vt = vp[:, value_key_order(skv8).to(v.device)].transpose(1, 2)
     return ks, torch.cat(tf32_split(vt))
+
+
+# ---- the backward (plain version of csrc/flash_attention_bwd.cu)
+
+def attention_bwd_ref(q, k, v, o, do, *, causal: bool = True, window: int | None = None,
+                      softcap: float | None = None):
+    """Gradients ``(dq, dk, dv)`` of ``attention_ref`` at ``(q, k, v)`` for
+    the output gradient ``do``, written out: S and P recomputed (softcap
+    included), ``dV = P^T dO``, ``dP = dO V^T``, ``dS = P * (dP - rowsum(dO
+    * O))`` times ``1 - tanh^2(s / cap)`` under the softcap, ``dQ = dS K *
+    scale``, ``dK = dS^T Q * scale``, each KV head's gradient summed over
+    its query heads.  A row that sees no key has P = 0, so it gives and
+    gets no gradient.  ``o`` is the forward's output.  The arithmetic is
+    float32 (float64 for float64 inputs); the results take the inputs'
+    dtype."""
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Skv, _ = k.shape
+    group = Hq // Hkv
+    scale = D ** -0.5
+    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
+    q32, o32, do32 = (t.to(ct) for t in (q, o, do))
+    kq = k.to(ct).repeat_interleave(group, dim=1)
+    vq = v.to(ct).repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q32, kq) * scale
+    dcap = None
+    if softcap is not None:
+        t = torch.tanh(s / softcap)
+        s = softcap * t
+        dcap = 1 - t * t
+    qi = torch.arange(Sq, device=q.device)[:, None]
+    kj = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qi >= kj
+    if window is not None:
+        mask &= (qi - kj) < window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    p = torch.where(mask, p, 0.0)
+    p = p / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do32)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do32, vq)
+    ds = p * (dp - (do32 * o32).sum(-1, keepdim=True))
+    if dcap is not None:
+        ds = ds * dcap
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kq) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q32) * scale
+
+    def per_kv_head(x):           # [B, Hq, Skv, D] -> [B, Hkv, Skv, D]
+        return x.reshape(B, Hkv, group, Skv, D).sum(2)
+
+    return dq.to(q.dtype), per_kv_head(dk).to(k.dtype), per_kv_head(dv).to(v.dtype)
+
+
+# The backward kernel's limit, as the card tests and chip_smoke.py hold it:
+# |got - want64| <= BWD_ERR_FACTOR * max(e32, 2^-23 G) + rel |want64|, want64
+# the plain version in float64 on the same inputs, e32 the float32 plain
+# version's own largest distance from it, G the largest |want64| of dq, dk
+# and dv (a floor: where float64 gives an exact 0, as dq of a row with one
+# visible key, dS = dP - delta, the kernel's two sums in different orders
+# leave a float32 rounding), rel = BWD_BF16_REL for bfloat16 (the one
+# rounding of the float32 result; its half ulp is at most 2^-8 |x|) and 0
+# for float32.  The factor was set from the kernel's first card run: over
+# chip_smoke.py's edge cases its largest error was 4.3 x e32 (float32, GQA
+# group 8, dv).  bfloat16 readings reach 0.99 of their limit by
+# construction: the rounding alone takes up to 2^-8 |x| (x just above a
+# power of two), and the kernel's float32 error, well inside the factor's
+# term, adds the rest.
+BWD_ERR_FACTOR = 16.0
+BWD_BF16_REL = 2.0 ** -8
+
+
+def attention_bwd_limit(q, k, v, o, do, **kw):
+    """The backward kernel's limit at these inputs (comment above):
+    ``(want64, want32, e32, limit)``, each a tuple over ``(dq, dk, dv)``:
+    the plain version in float64 and in float32, the float32 one's largest
+    distance from float64, and the elementwise bound on ``|got - want64|``."""
+    want32 = attention_bwd_ref(*(t.float() for t in (q, k, v, o, do)), **kw)
+    want64 = attention_bwd_ref(*(t.double() for t in (q, k, v, o, do)), **kw)
+    rel = BWD_BF16_REL if q.dtype == torch.bfloat16 else 0.0
+    floor = 2.0 ** -23 * max(w.abs().max().item() for w in want64)
+    e32 = tuple((w32.double() - w64).abs().max().item()
+                for w32, w64 in zip(want32, want64))
+    limit = tuple(BWD_ERR_FACTOR * max(e, floor) + rel * w64.abs()
+                  for e, w64 in zip(e32, want64))
+    return want64, want32, e32, limit

@@ -11,8 +11,9 @@ function of the same name computes:
 
 Parameters are allocated on the module's device and filled by
 ``init_weights`` from an explicit ``torch.Generator``, with the
-reference's truncated-normal scales (``layers.truncnorm``); they never
-require gradients (this package serves, it does not train).
+reference's truncated-normal scales (``layers.truncnorm``).  They are
+made without ``requires_grad``, so serving builds no graph;
+``training.train_loop.init_state`` turns gradients on for training.
 """
 from __future__ import annotations
 

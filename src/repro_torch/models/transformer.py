@@ -13,6 +13,7 @@ one device and no twin.  Patterns:
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.models import attention, layers
@@ -112,15 +113,43 @@ def _run_layers(p: Transformer, x, cfg, *, positions, caches=None):
     return x, (new_caches if caches is not None else None)
 
 
-@torch.no_grad()
+def _train_layers(p: Transformer, x, cfg, *, positions):
+    """The layers over a full sequence.  Under ``cfg.remat != 'none'``, with
+    gradients enabled, each block is checkpointed: its activations are
+    recomputed in the backward (``torch.utils.checkpoint``, non-reentrant),
+    where the reference wraps its scan body in ``jax.checkpoint``.  Either
+    way the values are the same."""
+    remat = cfg.remat != "none" and torch.is_grad_enabled()
+    for blk in p.blocks:
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                lambda y, blk=blk: layer_apply(blk, y, cfg, positions=positions)[0],
+                x, use_reentrant=False)
+        else:
+            x, _ = layer_apply(blk, x, cfg, positions=positions)
+    return x
+
+
 def apply(p: Transformer, batch, cfg, *, mode="train", caches=None):
-    """mode 'train': full-sequence (logits, aux).
+    """mode 'train': full-sequence (logits, aux), differentiable.
     mode 'prefill': caches required (empty) -> (last-position logits, caches).
     mode 'decode': batch['tokens'] is [B, 1], caches -> (logits, caches).
     ``aux`` is the MoE balance loss of the reference, 0 for dense layers.
+    Prefill and decode run without gradients (they write the caches in
+    place).
     """
-    tokens = batch["tokens"]
-    x = layers.embed_lookup(p.embed, tokens, cfg.embed_scale)
+    if mode in ("prefill", "decode"):
+        return _serve(p, batch, cfg, mode=mode, caches=caches)
+    x = layers.embed_lookup(p.embed, batch["tokens"], cfg.embed_scale)
+    b, s = x.shape[:2]
+    positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+    x = _train_layers(p, x, cfg, positions=positions)
+    return _logits(p, x, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+@torch.no_grad()
+def _serve(p: Transformer, batch, cfg, *, mode, caches):
+    x = layers.embed_lookup(p.embed, batch["tokens"], cfg.embed_scale)
     b, s = x.shape[:2]
     if mode == "decode":
         positions = torch.full((b, 1), caches[0]["pos"], dtype=torch.int32,
@@ -128,12 +157,9 @@ def apply(p: Transformer, batch, cfg, *, mode="train", caches=None):
         x, new_caches = _run_layers(p, x, cfg, positions=positions, caches=caches)
         return _logits(p, x, cfg), new_caches
     positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
-    if mode == "prefill":
-        x, new_caches = _run_layers(p, x, cfg, positions=positions, caches=caches)
-        # serving prefill only needs next-token logits (saves a [B,S,V])
-        return _logits(p, x[:, -1:], cfg), new_caches
-    x, _ = _run_layers(p, x, cfg, positions=positions)
-    return _logits(p, x, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
+    x, new_caches = _run_layers(p, x, cfg, positions=positions, caches=caches)
+    # serving prefill only needs next-token logits (saves a [B,S,V])
+    return _logits(p, x[:, -1:], cfg), new_caches
 
 
 def init_caches(cfg, batch, max_len, *, device="cuda"):

@@ -3,7 +3,8 @@
 Layout:  <dir>/step_<N>/arrays.npz + manifest.json, written to a tmp dir
 and atomically renamed — a crashed writer never corrupts the latest
 checkpoint, which is what restart-after-failure relies on.  ``save_async``
-snapshots to host then writes on a background thread.  The layout is the
+copies every leaf to the host then writes on a background thread, so the
+caller may update the tree in place at once.  The layout is the
 reference's, so a checkpoint written by either package loads in the other.
 
 A tree is nested dicts, lists, tuples (named tuples included) and ``None``
@@ -77,6 +78,16 @@ def _to_host(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def _snapshot(x) -> np.ndarray:
+    """A host copy of ``x`` that owns its memory: ``_to_host`` of a CPU
+    tensor or a numpy array is a view, which a later in-place update of
+    the live value (a train step's ``copy_``) would change under the
+    background writer."""
+    if torch.is_tensor(x):
+        return x.detach().to("cpu", copy=True).numpy()
+    return np.array(x, copy=True)
+
+
 def save(ckpt_dir: str, step: int, tree, extra: dict | None = None) -> str:
     """Blocking atomic save; returns the checkpoint path."""
     leaves, treedef = _flatten(tree)
@@ -116,7 +127,7 @@ class Saver:
                    extra: dict | None = None) -> None:
         """Snapshot to host now, write in the background."""
         leaves, treedef = _flatten(tree)
-        hosted = [_to_host(x) for x in leaves]  # device->host happens here
+        hosted = [_snapshot(x) for x in leaves]  # device->host happens here
         t = threading.Thread(target=_write, daemon=True,
                              args=(ckpt_dir, step, hosted, treedef, extra))
         # join-then-start under the lock: writes through one Saver are

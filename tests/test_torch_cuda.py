@@ -534,6 +534,137 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
     assert flash_ops.attention.launches == before
 
 
+def _bwd_inputs(dev, B, Hq, Hkv, Sq, Skv, D, dtype, seed):
+    g = torch.Generator(dev).manual_seed(seed)
+    return [torch.randn(B, H, S, D, generator=g, device=dev).to(dtype)
+            for H, S in ((Hq, Sq), (Hkv, Skv), (Hkv, Skv), (Hq, Sq))]
+
+
+def _assert_bwd_within_limit(got, q, k, v, o, do, kw):
+    want64, _, _, limits = flash_ref.attention_bwd_limit(q, k, v, o, do, **kw)
+    for name, g, w64, limit in zip(("dq", "dk", "dv"), got, want64, limits):
+        diff = (g.double() - w64).abs()
+        assert g.dtype == q.dtype and g.shape == w64.shape, name
+        assert (diff <= limit).all(), f"{name}: max |diff| {diff.max().item()}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,kw", [
+    (2, 4, 2, 1, 1, 64, dict(causal=True)),
+    (2, 4, 2, 129, 129, 64, dict(causal=True)),
+    (1, 4, 4, 100, 260, 16, dict(causal=True)),
+    (1, 4, 4, 260, 100, 32, dict(causal=False)),
+    (1, 6, 2, 200, 200, 128, dict(causal=True, window=16, softcap=50.0)),
+    (1, 8, 1, 130, 130, 256, dict(causal=True, window=64, softcap=50.0)),
+    (1, 4, 2, 96, 40, 64, dict(causal=False, window=16)),
+    (1, 6, 2, 96, 96, 64, dict(causal=True, window=1)),
+])
+def test_flash_bwd_kernel_matches_plain_version(cuda_device, dtype, B, Hq, Hkv, Sq, Skv,
+                                                D, kw):
+    """The backward kernel (one count, three launches) against the plain
+    version in float64, within ``ref.attention_bwd_limit`` (``BWD_ERR_FACTOR``
+    times the float32 plain version's own error, plus the rounding to
+    bfloat16): ragged tiles,
+    Sq != Skv causal and not, every head width, GQA groups 1 to 8, windows,
+    softcap, rows that see no key."""
+    q, k, v, do = _bwd_inputs(cuda_device, B, Hq, Hkv, Sq, Skv, D, dtype, Sq + D)
+    o = flash_ops.attention(q, k, v, **kw)
+    before = flash_ops.attention_bwd.launches
+    got = flash_ops.attention_bwd(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    assert flash_ops.attention_bwd.launches == before + 1
+    _assert_bwd_within_limit(got, q, k, v, o, do, kw)
+
+
+def test_flash_bwd_repeats_bit_for_bit(cuda_device):
+    """No atomics: two backward calls give the same bytes."""
+    q, k, v, do = _bwd_inputs(cuda_device, 2, 12, 4, 300, 300, 64, torch.float32, 1)
+    o = flash_ops.attention(q, k, v, causal=True)
+    a = flash_ops.attention_bwd(q, k, v, o, do, causal=True)
+    b = flash_ops.attention_bwd(q, k, v, o, do, causal=True)
+    for x, y in zip(a, b):
+        assert_same(x, y)
+
+
+def test_flash_bwd_refuses_what_it_does_not_take(cuda_device):
+    x = torch.zeros(1, 2, 8, 48, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_ops.attention_bwd(x, x, x, x, x)
+    y = torch.zeros(1, 2, 8, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="device and dtype"):
+        flash_ops.attention_bwd(y, y, y, y.bfloat16(), y)
+    e = torch.zeros(0, 2, 8, 64, device=cuda_device)
+    before = flash_ops.attention_bwd.launches
+    dq, dk, dv = flash_ops.attention_bwd(e, e, e, e, e)
+    assert dq.shape == e.shape and flash_ops.attention_bwd.launches == before
+    info = flash_ops.bwd_kernel_info(torch.float32, 256)
+    assert info["dkv"]["key_rows"] == 32 and info["dkv"]["shared_bytes"] <= 232448
+
+
+def test_attention_gradient_on_card_goes_through_the_kernel(cuda_device, monkeypatch):
+    """Under autograd a CUDA tensor's attention launches the backward
+    kernel, never the plain version (which would raise here), and
+    ``wq.grad`` of a reduced tspm-mlho's train-mode loss on the card is
+    there and matches the CPU's (plain versions)."""
+    from repro_torch.training import train_loop
+
+    cfg = get_config("tspm-mlho", reduced=True)
+    mdl = model_lib.build(cfg)
+    card = train_loop.trainable(mdl.init(torch.Generator(cuda_device).manual_seed(0)))
+    cpu = copy.deepcopy(card).to("cpu")
+    rng = np.random.default_rng(0)
+    toks = rng.integers(4, cfg.vocab_size, (2, 40)).astype(np.int32)
+    batch = {"tokens": toks, "labels": np.roll(toks, -1, 1), "loss_mask": np.ones_like(toks, bool)}
+    loss_fn = train_loop.make_loss_fn(mdl)
+    grads = []
+    for model, dev in ((card, cuda_device), (cpu, "cpu")):
+        tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        before = flash_ops.attention_bwd.launches
+        if dev != "cpu":
+            with monkeypatch.context() as m:
+                for name in ("attention_ref", "attention_bwd_ref"):
+                    m.setattr(flash_ref, name, lambda *a, **k: pytest.fail("plain version ran"))
+                loss, _ = loss_fn(model, tb)
+                loss.backward()
+            torch.cuda.synchronize()
+        else:
+            loss, _ = loss_fn(model, tb)
+            loss.backward()
+        launched = flash_ops.attention_bwd.launches - before
+        assert launched == (cfg.n_layers if dev != "cpu" else 0)
+        grads.append({n: p.grad for n, p in model.named_parameters()})
+    for n, g in grads[0].items():
+        assert g is not None, n
+        torch.testing.assert_close(g.cpu(), grads[1][n], atol=1e-4, rtol=1e-3)
+    assert grads[0]["blocks.0.attn.wq.weight"].abs().sum() > 0
+
+
+def test_train_steps_on_card_match_cpu(cuda_device):
+    """Three train steps of reduced tspm-mlho from one state, on the card
+    and on the CPU: loss and ce per step within 1e-4 relative."""
+    from repro_torch.training import optimizer as opt_lib, train_loop
+
+    cfg = get_config("tspm-mlho", reduced=True)
+    mdl = model_lib.build(cfg)
+    state = train_loop.init_state(mdl, torch.Generator("cpu").manual_seed(0))
+    params = copy.deepcopy(state.params).to(cuda_device)
+    card = train_loop.TrainState(params, opt_lib.init(dict(params.named_parameters())))
+    step = train_loop.make_train_step(mdl, opt_lib.OptConfig(peak_lr=1e-3, warmup_steps=0,
+                                                             decay_steps=10))
+    rng = np.random.default_rng(1)
+    before = flash_ops.attention_bwd.launches
+    for i in range(3):
+        toks = rng.integers(4, cfg.vocab_size, (4, 64)).astype(np.int32)
+        batch = {"tokens": toks, "labels": np.roll(toks, -1, 1),
+                 "loss_mask": np.ones_like(toks, bool)}
+        card, mc = step(card, batch)
+        state, ms = step(state, batch)
+        for k in ("loss", "ce", "grad_norm"):
+            assert float(mc[k]) == pytest.approx(float(ms[k]), rel=1e-4), (i, k)
+    assert flash_ops.attention_bwd.launches - before == 3 * cfg.n_layers
+    assert int(card.opt.step) == 3 and card.opt.mu["embed.table"].device.type == "cuda"
+
+
 @pytest.mark.parametrize("arch", ["tspm-mlho", "gemma2-2b"])
 def test_reduced_model_serves_on_card_as_on_cpu(cuda_device, arch):
     """Greedy serving of a reduced model: the card (flash kernel, one

@@ -416,3 +416,104 @@ def test_tf32x3_operands_are_the_split_inputs():
     assert torch.equal(vt_hi[:, :, :13], want_hi) and torch.equal(vt_lo[:, :, :13], want_lo)
     ties = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -12])
     assert ref.tf32_round(ties).tolist() == [1 + 2.0 ** -10, -(1 + 2.0 ** -10), 1.0]
+
+
+# ---- the backward's plain version (csrc/flash_attention_bwd.cu's)
+
+BWD_CASES = [
+    (2, 4, 2, 33, 33, 16, dict(causal=True)),
+    (1, 6, 2, 40, 40, 32, dict(causal=True, window=7, softcap=5.0)),
+    (1, 4, 4, 20, 52, 16, dict(causal=True)),              # Sq < Skv
+    (1, 4, 1, 52, 20, 16, dict(causal=False)),             # Sq > Skv, GQA 4
+    (1, 4, 2, 48, 20, 16, dict(causal=False, window=8)),   # rows 27.. see no key
+    (1, 2, 2, 1, 1, 64, dict(causal=True)),
+]
+
+
+def _bwd_inputs(B, Hq, Hkv, Sq, Skv, D, seed):
+    q, k, v = _inputs(B, Hq, Hkv, Sq, Skv, D, seed=seed)
+    do = np.random.default_rng(seed + 1).standard_normal((B, Hq, Sq, D))
+    return [a.astype(np.float32) for a in (q, k, v, do)]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,kw", BWD_CASES)
+def test_bwd_ref_matches_autograd_and_jax_grad(B, Hq, Hkv, Sq, Skv, D, kw):
+    """``attention_bwd_ref``'s written-out gradients against
+    ``torch.autograd`` of ``attention_ref`` and against ``jax.grad`` of the
+    reference's ``attention_ref``; ``ops.attention`` on CPU tensors under
+    autograd gives the same (its plain version, differentiated)."""
+    import jax
+
+    q, k, v, do = _bwd_inputs(B, Hq, Hkv, Sq, Skv, D, seed=Sq + Skv)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    o = ref.attention_ref(tq, tk, tv, **kw)
+    auto = torch.autograd.grad(o, (tq, tk, tv), torch.from_numpy(do))
+    got = ref.attention_bwd_ref(tq.detach(), tk.detach(), tv.detach(), o.detach(),
+                                torch.from_numpy(do), **kw)
+    _, vjp = jax.vjp(lambda a, b, c: j_ref.attention_ref(a, b, c, **kw),
+                     *(jnp.asarray(a) for a in (q, k, v)))
+    jgrads = vjp(jnp.asarray(do))
+    tq2, tk2, tv2 = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    ops.attention(tq2, tk2, tv2, **kw).backward(torch.from_numpy(do))
+    for name, g, a, j, t in zip(("dq", "dk", "dv"), got, auto, jgrads, (tq2, tk2, tv2)):
+        assert g.dtype == torch.float32 and g.shape == a.shape
+        _close(_f32(g), _f32(a), 2e-5)
+        _close(_f32(g), _f32(j), 2e-5)
+        assert torch.equal(t.grad, a), name
+    if kw.get("window") == 8:        # rows past Skv + window - 1 give nothing
+        assert (got[0][:, :, 20 + 8 - 1:] == 0).all()
+
+
+def test_bwd_ref_in_bfloat16_and_float64():
+    """bfloat16 inputs give bfloat16 gradients of the float32 arithmetic
+    (within 2e-2, tests/test_kernels_flash.py's bfloat16 tolerance), and
+    float64 inputs are differentiated in float64."""
+    q, k, v, do = _bwd_inputs(1, 4, 2, 30, 30, 32, seed=5)
+    kw = dict(causal=True, softcap=20.0)
+    t64 = [torch.from_numpy(a).double() for a in (q, k, v, do)]
+    want = ref.attention_bwd_ref(*t64[:3], ref.attention_ref(*t64[:3], **kw).double(),
+                                 t64[3], **kw)
+    assert all(w.dtype == torch.float64 for w in want)
+    tb = [t.to(torch.bfloat16) for t in t64]
+    got = ref.attention_bwd_ref(*tb[:3], ref.attention_ref(*tb[:3], **kw), tb[3], **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        _close(_f32(g), _f32(w), 2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,kw", BWD_CASES[1:4])
+def test_bwd_limit_holds_the_plain_version_and_catches_a_dropped_row(dtype, B, Hq, Hkv, Sq,
+                                                                    Skv, D, kw):
+    """``attention_bwd_limit``, the bound the card tests and chip_smoke.py
+    hold the backward kernel to: the plain version in the inputs' dtype
+    lies within it, and one with the first query row's output gradient
+    dropped (a kernel that skips a row) does not."""
+    q, k, v, do = (torch.from_numpy(a).to(dtype)
+                   for a in _bwd_inputs(B, Hq, Hkv, Sq, Skv, D, seed=Sq + D))
+    o = ref.attention_ref(q, k, v, **kw)
+    want64, want32, e32, limits = ref.attention_bwd_limit(q, k, v, o, do, **kw)
+    assert all(w.dtype == torch.float64 for w in want64)
+    assert all(e >= 0 for e in e32)
+    for g, w64, limit in zip(ref.attention_bwd_ref(q, k, v, o, do, **kw), want64, limits):
+        assert g.dtype == dtype and ((g.double() - w64).abs() <= limit).all()
+    dropped = do.clone()
+    dropped[:, :, 0] = 0
+    fault = ref.attention_bwd_ref(q.double(), k.double(), v.double(), o.double(),
+                                  dropped.double(), **kw)
+    assert any(((f - w64).abs() > limit).any() for f, w64, limit in zip(fault, want64, limits))
+
+
+def test_bwd_wrapper_refusals():
+    q = torch.zeros(1, 4, 8, 16)
+    k = torch.zeros(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="q's shape"):
+        ops.attention_bwd(q, k, k, q[:, :, :4], q)
+    with pytest.raises(ValueError, match="multiple"):
+        ops.attention_bwd(q, torch.zeros(1, 3, 8, 16), torch.zeros(1, 3, 8, 16), q, q)
+    meta = torch.zeros(1, 2, 8, 16, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        ops.attention_bwd(meta, meta, meta, meta, meta)
+    before = ops.attention_bwd.launches
+    dq, dk, dv = ops.attention_bwd(q, k, k, q, q)      # the plain version: no launch
+    assert ops.attention_bwd.launches == before and dq.shape == q.shape
