@@ -4,9 +4,11 @@ test (``chip_smoke.py``) does not take.
 Run from the root of a checkout, with one visible CUDA device:
 
     python3 card_probe.py [idle] [share] [price] [scratch] [flex] [psplit] [tf32] [count]
-                          [logits]
+                          [logits] [bwd] [lse] [step] [steptrace]
 
-(all nine when none is named).  Each prints one JSON line:
+(all when none is named; ``lse`` and ``step`` only with
+``CARD_PROBE_BASE`` set).
+Each prints one JSON line:
 
   idle   the device's idle share on the streaming path at the paper's
          Table 1 cohort: a ``torch.profiler`` trace (CUDA activity only) of
@@ -66,7 +68,30 @@ Run from the root of a checkout, with one visible CUDA device:
          each CPU run in float32 against float64; and whether the card's
          wave repeats bit for bit, alone and beside a thread that keeps
          matmuls running on another stream.  The CPU runs are subprocesses
-         of this script (``--logits-worker``) that read the weights it saved.
+         of this script (``--logits-worker``) that read the weights it saved;
+  lse    what the forward's log-sum-exp costs serving: the wgmma route at
+         both gemma2-2b layer shapes and the tf32x3 route at tspm-mlho's
+         prefill shape, each launched with a null log-sum-exp pointer (as
+         serving launches it), with the pointer (as training does) and as
+         the checkout at ``$CARD_PROBE_BASE`` builds it (its
+         ``flash_attention.cu``, compiled with the port's flags into
+         ``build/probes/``; a source whose entries take no log-sum-exp,
+         such as the commit before the pointer), timed in turns (base,
+         null, pointer, pointer, null, base), with ``o`` of the three
+         compared byte for byte;
+  bwd    each kernel's device time of ``flash_attention_bwd`` at
+         tspm-mlho's and gemma2-2b's training layers (the smoke's
+         ``BWD_MODEL_SHAPES``), from a ``torch.profiler`` trace taken first
+         in a fresh process (late in the smoke a trace keeps few events);
+  step   gemma2-2b's training step (the smoke's phase 10 (c): 3 steps at
+         full width under remat) run by this checkout and by the one at
+         ``$CARD_PROBE_BASE``, each in its own process, in turns (base,
+         this, this, base), each checkout's kernels built beforehand;
+  steptrace where that step's time goes: two warm steps, then one under
+         a ``torch.profiler`` trace (CUDA activity): the step's host wall,
+         the device's busy time (the union of its kernel, copy and memset
+         intervals) and idle share, and device ms by kernel family
+         (attention forward and backward, matmuls, the rest).
 
 ``psplit`` and ``tf32`` build ``csrc/flash_attention.cu`` once more with
 ``-DFLASH_PROBES`` into ``build/probes/``, and ``count`` builds
@@ -467,6 +492,171 @@ def probe_tf32(torch) -> dict:
     return out
 
 
+@functools.cache
+def base_entries() -> dict:
+    """The forward's wgmma and tf32x3 entries as ``$CARD_PROBE_BASE``'s
+    ``flash_attention.cu`` has them (no log-sum-exp pointer), built with
+    the port's flags into ``build/probes/``."""
+    import subprocess
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops
+
+    src = os.path.join(os.environ["CARD_PROBE_BASE"], "src/repro_torch/csrc/flash_attention.cu")
+    dest = _build.PROBE_DIR / "flash_attention-base.so"
+    dest.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(dest), src],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed on {src}: {proc.stdout}{proc.stderr}")
+    dll = ctypes.CDLL(str(dest))
+    out = {}
+    for route in ("wgmma", "tf32x3"):
+        name, argtypes = ops.ENTRIES[route]
+        fn = getattr(dll, name)
+        fn.argtypes, fn.restype = argtypes[:4] + argtypes[5:], ctypes.c_int
+        out[route] = fn
+    return out
+
+
+def probe_lse(torch) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
+
+    dev = torch.device("cuda", 0)
+    (gq, gk, gv), layers = gemma_layers(torch, dev)
+    cfg = get_config("tspm-mlho")
+    gen = torch.Generator(dev).manual_seed(1)
+    tq, tk, tv = (torch.randn(smoke.LM_BATCH, H, smoke.LM_PROMPT_LEN, cfg.hd, generator=gen,
+                              device=dev) for H in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    cases = [(f"gemma2_{name}", (gq, gk, gv), dict(causal=True, window=w, softcap=c))
+             for name, w, c in layers]
+    cases.append(("tspm_mlho", (tq, tk, tv), dict(causal=True, window=None, softcap=None)))
+    out = {"card": smoke.smi(), "base": os.environ["CARD_PROBE_BASE"]}
+    for name, (q, k, v), kw in cases:
+        route = ops.route(q.dtype, q.shape[3])
+        outs = {n: torch.empty_like(q) for n in ("base", "null", "pointer")}
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
+        scratch = torch.empty(ops.tf32x3_scratch_elems(k.shape), dtype=torch.float32,
+                              device=dev) if route == "tf32x3" else None
+
+        def base():
+            ptrs, mask = ops.entry_args(q, k, v, outs["base"], **kw)
+            extra = [scratch.data_ptr()] if scratch is not None else []
+            rc = base_entries()[route](*ptrs[:4], *ptrs[5:], *extra, *mask,
+                                       torch.cuda.current_stream(dev).cuda_stream)
+            if rc:
+                raise RuntimeError(f"base {route}: CUDA error {rc}")
+
+        calls = {"base": base,
+                 "null": lambda: ops._launch(q, k, v, outs["null"], scratch=scratch, **kw),
+                 "pointer": lambda: ops._launch(q, k, v, outs["pointer"], scratch=scratch,
+                                                lse=lse, **kw)}
+        turns = smoke.in_turns(torch, calls, 20)
+        out[name] = {"route": route, "shape": f"q {list(q.shape)} k {list(k.shape)} {kw}",
+                     **{f"{n}_ms": t for n, t in turns.items()},
+                     "o_identical": all(torch.equal(outs["base"], outs[n])
+                                        for n in ("null", "pointer"))}
+    return out
+
+
+def probe_bwd(torch) -> dict:
+    from repro_torch.kernels.flash_attention import ops
+
+    dev = torch.device("cuda", 0)
+    out = {"card": smoke.smi()}
+    for name, (shape, dtype, kw) in smoke.BWD_MODEL_SHAPES.items():
+        q, k, v, do = smoke.bwd_inputs(torch, dev, shape, dtype, 11)
+        o, lse = ops.attention(q, k, v, return_lse=True, **kw)
+        route = ops.bwd_route(q.dtype, shape[5])
+        dev_ms = smoke.kernel_device_ms(
+            torch, lambda: ops.attention_bwd(q, k, v, o, do, lse, **kw), 20)
+        by_kernel = {n: sum(t for kn, t in dev_ms.items() if f"{n}_kernel" in kn)
+                     for n in ops.BWD_KERNELS[route]}
+        out[name] = {"route": route, "device_ms": by_kernel,
+                     "device_sum_ms": sum(by_kernel.values()),
+                     "event_ms": smoke.cuda_ms(
+                         torch, lambda: ops.attention_bwd(q, k, v, o, do, lse, **kw), 20),
+                     "profiler_kernels": sorted(dev_ms)}
+    return out
+
+
+def probe_step(torch) -> dict:
+    import subprocess
+
+    here, base = str(smoke.ROOT), os.path.abspath(os.environ["CARD_PROBE_BASE"])
+    code = ("import json, sys, torch; sys.path.insert(0, 'src'); import chip_smoke; "
+            "print('STEP ' + json.dumps(chip_smoke.check_gemma_training("
+            "torch, torch.device('cuda', 0))))")
+
+    def run(root: str, what: str) -> str:
+        env = {**os.environ, "PYTHONPATH": os.path.join(root, "src")}
+        proc = subprocess.run([sys.executable, "-c", what], cwd=root, env=env,
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode:
+            raise RuntimeError(f"{root}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+        return proc.stdout
+
+    for root in (base, here):
+        run(root, "from repro_torch.kernels import _build; _build.build_all()")
+    out = {"card": smoke.smi(), "base": base, "base_steps": [], "this_steps": []}
+    for root, key in ((base, "base_steps"), (here, "this_steps"), (here, "this_steps"),
+                      (base, "base_steps")):
+        line = [ln for ln in run(root, code).splitlines() if ln.startswith("STEP ")][-1]
+        r = json.loads(line[5:])
+        out[key].append({k: r[k] for k in ("step_s", "losses", "launches",
+                                           "peak_device_bytes")})
+    return out
+
+
+def probe_steptrace(torch) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.training import optimizer as opt_lib, train_loop
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config("gemma2-2b")
+    mdl = model_lib.build(cfg)
+    state = train_loop.init_state(mdl, torch.Generator(dev).manual_seed(smoke.SEED))
+    toks = np.random.default_rng(smoke.SEED).integers(
+        4, cfg.vocab_size, (1, smoke.GEMMA_TRAIN_SEQ + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "loss_mask": np.ones((1, smoke.GEMMA_TRAIN_SEQ), bool)}
+    step = train_loop.make_train_step(mdl, opt_lib.OptConfig(
+        peak_lr=smoke.GEMMA_TRAIN_LR, warmup_steps=0, decay_steps=100))
+    for _ in range(2):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        dev_int = smoke.device_intervals(path)
+    families = {"attention_bwd": ("bwd_wgmma_kernel", "prepass_kernel", "dq_kernel",
+                                  "dkv_kernel"),
+                "attention_fwd": ("flash_wgmma_kernel", "flash_tf32x3_kernel",
+                                  "flash_kernel", "tf32x3_split_kernel"),
+                "matmul": ("gemm", "xmma", "cutlass", "nvjet")}
+    by_family = dict.fromkeys((*families, "other"), 0.0)
+    for name, us in dev_int["by_kernel"].items():
+        fam = next((f for f, keys in families.items() if any(k in name for k in keys)),
+                   "other")
+        by_family[fam] += us / 1e3
+    busy = union_us(dev_int["spans"]) / 1e3
+    top = sorted(dev_int["by_kernel"].items(), key=lambda kv: -kv[1])[:8]
+    return {"card": smoke.smi(), "wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "idle_share": 1 - busy / (wall * 1e3), "device_ms_by_family": by_family,
+            "device_ms_by_category": {k: v / 1e3 for k, v in dev_int["by_cat"].items()},
+            "top_kernels_ms": [(n[:120], us / 1e3) for n, us in top],
+            "loss": float(metrics["loss"])}
+
+
 def count_kernels(torch, calls: dict, tables: dict, want) -> dict:
     """Turns of each kernel, their tables against ``want``, and each one's
     device time by kernel from a profiler trace."""
@@ -640,7 +830,12 @@ def main(argv: list[str]) -> int:
     _build.build_all()
     probes = {"idle": probe_idle, "share": probe_share, "price": probe_price,
               "scratch": probe_scratch, "flex": probe_flex, "psplit": probe_psplit,
-              "tf32": probe_tf32, "count": probe_count, "logits": probe_logits}
+              "tf32": probe_tf32, "count": probe_count, "logits": probe_logits,
+              "bwd": probe_bwd, "lse": probe_lse, "step": probe_step,
+              "steptrace": probe_steptrace}
+    if not argv and "CARD_PROBE_BASE" not in os.environ:
+        probes.pop("lse")
+        probes.pop("step")
     for name in argv or list(probes):
         t0 = time.perf_counter()
         result = probes[name](torch)

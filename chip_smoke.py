@@ -71,7 +71,7 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with
      frame chain's, the predicate op timed alone, and every byte of device
      memory the server took given back when it goes;
   5. holds the session on the card against the session on the CPU (plain
-     versions) on the first 256 patients, byte for byte, for every engine
+     versions) on the first 128 patients, byte for byte, for every engine
      (batch, chunked, files) under every screen (sorted, hash, fused), and
      for a 3-wave stream replay under a budget that evicts through the
      host and disk tiers (same rows, table and tier placement), and the
@@ -194,8 +194,8 @@ THRESHOLD = 5
 H_DEFAULT = 20                 # MiningConfig.n_buckets_log2
 BUDGET_BYTES = 4 << 30         # budget_bytes of the chunked/files/fused runs
 SMALL_BUDGET_BYTES = 512 << 20  # ... of a second chunked run (many small chunks)
-CHECK_BUDGET_BYTES = 64 << 20  # ... of the card-vs-CPU runs (several chunks)
-CHECK_DISK_BYTES = 32 << 20    # disk_bytes of the card-vs-CPU stream run
+CHECK_BUDGET_BYTES = 32 << 20  # ... of the card-vs-CPU runs (several chunks)
+CHECK_DISK_BYTES = 16 << 20    # disk_bytes of the card-vs-CPU stream run
 STREAM_WAVES = 8               # deltas a patient in the replays of phase 8
 STREAM_BUDGET_BYTES = 1 << 30  # budget_bytes of phase 8's evicting replay
 # patients of the evicting replay (the cohort's first quarter, 78 ticks a
@@ -204,7 +204,10 @@ STREAM_BUDGET_BYTES = 1 << 30  # budget_bytes of phase 8's evicting replay
 # restores through the host tier
 STREAM_BUDGET_PATIENTS = 1248
 FUSED_PASS_LIMIT = 10**9       # the corpus-free counting pass's peak (1 GB)
-CHECK_PATIENTS = 256
+# phase 5's cohort, with both budgets above sized to it so that every
+# tier is still used: at 256 patients the phase's CPU side took 110-224 s
+# of a smoke that read up to 1,021 s of its 1,200 s limit on a slow host
+CHECK_PATIENTS = 128
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 INT_OPS_PER_S = 67e12          # H100 SXM non-tensor 32-bit rate (data sheet fp32)
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores (FFMA)
@@ -227,6 +230,11 @@ FLASH_TOL = 2e-5               # float32: atol = rtol, tests/test_kernels_flash.
 # 2e-2 + 2e-2 |want| is near |want| itself at S = 8,192, where the median
 # |want| is ~2e-2
 BF16_REL = 2.0 ** -6
+# the forward's log-sum-exp against the plain version's (float32 on every
+# route): 2e-5 + 2e-5 |want|, the float32 output's limit.  The kernels'
+# scores differ from the plain version's by float32 sums in another order
+# (3xTF32's ~2^-22 a product on tf32x3), and exp2 / log2 by 2^-22
+LSE_TOL = 2e-5
 LM_PROMPT_LEN, LM_NEW_TOKENS, LM_REQUESTS = 896, 64, 16   # phase 9, tspm-mlho
 LM_BATCH, LM_MAX_LEN = 8, 1024
 GEMMA_PROMPT_LEN, GEMMA_NEW_TOKENS, GEMMA_REQUESTS = 8192, 8, 2
@@ -669,12 +677,28 @@ def bf16_reading(torch, got, want, case: str) -> dict:
     return r
 
 
+def lse_err(torch, got, want, case: str) -> float:
+    """Largest |got - want| of a log-sum-exp over the rows that see a key;
+    raises unless those are within ``LSE_TOL`` + ``LSE_TOL`` |want| and the
+    others are +inf in both."""
+    seen = torch.isfinite(want)
+    diff = (got[seen] - want[seen]).abs()
+    bad = (diff > LSE_TOL + LSE_TOL * want[seen].abs()).sum().item()
+    require(got.dtype == torch.float32 and got.shape == want.shape and not bad
+            and bool((got[~seen] == torch.inf).all()),
+            f"{case}: the log-sum-exp differs from the plain version's ({bad} beyond the "
+            f"limit, max |diff| {diff.max().item() if diff.numel() else 0.0})")
+    return diff.max().item() if diff.numel() else 0.0
+
+
 def check_flash_kernel(torch, dev) -> tuple[dict, int, list, dict]:
     """Phase 3 for ``flash_attention``: the kernels against
     ``attention_ref`` on the card at every edge case within ``flash_limit``,
     each case through the route ``ops.route`` names for it, with each
-    bfloat16 case's reading (``bf16_reading``); an empty batch launches
-    nothing.  Returns the largest differences, the comparisons, the
+    bfloat16 case's reading (``bf16_reading``); each case once more with
+    the log-sum-exp, whose ``o`` must be the same bytes and whose lse must
+    be the plain version's within ``LSE_TOL`` (``lse_err``); an empty batch
+    launches nothing.  Returns the largest differences, the comparisons, the
     readings and the comparisons by route."""
     from repro_torch.kernels.flash_attention import ops as flash_ops, ref as flash_ref
 
@@ -690,12 +714,20 @@ def check_flash_kernel(torch, dev) -> tuple[dict, int, list, dict]:
             got = flash_ops.attention(q, k, v, **kw)
             require(flash_ops.attention.route_launches[route] == before + 1,
                     f"{dtype} D={D} did not launch the {route} route")
-            want = flash_ref.attention_ref(q, k, v, **kw)
+            o_lse, lse = flash_ops.attention(q, k, v, return_lse=True, **kw)
+            require(flash_ops.attention.route_launches[route] == before + 2,
+                    f"{dtype} D={D} with its log-sum-exp did not launch the {route} route")
+            want, want_lse = flash_ref.attention_ref(q, k, v, return_lse=True, **kw)
             e = flash_err(torch, got, want, dtype)
+            require(torch.equal(got, o_lse),
+                    f"{route} {[B, Hq, Hkv, Sq, Skv, D]} {kw}: o differs with the log-sum-exp")
+            e_lse = lse_err(torch, lse, want_lse, f"{route} {[B, Hq, Hkv, Sq, Skv, D]} {kw}")
             err[dtype] = max(err[dtype], e)
-            r = routes.setdefault(route, {"comparisons": 0, "max_abs_err": 0.0})
+            r = routes.setdefault(route, {"comparisons": 0, "max_abs_err": 0.0,
+                                          "lse_max_abs_err": 0.0})
             r["comparisons"] += 1
             r["max_abs_err"] = max(r["max_abs_err"], e)
+            r["lse_max_abs_err"] = max(r["lse_max_abs_err"], e_lse)
             if dtype == "bfloat16":
                 readings.append(bf16_reading(
                     torch, got, want, f"{[B, Hq, Hkv, Sq, Skv, D]} {kw}"))
@@ -805,7 +837,8 @@ def launch_counters() -> dict:
             "flash_attention_bwd": flash_ops.attention_bwd}
 
 
-ROUTED = ("seq_hist", "flash_attention")      # kernels that count launches by route
+# kernels that count launches by route
+ROUTED = ("seq_hist", "flash_attention", "flash_attention_bwd")
 
 
 def zero_launches() -> None:
@@ -819,8 +852,9 @@ def zero_launches() -> None:
 
 
 def read_launches() -> dict:
-    """Each kernel's launches, and ``seq_hist``'s and ``flash_attention``'s
-    by route (``seq_hist.partitioned``, ``flash_attention.wgmma``, ...)."""
+    """Each kernel's launches, and those of ``ROUTED`` by route
+    (``seq_hist.partitioned``, ``flash_attention.wgmma``,
+    ``flash_attention_bwd.wgmma``, ...)."""
     counters = launch_counters()
     out = {name: fn.launches for name, fn in counters.items()}
     for name in ROUTED:
@@ -1131,7 +1165,7 @@ def check_card_vs_cpu(torch, db, device) -> dict:
 
 
 def check_live_serving_card_vs_cpu(db, device) -> dict:
-    """Phase 5 live serving: an 8-wave replay of the 256 patients on a
+    """Phase 5 live serving: an 8-wave replay of the 128 patients on a
     stream session with ``screen='hash'`` and a server built before the
     first submit, streaming the features of the 64 most supported ids of
     the batch frame.  After each wave the 24-plan pool is queried at once
@@ -2289,8 +2323,10 @@ def visible_pairs(Sq: int, Skv: int, causal: bool, window: int | None) -> int:
 def time_flash(torch, q, k, v, *, causal, window, softcap, sdpa: bool,
                beside: str | None = None) -> dict:
     """``flash_attention`` on ``q/k/v [B,H,S,D]`` with CUDA events: the
-    launch alone into an allocated output (the route ``ops.route`` names;
-    with ``beside``, that route too at the same shape, timed in turns),
+    launch alone into an allocated output (the route ``ops.route`` names,
+    with a null log-sum-exp pointer as serving launches it), in turns with
+    the same launch writing the log-sum-exp (``ms_lse``, training's form)
+    and, with ``beside``, that route at the same shape,
     the plain version, and (where it computes the same function: no
     softcap, no window) one ``scaled_dot_product_attention`` call as the
     yardstick.  The bound is the larger of q, k, v and o over 3.35 TB/s and
@@ -2311,7 +2347,9 @@ def time_flash(torch, q, k, v, *, causal, window, softcap, sdpa: bool,
     outs = {r: torch.empty_like(q) for r in (route, beside) if r}
     calls = {r: (lambda r=r: flash_ops._launch(q, k, v, outs[r], force_route=r, **kw))
              for r in outs}
-    turns = in_turns(torch, calls) if beside else {route: [cuda_ms(torch, calls[route], 10)]}
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    calls["lse"] = lambda: flash_ops._launch(q, k, v, torch.empty_like(q), lse=lse, **kw)
+    turns = in_turns(torch, calls)
     ms = {r: sum(t) / len(t) for r, t in turns.items()}
     dtype = str(q.dtype).removeprefix("torch.")
     want = flash_ref.attention_ref(q, k, v, **kw)
@@ -2339,7 +2377,8 @@ def time_flash(torch, q, k, v, *, causal, window, softcap, sdpa: bool,
                             else 4 * D * pairs / BF16_OPS_PER_S) * 1e3}
     by = max(bound, key=bound.get)
     split = max(bound["bytes"], 1.5 * bound["operations"]) if route == "wgmma" else None
-    r = {"route": route, "ms": ms[route], "ms_turns": turns[route], "plain_ms": plain,
+    r = {"route": route, "ms": ms[route], "ms_turns": turns[route],
+         "ms_lse": ms["lse"], "ms_lse_turns": turns["lse"], "plain_ms": plain,
          "library_ms": lib, "bound_ms": bound[by], "bound_by": by,
          "bound_split_ms": split, "max_abs_err": errs[route], "bf16_reading": reading,
          "visible_pairs": pairs,
@@ -2380,8 +2419,13 @@ def flash_bwd_edge_cases():
     """(B, Hq, Hkv, Sq, Skv, D, options) of the backward's checks: one-row
     and ragged tiles (S = 1/127/128/129), Sq != Skv causal and not, every
     head width, GQA groups 1, 2, 3 and 8, windows 1 and 16, softcap 50 (with
-    a window at D = 256, where the kernel takes 32-key tiles), and rows that
-    see no key (non-causal with a window, Sq > Skv)."""
+    a window at D = 256, where the ffma route takes 32-key tiles), and rows
+    that see no key (non-causal with a window, Sq > Skv).  Then the wgmma
+    route's own edges (bfloat16 at D 64/128/256, 128-row resident tiles,
+    32- or 64-row streamed tiles): at each width S = 1/63/127/128/129/1,000
+    and Sq != Skv causal and not; at D = 256 GQA groups 1, 2, 4 and 8,
+    windows 1 and 300 with softcap 50, and rows that see no key.  Each case
+    runs in float32 (the ffma route) and bfloat16."""
     for S in (1, 127, 128, 129):
         yield 2, 4, 2, S, S, 64, dict(causal=True)
     for Sq, Skv in ((100, 260), (260, 100)):
@@ -2396,6 +2440,17 @@ def flash_bwd_edge_cases():
     yield 1, 4, 2, 200, 200, 128, dict(causal=True, softcap=50.0)
     yield 1, 4, 2, 300, 300, 256, dict(causal=True, window=64, softcap=50.0)
     yield 1, 4, 2, 96, 40, 64, dict(causal=False, window=16)
+    for D in (64, 128, 256):
+        for S in (1, 63, 127, 128, 129, 1000):
+            yield 1, 4, 2, S, S, D, dict(causal=True)
+        for Sq, Skv in ((63, 1000), (1000, 129)):
+            for causal in (True, False):
+                yield 1, 4, 2, Sq, Skv, D, dict(causal=causal)
+    for Hkv in (8, 4, 2, 1):
+        yield 1, 8, Hkv, 200, 200, 256, dict(causal=True)
+    for window in (1, 300):
+        yield 1, 4, 2, 700, 700, 256, dict(causal=True, window=window, softcap=50.0)
+    yield 1, 4, 2, 96, 40, 256, dict(causal=False, window=16)
 
 
 def bwd_inputs(torch, dev, shape, dtype: str, seed: int):
@@ -2420,7 +2475,8 @@ def bwd_reading(torch, got, q, k, v, o, do, kw) -> dict:
     want64, want32, e32s, limits = flash_ref.attention_bwd_limit(q, k, v, o, do, **kw)
     t64 = [t.double() for t in (q, k, v, o, do)]
     t64[4][:, :, 0] = 0
-    fault = flash_ref.attention_bwd_ref(*t64, **kw)
+    fault = flash_ref.attention_bwd_ref(*t64, flash_ref.attention_lse_ref(*t64[:2], **kw),
+                                        **kw)
     out = {}
     for name, g, w32, w64, f, e32, limit in zip(("dq", "dk", "dv"), got, want32, want64,
                                                 fault, e32s, limits):
@@ -2441,69 +2497,80 @@ def bwd_reading(torch, got, q, k, v, o, do, kw) -> dict:
 
 def check_flash_bwd_kernel(torch, dev) -> dict:
     """Phase 3b for ``flash_attention_bwd``: each build's registers, spill
-    and shared memory (once), the kernel against the plain version at every
-    edge case in both dtypes and at tspm-mlho's and gemma2-2b's training
-    shapes (each run twice: identical bytes), one count a call."""
+    and shared memory (once; every kernel of the wgmma route must spill
+    nothing), the kernel against the plain version at every edge case in
+    both dtypes and at tspm-mlho's and gemma2-2b's training shapes, each
+    call through the route ``ops.bwd_route`` names (one count a call) with
+    the log-sum-exp the forward wrote, each run twice: identical bytes."""
     from repro_torch.kernels.flash_attention import ops as flash_ops, ref as flash_ref
 
     info = {f"{dt} D={D}": flash_ops.bwd_kernel_info(getattr(torch, dt), D)
             for dt in ("float32", "bfloat16") for D in flash_ops.HEAD_DIMS}
     print(f"phase 3b flash_attention_bwd builds: {json.dumps(info)}", flush=True)
-    cases, worst = [], {}
+    for build, kernels in info.items():
+        if "bwd_wgmma" in kernels:
+            require(all(k["local_bytes"] == 0 for k in kernels.values()),
+                    f"flash_attention_bwd's wgmma route spills at {build}: {kernels}")
+    cases, worst, routes = [], {}, {}
+
+    def check(shape, dtype, kw, seed):
+        q, k, v, do = bwd_inputs(torch, dev, shape, dtype, seed)
+        o, lse = flash_ops.attention(q, k, v, return_lse=True, **kw)
+        route = flash_ops.bwd_route(q.dtype, shape[5])
+        before = flash_ops.attention_bwd.route_launches[route]
+        got = flash_ops.attention_bwd(q, k, v, o, do, lse, **kw)
+        again = flash_ops.attention_bwd(q, k, v, o, do, lse, **kw)
+        torch.cuda.synchronize()
+        require(flash_ops.attention_bwd.route_launches[route] == before + 2,
+                f"{shape} {dtype}: a backward call did not launch the {route} route")
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"{shape} {dtype} {kw}: two backward runs differ")
+        r = bwd_reading(torch, got, q, k, v, o, do, kw)
+        for n, x in r.items():
+            w = worst.setdefault(f"{route} {dtype} {n}", {"ratio": 0.0, "max_abs_err": 0.0})
+            w["ratio"] = max(w["ratio"], x["ratio"])
+            w["max_abs_err"] = max(w["max_abs_err"], x["max_abs_err"])
+        routes[route] = routes.get(route, 0) + 1
+        return route, r
+
     for i, (B, Hq, Hkv, Sq, Skv, D, kw) in enumerate(flash_bwd_edge_cases()):
         for dtype in ("float32", "bfloat16"):
-            q, k, v, do = bwd_inputs(torch, dev, (B, Hq, Hkv, Sq, Skv, D), dtype, i)
-            o = flash_ops.attention(q, k, v, **kw)
-            before = flash_ops.attention_bwd.launches
-            got = flash_ops.attention_bwd(q, k, v, o, do, **kw)
-            require(flash_ops.attention_bwd.launches == before + 1, "a backward call not counted")
-            r = bwd_reading(torch, got, q, k, v, o, do, kw)
+            route, r = check((B, Hq, Hkv, Sq, Skv, D), dtype, kw, i)
             cases.append({"case": [B, Hq, Hkv, Sq, Skv, D], "kw": kw, "dtype": dtype,
-                          **{n: [round(x["ratio"], 4), round(x["fault_ratio"], 2)]
-                             for n, x in r.items()}})
-            for n, x in r.items():
-                w = worst.setdefault(f"{dtype} {n}", {"ratio": 0.0, "max_abs_err": 0.0})
-                w["ratio"] = max(w["ratio"], x["ratio"])
-                w["max_abs_err"] = max(w["max_abs_err"], x["max_abs_err"])
+                          "route": route, **{n: [round(x["ratio"], 4), round(x["fault_ratio"], 2)]
+                                             for n, x in r.items()}})
     print(f"phase 3b flash_attention_bwd cases ([ratio to limit, fault's ratio] per "
           f"tensor): {json.dumps(cases)}", flush=True)
     models = {}
     for name, (shape, dtype, kw) in BWD_MODEL_SHAPES.items():
-        q, k, v, do = bwd_inputs(torch, dev, shape, dtype, 7)
-        o = flash_ops.attention(q, k, v, **kw)
-        got = flash_ops.attention_bwd(q, k, v, o, do, **kw)
-        again = flash_ops.attention_bwd(q, k, v, o, do, **kw)
-        torch.cuda.synchronize()
-        require(all(torch.equal(a, b) for a, b in zip(got, again)),
-                f"{name}: two backward runs differ")
-        models[name] = bwd_reading(torch, got, q, k, v, o, do, kw)
-        for n, x in models[name].items():
-            w = worst.setdefault(f"{dtype} {n}", {"ratio": 0.0, "max_abs_err": 0.0})
-            w["ratio"] = max(w["ratio"], x["ratio"])
-            w["max_abs_err"] = max(w["max_abs_err"], x["max_abs_err"])
-        del q, k, v, do, o, got, again
+        models[name] = check(shape, dtype, kw, 7)[1]
     torch.cuda.empty_cache()
-    out = {"comparisons": len(cases) + len(models), "worst": worst, "models": models,
-           "repeat_identical": True, "factor": flash_ref.BWD_ERR_FACTOR,
+    require(set(routes) == set(flash_ops.BWD_ROUTES), f"the edge cases miss a route: {routes}")
+    out = {"comparisons": len(cases) + len(models), "by_route": routes, "worst": worst,
+           "models": models, "repeat_identical": True, "factor": flash_ref.BWD_ERR_FACTOR,
            "bf16_rel": flash_ref.BWD_BF16_REL,
-           "max_abs_err": max(w["max_abs_err"] for w in worst.values())}
+           "max_abs_err": max(w["max_abs_err"] for w in worst.values()),
+           "max_abs_err_by_route": {r: max(w["max_abs_err"] for k, w in worst.items()
+                                           if k.startswith(r + " ")) for r in routes}}
     print(f"phase 3b flash_attention_bwd: {json.dumps(out)}", flush=True)
     return out
 
 
 def time_flash_bwd(torch, dev, name: str) -> dict:
     """The backward at a model's training shape (``BWD_MODEL_SHAPES``):
-    ``ops.attention_bwd`` with CUDA events (its three launches and the
-    scratch), each kernel's device time from a profiler trace, the plain
-    version, and ``scaled_dot_product_attention``'s backward at the same
-    shape as a yardstick (gemma2-2b's without the softcap, which it does not
-    take).  Late in the smoke a trace keeps only part of the kernels' events
-    (on one H100 their sum came to 29% of the CUDA-event time, the
-    forward's tf32x3 pair to 43%), so each kernel's share of the sum is printed
-    beside its reading.  Bound: 10*D flops a visible pair plus 2*D for the pre-pass's
-    recompute, at the float32 tensor-core rate as 3xTF32 (three TF32
-    products each) or the bf16 rate, or the bytes (q, k, v, o, do read, dq,
-    dk, dv written) over 3.35 TB/s if larger; ``bound_ffma_ms`` the same
+    ``ops.attention_bwd`` with CUDA events (its launches and the scratch),
+    given the forward's log-sum-exp, each kernel's device time from a
+    profiler trace, the plain version, and
+    ``scaled_dot_product_attention``'s backward at the same shape as a
+    yardstick (gemma2-2b's without the softcap, which it does not take).
+    Late in the smoke a trace keeps only part of the kernels' events (on
+    one H100 their sum came to 29% of the CUDA-event time, the forward's
+    tf32x3 pair to 43%), so each kernel's share of the sum is printed
+    beside its reading.  Bound: 10*D flops a visible pair (s, dp, dv, dq,
+    dk; nothing is recomputed on the bound's side), at the float32
+    tensor-core rate as 3xTF32 (three TF32 products each) or the bf16 rate,
+    or the bytes (q, k, v, o, do and the log-sum-exp read, dq, dk, dv
+    written) over 3.35 TB/s if larger; ``bound_ffma_ms`` the same
     operations at the FFMA rate."""
     import torch.nn.functional as F
 
@@ -2512,27 +2579,28 @@ def time_flash_bwd(torch, dev, name: str) -> dict:
     shape, dtype, kw = BWD_MODEL_SHAPES[name]
     B, Hq, Hkv, Sq, Skv, D = shape
     q, k, v, do = bwd_inputs(torch, dev, shape, dtype, 11)
-    o = flash_ops.attention(q, k, v, **kw)
-    call = lambda: flash_ops.attention_bwd(q, k, v, o, do, **kw)  # noqa: E731
+    o, lse = flash_ops.attention(q, k, v, return_lse=True, **kw)
+    route = flash_ops.bwd_route(q.dtype, D)
+    call = lambda: flash_ops.attention_bwd(q, k, v, o, do, lse, **kw)  # noqa: E731
     ms = [cuda_ms(torch, call, 10) for _ in range(2)]
     dev_ms = kernel_device_ms(torch, call, 10)
     by_kernel = {n: sum(t for kn, t in dev_ms.items() if f"{n}_kernel" in kn)
-                 for n in flash_ops.BWD_KERNELS}
-    plain = cuda_ms(torch, lambda: flash_ref.attention_bwd_ref(q, k, v, o, do, **kw), 2)
+                 for n in flash_ops.BWD_KERNELS[route]}
+    plain = cuda_ms(torch, lambda: flash_ref.attention_bwd_ref(q, k, v, o, do, lse, **kw), 2)
     qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
     so = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True, enable_gqa=True)
     lib = cuda_ms(torch, lambda: torch.autograd.grad(so, (qr, kr, vr), do,
                                                      retain_graph=True), 10)
     pairs = B * Hq * visible_pairs(Sq, Skv, kw["causal"], kw.get("window"))
-    flops = 12 * D * pairs
-    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, o, do)) \
+    flops = 10 * D * pairs
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, o, do, lse)) \
         + sum(t.numel() * t.element_size() for t in (q, k, v))
     f32 = dtype == "float32"
     bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
              "operations": (3 * flops / TF32_OPS_PER_S if f32 else flops / BF16_OPS_PER_S) * 1e3}
     by = max(bound, key=bound.get)
     total = sum(by_kernel.values())
-    r = {"ms": sum(ms) / len(ms), "ms_runs": ms, "device_ms": by_kernel,
+    r = {"kernel_route": route, "ms": sum(ms) / len(ms), "ms_runs": ms, "device_ms": by_kernel,
          "device_share": {n: t / total if total else None for n, t in by_kernel.items()},
          "plain_ms": plain, "library_ms": lib, "library_same_function": "softcap" not in kw
          or kw["softcap"] is None, "bound_ms": bound[by], "bound_by": by,
@@ -2540,7 +2608,9 @@ def time_flash_bwd(torch, dev, name: str) -> dict:
          "visible_pairs": pairs,
          "shape": f"q {[B, Hq, Sq, D]} k/v {[B, Hkv, Skv, D]} {dtype} {kw}"}
     print(f"phase 3b flash_attention_bwd timing ({name}): {json.dumps(r)}", flush=True)
-    del q, k, v, do, o, qr, kr, vr, so
+    require(r["ms"] < plain, f"flash_attention_bwd at {name} is slower than its plain "
+                             f"version: {r['ms']} ms against {plain} ms")
+    del q, k, v, do, o, lse, qr, kr, vr, so
     torch.cuda.empty_cache()
     return r
 
@@ -2951,7 +3021,8 @@ def check_train_card_vs_cpu(torch, dev) -> dict:
            "seq": TRAIN_SEQ, "steps": steps, "grad_share_max": max(share.values()),
            "grad_share_worst": max(share, key=share.get), "rtol": TRAIN_RTOL,
            "grad_share_limit": TRAIN_GRAD_SHARE, "s": time.perf_counter() - t0,
-           "launches": {k: launches[k] for k in ("flash_attention", "flash_attention_bwd")}}
+           "launches": {k: launches[k] for k in ("flash_attention", "flash_attention_bwd",
+                                                 "flash_attention_bwd.ffma")}}
     print(f"phase 10 (a, card vs CPU): {json.dumps(out)}", flush=True)
     require(all(m["rel"] <= TRAIN_RTOL for s in steps for m in s.values()),
             "phase 10 (a): a step's loss, ce or grad norm differs from the CPU's")
@@ -2959,7 +3030,7 @@ def check_train_card_vs_cpu(torch, dev) -> dict:
             f"phase 10 (a): step 1's gradient of {out['grad_share_worst']} differs")
     passes = 1 + TRAIN_CHECK_STEPS                    # the gradient pass + the steps
     require(launches["flash_attention_bwd"] == cfg.n_layers * passes
-            == launches["flash_attention"],
+            == launches["flash_attention"] == launches["flash_attention_bwd.ffma"],
             f"phase 10 (a): {launches} attention launches on the card")
     del card, cpu, params
     torch.cuda.empty_cache()
@@ -3032,7 +3103,8 @@ def check_gemma_training(torch, dev) -> dict:
     """Phase 10 (c): gemma2-2b at full width (26 layers, bf16 parameters,
     float32 moments) takes 3 steps on one batch of 1 x 2,048 random tokens,
     every block checkpointed (``remat="dots"``, ``torch.utils.checkpoint``);
-    the loss must be finite and fall, with 26 backward launches a step."""
+    the loss must be finite and fall, with 26 backward launches a step, all
+    on the wgmma route."""
     from repro_torch.configs import get_config
     from repro_torch.models import model as model_lib
     from repro_torch.training import optimizer as opt_lib, train_loop
@@ -3062,12 +3134,13 @@ def check_gemma_training(torch, dev) -> dict:
            "step_s": times, "tokens_per_s": GEMMA_TRAIN_SEQ / (sum(times[1:]) / (len(times) - 1)),
            "peak_device_bytes": torch.cuda.max_memory_allocated(),
            "launches": {k: launches[k] for k in ("flash_attention", "flash_attention_bwd",
-                                                 "flash_attention.wgmma")}}
+                                                 "flash_attention.wgmma",
+                                                 "flash_attention_bwd.wgmma")}}
     print(f"phase 10 (c, gemma2-2b): {json.dumps(out)}", flush=True)
     require(all(np.isfinite(losses)) and losses[-1] < losses[0],
             f"phase 10 (c): gemma2-2b's loss is not finite and falling: {losses}")
-    require(launches["flash_attention_bwd"] == cfg.n_layers * GEMMA_TRAIN_STEPS,
-            f"phase 10 (c): {launches}")
+    require(launches["flash_attention_bwd"] == launches["flash_attention_bwd.wgmma"]
+            == cfg.n_layers * GEMMA_TRAIN_STEPS, f"phase 10 (c): {launches}")
     del state
     torch.cuda.empty_cache()
     return out
@@ -3102,28 +3175,38 @@ def flash_rows(routes: dict, lm: dict, timing: dict) -> list:
                      "max_abs_err": max(routes[route]["max_abs_err"], t["max_abs_err"]),
                      "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                     "ms_lse": None if route == "ffma" else t["ms_lse"],
                      "shape": t["shape"], **extra})
     return rows
 
 
-def flash_bwd_row(bwd: dict, timing: dict, train: dict) -> dict:
-    """The ``kernels`` line's row of ``flash_attention_bwd``: timed at
-    tspm-mlho's training shape (gemma2-2b's beside it), launches from the
-    launcher's 300 tspm-mlho steps (phase 10 (b)'s two runs), max_abs_err over
-    phase 3b's comparisons against the plain version."""
-    t = timing["tspm_mlho"]
-    return {"name": "flash_attention_bwd", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
-            "replaces": "src/repro/kernels/flash_attention/flash.py:24",
-            "note": "the gradient of that kernel, which has no Pallas backward (jax.grad "
-                    "through it fails); three launches a call, no atomics",
-            "launches": train["b_launcher"]["launches"]["flash_attention_bwd"],
-            "max_abs_err": bwd["max_abs_err"],
-            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "bound_ffma_ms": t["bound_ffma_ms"], "device_share": t["device_share"],
-            "shape": t["shape"], "gemma2_2b": timing["gemma2_2b"],
-            "gemma2_2b_launches": train["c_gemma2_2b"]["launches"]["flash_attention_bwd"]}
+def flash_bwd_rows(bwd: dict, timing: dict, train: dict) -> list:
+    """The ``kernels`` line's rows of ``flash_attention_bwd``, one a route:
+    ffma timed at tspm-mlho's training shape with launches from the
+    launcher's 300 tspm-mlho steps (phase 10 (b)'s two runs), wgmma at
+    gemma2-2b's with launches from phase 10 (c)'s three steps; max_abs_err
+    over phase 3b's comparisons on the route against the plain version."""
+    rows = []
+    for route, name, launches in (
+            ("ffma", "tspm_mlho", train["b_launcher"]["launches"]["flash_attention_bwd"]),
+            ("wgmma", "gemma2_2b",
+             train["c_gemma2_2b"]["launches"]["flash_attention_bwd.wgmma"])):
+        t = timing[name]
+        require(t["kernel_route"] == route, f"{name}'s backward took {t['kernel_route']}")
+        rows.append({"name": f"flash_attention_bwd_{route}", "route": "cuda",
+                     "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+                     "replaces": "src/repro/kernels/flash_attention/flash.py:24",
+                     "note": "the gradient of that kernel, which has no Pallas backward "
+                             "(jax.grad through it fails); a delta pre-pass and, on ffma, a dq "
+                             "and a dk/dv kernel, on wgmma one launch of dK, dV and dQ CTAs; "
+                             "no atomics",
+                     "launches": launches, "max_abs_err": bwd["max_abs_err_by_route"][route],
+                     "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                     "library_same_function": t["library_same_function"],
+                     "bound_ffma_ms": t["bound_ffma_ms"], "device_ms": t["device_ms"],
+                     "device_share": t["device_share"], "shape": t["shape"]})
+    return rows
 
 
 def main() -> int:
@@ -3261,7 +3344,7 @@ def main() -> int:
                              "launches": fused_t1_launches, "shape": fused_t1["shape"],
                              **{k: fused_t1[k] for k in fused_keys}}
     kernels += flash_rows(flash_routes, lm, flash_t)
-    kernels.append(flash_bwd_row(bwd, bwd_t, train))
+    kernels += flash_bwd_rows(bwd, bwd_t, train)
     print(json.dumps({"fit_phases": phases, "main_path": main_path,
                       "files_vs_chunked": files_vs_chunked, "card_vs_cpu": card_vs_cpu,
                       "seq_hist_paths": hist_paths, "table2": table2, "stream": stream,

@@ -12,7 +12,12 @@
 //             p = visible ? exp(s - max_j s) : 0, masked s = -1e30
 //
 // with both indices starting at 0 (top-left alignment when Sq != Skv), so
-// a row with no visible key gives 0.  Query head h reads kv head
+// a row with no visible key gives 0.  Given a float pointer lse [B, Hq, Sq]
+// (null otherwise: serving passes null), every route also writes each
+// row's log-sum-exp over its visible scores in natural-log units,
+// log(sum_j exp(s[i, j])), +inf for a row that sees no key: the training
+// backward (flash_attention_bwd.cu) reads it instead of recomputing it.
+// The store follows o's and leaves o byte-identical.  Query head h reads kv head
 // h / (Hq / Hkv) (GQA).  Any Sq >= 1 and Skv >= 1.  Which route runs
 // follows (dtype, D) alone and is chosen by the caller
 // (kernels/flash_attention/ops.py, ``route``); none falls back to another.
@@ -105,8 +110,9 @@
 //     library links only cudart, so the entry point is fetched once with
 //     cudaGetDriverEntryPoint(ByVersion).  The maps are encoded on the
 //     host for each call and passed as __grid_constant__ parameters.
-//  5. The rebuild hash covers this file alone, and the kernel includes no
-//     local header.
+//  5. The barrier, TMA and wgmma helpers live in hopper.cuh, which the
+//     backward includes too; the rebuild hash covers every csrc/*.cuh, so
+//     an edit there rebuilds both.
 //  6. Launch.  Dynamic shared memory is set above 48 KB with
 //     cudaFuncSetAttribute; cudaGetLastError() is returned after the
 //     launch; the wrapper keeps B*Hq*ceil(Sq/128) < 2^31.  Barrier waits
@@ -185,6 +191,8 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kBQ = 64;        // query rows of a block
@@ -231,8 +239,9 @@ __device__ __forceinline__ void load_rows(uint32_t* dst, const T* src, int row0,
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ o, int BH, int Hq, int Hkv, int Sq, int Skv, float scale,
-             int causal, int use_window, int window, int use_softcap, float softcap) {
+             T* __restrict__ o, float* __restrict__ lse, int BH, int Hq, int Hkv, int Sq,
+             int Skv, float scale, int causal, int use_window, int window, int use_softcap,
+             float softcap) {
   constexpr int S = Tile<T, D>::kStride;
   constexpr int kCols = D / 16;  // accumulator columns of a thread
   extern __shared__ __align__(16) uint32_t smem[];
@@ -356,12 +365,14 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
       og[static_cast<size_t>(qi) * D + tx + 16 * c] = from_f32<T>(acc[r][c] / denom);
+    if (lse != nullptr && tx == 0)
+      lse[static_cast<size_t>(bh) * Sq + qi] = l[r] > 0.f ? m[r] + logf(l[r]) : INFINITY;
   }
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Hq,
-                   int Hkv, int Sq, int Skv, float scale, int causal, int use_window,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int Hq, int Hkv, int Sq, int Skv, float scale, int causal, int use_window,
                    int window, int use_softcap, float softcap, cudaStream_t stream) {
   constexpr size_t bytes = Tile<T, D>::kSmemBytes;
   static_assert(bytes <= 232448, "tile exceeds a block's shared memory");
@@ -373,34 +384,34 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   const unsigned blocks = static_cast<unsigned>(BH) * ((Sq + kBQ - 1) / kBQ);
   flash_kernel<T, D><<<blocks, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), BH, Hq, Hkv, Sq, Skv, scale, causal, use_window, window,
+      static_cast<T*>(o), lse, BH, Hq, Hkv, Sq, Skv, scale, causal, use_window, window,
       use_softcap, softcap);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(int D, const void* q, const void* k, const void* v, void* o, int B,
-                     int Hq, int Hkv, int Sq, int Skv, float scale, int causal,
+cudaError_t dispatch(int D, const void* q, const void* k, const void* v, void* o, float* lse,
+                     int B, int Hq, int Hkv, int Sq, int Skv, float scale, int causal,
                      int use_window, int window, int use_softcap, float softcap,
                      cudaStream_t stream) {
   switch (D) {
     case 16:
-      return launch<T, 16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale, causal, use_window,
+      return launch<T, 16>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, scale, causal, use_window,
                            window, use_softcap, softcap, stream);
     case 32:
-      return launch<T, 32>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale, causal, use_window,
+      return launch<T, 32>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, scale, causal, use_window,
                            window, use_softcap, softcap, stream);
   }
   if constexpr (std::is_same_v<T, float>) {  // bfloat16 at D >= 64 is the wgmma route's
     switch (D) {
       case 64:
-        return launch<T, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale, causal, use_window,
+        return launch<T, 64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, scale, causal, use_window,
                              window, use_softcap, softcap, stream);
       case 128:
-        return launch<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale, causal, use_window,
+        return launch<T, 128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, scale, causal, use_window,
                               window, use_softcap, softcap, stream);
       case 256:
-        return launch<T, 256>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale, causal, use_window,
+        return launch<T, 256>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, scale, causal, use_window,
                               window, use_softcap, softcap, stream);
     }
   }
@@ -411,201 +422,6 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v, void* o
 
 constexpr int kWgBQ = 128;          // query rows of a CTA (two consumers x 64)
 constexpr int kWgThreads = 384;     // warpgroups 0, 1 compute; warpgroup 2 loads
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// wait for the completion of the barrier's phase of parity `parity`
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-}
-
-// box (c0 = column, c1 = row, c2 = plane) of a 3-D map into shared memory
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle (byte offsets)
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
-}
-
-// 2^x, 2^-22 relative (MUFU.EX2); 0 for the masked scores' -1e30
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from moving accesses of wgmma registers across the
-// asynchronous issue and the wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// ---- wgmma instructions (m64nNk16, bf16 inputs, fp32 accumulators)
-
-// d[0..32) (+)= A[64x16] B[16x64], A and B K-major in shared memory (128-byte swizzle)
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d[0..64) (+)= A[64x16] B[16x128], A and B K-major in shared memory (128-byte swizzle)
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d[0..32) += A[64x16] B[16x64], A (bf16 pairs) in registers, B MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d[0..64) += A[64x16] B[16x128], A (bf16 pairs) in registers, B MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d[0..128) += A[64x16] B[16x256], A (bf16 pairs) in registers, B MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
-  if constexpr (N == 64) wgmma_ss_n64(d, da, db, acc);
-  else wgmma_ss_n128(d, da, db, acc);
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
-  else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
-  else wgmma_rs_n256(d, a, db);
-}
-
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
 
 // ---- the skeleton both tensor-core routes (wgmma, tf32x3) share
 //
@@ -615,26 +431,6 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
 // 64 query rows that run the mask, the online softmax, the row sums and the
 // store.  A route gives its tile loads, its S = Q K^T, its O update from P
 // and (tf32x3) its work on the query tile as lambdas to run_cta.
-
-// the mask and scale of a call, as the entries take them
-struct Mask {
-  int Sq, Skv;
-  float scale;
-  int causal, use_window, window, use_softcap;
-  float softcap;
-};
-
-// the keys that query rows row0 .. row_last can see: [begin, end)
-struct KeyBand {
-  long long begin, end;
-};
-
-__device__ __forceinline__ KeyBand key_band(const Mask& mk, int row0, int row_last) {
-  KeyBand b{0, mk.Skv};
-  if (mk.causal) b.end = min(b.end, static_cast<long long>(row_last) + 1);
-  if (mk.use_window) b.begin = max(0LL, static_cast<long long>(row0) - mk.window + 1);
-  return b;
-}
 
 // this CTA's query tile: batch x query head bh, rows q0 .. q0 + kWgBQ - 1
 // (walked from the last tile, so the longest causal rows start first), and
@@ -648,23 +444,6 @@ __device__ __forceinline__ CtaTile cta_tile(int BH, int Hq, int Hkv, int Sq) {
   const int bh = blockIdx.x % BH;
   return {bh, (n_qt - 1 - static_cast<int>(blockIdx.x / BH)) * kWgBQ,
           (bh / Hq) * Hkv + (bh % Hq) / (Hq / Hkv)};
-}
-
-// the ring's barriers, 8 bytes each from q: q, k_full[STAGES], v_full[STAGES], empty[STAGES]
-template <int STAGES>
-struct Ring {
-  static constexpr uint32_t kBytes = 8 * (1 + 3 * STAGES);
-  uint32_t q;
-  __device__ __forceinline__ uint32_t k_full(int s) const { return q + 8u * (1 + s); }
-  __device__ __forceinline__ uint32_t v_full(int s) const { return q + 8u * (1 + STAGES + s); }
-  __device__ __forceinline__ uint32_t empty(int s) const { return q + 8u * (1 + 2 * STAGES + s); }
-};
-
-__device__ __forceinline__ void store_pair(__nv_bfloat16* at, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(at) = __floats2bfloat162_rn(a, b);
-}
-__device__ __forceinline__ void store_pair(float* at, float a, float b) {
-  *reinterpret_cast<float2*>(at) = make_float2(a, b);
 }
 
 // One CTA of a tensor-core route.  The producer's thread issues load_q(bar)
@@ -682,13 +461,14 @@ __device__ __forceinline__ void store_pair(float* at, float a, float b) {
 //   values(s, v_bar, parity, sc, alpha0, alpha1, acc)
 //                   waits for V on (v_bar, parity) and adds P V to the
 //                   accumulator acc rescaled by alpha (row qi0, qi1);
-// then releases the stage, and last stores o = acc / max(l, 1e-30) in T.
+// then releases the stage, and last stores o = acc / max(l, 1e-30) in T
+// and, given lse, each row's (m + log2 l) ln 2 (m is in log2 units).
 template <int D, int BK, int STAGES, int ALIGN, typename T, typename LoadQ, typename LoadK,
           typename LoadV, typename OnQ, typename Scores, typename Values>
 __device__ __forceinline__ void run_cta(const Ring<STAGES> ring, const Mask& mk, const CtaTile& ct,
                                         uint32_t q_bytes, uint32_t kv_bytes, T* __restrict__ o,
-                                        LoadQ load_q, LoadK load_k, LoadV load_v, OnQ on_q,
-                                        Scores scores, Values values) {
+                                        float* __restrict__ lse, LoadQ load_q, LoadK load_k,
+                                        LoadV load_v, OnQ on_q, Scores scores, Values values) {
   KeyBand band = key_band(mk, ct.q0, min(ct.q0 + kWgBQ, mk.Sq) - 1);
   band.begin = band.begin / ALIGN * ALIGN;
   const int n_tiles =
@@ -763,6 +543,9 @@ __device__ __forceinline__ void run_cta(const Ring<STAGES> ring, const Mask& mk,
       // does any (row, key) of this tile fall outside the visible band?
       const bool edge = k0 + BK > mk.Skv || (mk.causal && k0 + BK - 1 > wq0) ||
                         (mk.use_window && static_cast<long long>(wq_last) - k0 >= mk.window);
+      // rows past Sq are not tested: they are never stored (testing them
+      // through Mask::visible made the route 18% slower at gemma2-2b's
+      // global layer on an H100, chip_smoke.py)
       auto visible = [&](int qi, int kj) {
         return kj < mk.Skv && (!mk.causal || qi >= kj) &&
                (!mk.use_window || static_cast<long long>(qi) - kj < mk.window);
@@ -822,6 +605,12 @@ __device__ __forceinline__ void run_cta(const Ring<STAGES> ring, const Mask& mk,
       store_pair(og + static_cast<size_t>(qi1) * D + col, acc[4 * j + 2] / d1,
                  acc[4 * j + 3] / d1);
   }
+  if (lse != nullptr && lane % 4 == 0) {
+    constexpr float kLn2 = 0.6931471805599453f;
+    float* row = lse + static_cast<size_t>(ct.bh) * mk.Sq;
+    if (qi0 < mk.Sq) row[qi0] = l0 > 0.f ? (m0 + log2f(l0)) * kLn2 : INFINITY;
+    if (qi1 < mk.Sq) row[qi1] = l1 > 0.f ? (m1 + log2f(l1)) * kLn2 : INFINITY;
+  }
 }
 
 // ---- the wgmma route's CTA
@@ -845,7 +634,7 @@ template <int D, int BK, int STAGES, int PTERMS>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
-                   int BH, int Hq, int Hkv, const Mask mk) {
+                   float* __restrict__ lse, int BH, int Hq, int Hkv, const Mask mk) {
   using L = WgLayout<D, BK, STAGES>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -911,7 +700,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     fence_regs(acc);
   };
   run_cta<D, BK, STAGES, 1>(Ring<STAGES>{base + L::kBar}, mk, ct, L::kQBytes, L::kKVBytes, o,
-                            load_q, load_k, load_v, [] {}, scores, values);
+                            lse, load_q, load_k, load_v, [] {}, scores, values);
 }
 
 // --------------------------------------------------------------- tf32x3 route
@@ -1044,8 +833,8 @@ struct TfLayout {
 template <int PV_TERMS>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_tf32x3_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                    const __grid_constant__ CUtensorMap tv, float* __restrict__ o, int BH,
-                    int Hq, int BHkv, int Hkv, const Mask mk) {
+                    const __grid_constant__ CUtensorMap tv, float* __restrict__ o,
+                    float* __restrict__ lse, int BH, int Hq, int BHkv, int Hkv, const Mask mk) {
   using L = TfLayout;
   constexpr int BK = kTfBK, D = kTfD;
   extern __shared__ uint8_t smem_raw[];
@@ -1154,63 +943,12 @@ flash_tf32x3_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
   };
   // key tiles start on a multiple of BK, so V^T's groups of 8 never straddle one (hazard 2)
   run_cta<D, BK, kTfStages, BK>(Ring<kTfStages>{base + L::kBar}, mk, ct, L::kQHalf, L::kKVBytes,
-                                o, load_q, load_k, load_v, split_q, scores, values);
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, fetched once through the runtime
-cudaError_t encode_tiled(EncodeTiled* fn) {
-  static EncodeTiled cached = nullptr;
-  if (cached == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorSymbolNotFound;
-    cached = reinterpret_cast<EncodeTiled>(p);
-  }
-  *fn = cached;
-  return cudaSuccess;
-}
-
-// a map over a [planes, rows, cols] bfloat16 (or float32) tensor in boxes
-// of box_rows x 128 bytes, 128-byte swizzle; boxes past `rows` or `cols`
-// are zero-filled
-cudaError_t make_map(CUtensorMap* map, const void* ptr, int planes, int rows, int cols,
-                     int box_rows, bool f32 = false) {
-  EncodeTiled encode;
-  const cudaError_t err = encode_tiled(&encode);
-  if (err != cudaSuccess) return err;
-  const cuuint64_t elem = f32 ? 4 : 2;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(planes)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * elem,
-                                 static_cast<cuuint64_t>(rows) * cols * elem};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(128 / elem),
-                             static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                            3, const_cast<void*>(ptr),
-                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+                                o, lse, load_q, load_k, load_v, split_q, scores, values);
 }
 
 template <int D, int BK, int STAGES, int PTERMS>
-cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int Hq,
-                         int Hkv, const Mask& mk, cudaStream_t stream) {
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
+                         int B, int Hq, int Hkv, const Mask& mk, cudaStream_t stream) {
   constexpr size_t bytes = WgLayout<D, BK, STAGES>::kSmemBytes;
   static_assert(bytes <= 232448, "tiles exceed a block's shared memory");
   CUtensorMap tq, tk, tv;
@@ -1225,28 +963,30 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, i
   const int BH = B * Hq;
   const unsigned blocks = static_cast<unsigned>(BH) * ((mk.Sq + kWgBQ - 1) / kWgBQ);
   flash_wgmma_kernel<D, BK, STAGES, PTERMS><<<blocks, kWgThreads, bytes, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), BH, Hq, Hkv, mk);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, BH, Hq, Hkv, mk);
   return cudaGetLastError();
 }
 
 template <int PTERMS>
-cudaError_t dispatch_wgmma(int D, const void* q, const void* k, const void* v, void* o, int B,
-                           int Hq, int Hkv, const Mask& mk, cudaStream_t stream) {
+cudaError_t dispatch_wgmma(int D, const void* q, const void* k, const void* v, void* o,
+                           float* lse, int B, int Hq, int Hkv, const Mask& mk,
+                           cudaStream_t stream) {
   switch (D) {
     case 64:
-      return launch_wgmma<64, 128, 3, PTERMS>(q, k, v, o, B, Hq, Hkv, mk, stream);
+      return launch_wgmma<64, 128, 3, PTERMS>(q, k, v, o, lse, B, Hq, Hkv, mk, stream);
     case 128:
-      return launch_wgmma<128, 128, 2, PTERMS>(q, k, v, o, B, Hq, Hkv, mk, stream);
+      return launch_wgmma<128, 128, 2, PTERMS>(q, k, v, o, lse, B, Hq, Hkv, mk, stream);
     case 256:
-      return launch_wgmma<256, 64, 2, PTERMS>(q, k, v, o, B, Hq, Hkv, mk, stream);
+      return launch_wgmma<256, 64, 2, PTERMS>(q, k, v, o, lse, B, Hq, Hkv, mk, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 template <int PV_TERMS>
-cudaError_t launch_tf32x3(const void* q, const void* k, const void* v, void* o, void* scratch,
-                          int B, int Hq, int Hkv, const Mask& mk, cudaStream_t stream) {
+cudaError_t launch_tf32x3(const void* q, const void* k, const void* v, void* o, float* lse,
+                          void* scratch, int B, int Hq, int Hkv, const Mask& mk,
+                          cudaStream_t stream) {
   constexpr size_t bytes = TfLayout::kSmemBytes;
   static_assert(bytes <= 232448, "tiles exceed a block's shared memory");
   const int BH = B * Hq, BHkv = B * Hkv, Skv = mk.Skv;
@@ -1273,26 +1013,30 @@ cudaError_t launch_tf32x3(const void* q, const void* k, const void* v, void* o, 
   if (err != cudaSuccess) return err;
   const unsigned blocks = static_cast<unsigned>(BH) * ((mk.Sq + kWgBQ - 1) / kWgBQ);
   flash_tf32x3_kernel<PV_TERMS><<<blocks, kWgThreads, bytes, stream>>>(
-      tq, tk, tv, static_cast<float*>(o), BH, Hq, BHkv, Hkv, mk);
+      tq, tk, tv, static_cast<float*>(o), lse, BH, Hq, BHkv, Hkv, mk);
   return cudaGetLastError();
 }
 
 }  // namespace
+
+// Every entry takes `lse`, a float32 [B, Hq, Sq] on the device or null:
+// given, each route writes each row's log-sum-exp there (the top of this
+// file).
 
 // The ffma route.  dtype: 0 = float32 (D in {16, 32, 64, 128, 256}), 1 =
 // bfloat16 (D in {16, 32}), q, k, v and o alike.  The caller guarantees
 // B*Hq*Sq >= 1, Skv >= 1, Hq a multiple of Hkv, B*Hq*ceil(Sq/64) < 2^31,
 // contiguous tensors whose data start on a 4-byte boundary; the launch is
 // asynchronous on `stream`.
-extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o, int B,
-                               int Hq, int Hkv, int Sq, int Skv, int D, int dtype,
-                               float scale, int causal, int use_window, int window,
+extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o,
+                               float* lse, int B, int Hq, int Hkv, int Sq, int Skv, int D,
+                               int dtype, float scale, int causal, int use_window, int window,
                                int use_softcap, float softcap, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      dtype == 0 ? dispatch<float>(D, q, k, v, o, B, Hq, Hkv, Sq, Skv, scale, causal,
+      dtype == 0 ? dispatch<float>(D, q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, scale, causal,
                                    use_window, window, use_softcap, softcap, s)
-      : dtype == 1 ? dispatch<__nv_bfloat16>(D, q, k, v, o, B, Hq, Hkv, Sq, Skv, scale,
+      : dtype == 1 ? dispatch<__nv_bfloat16>(D, q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, scale,
                                              causal, use_window, window, use_softcap,
                                              softcap, s)
                    : cudaErrorInvalidValue;
@@ -1304,12 +1048,12 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
 // B*Hq*ceil(Sq/128) < 2^31, contiguous tensors whose data start on a
 // 16-byte boundary; the launch is asynchronous on `stream`.
 extern "C" int flash_attention_wgmma(const void* q, const void* k, const void* v, void* o,
-                                     int B, int Hq, int Hkv, int Sq, int Skv, int D,
+                                     float* lse, int B, int Hq, int Hkv, int Sq, int Skv, int D,
                                      float scale, int causal, int use_window, int window,
                                      int use_softcap, float softcap, void* stream) {
   const Mask mk{Sq, Skv, scale, causal, use_window, window, use_softcap, softcap};
-  return static_cast<int>(
-      dispatch_wgmma<2>(D, q, k, v, o, B, Hq, Hkv, mk, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(dispatch_wgmma<2>(D, q, k, v, o, lse, B, Hq, Hkv, mk,
+                                            static_cast<cudaStream_t>(stream)));
 }
 
 // The tf32x3 route: float32 q, k, v and o at D = 64, with `scratch` of
@@ -1319,12 +1063,13 @@ extern "C" int flash_attention_wgmma(const void* q, const void* k, const void* v
 // multiple of Hkv, B*Hq*ceil(Sq/128) < 2^31, contiguous tensors whose data
 // start on a 16-byte boundary; the launches are asynchronous on `stream`.
 extern "C" int flash_attention_tf32x3(const void* q, const void* k, const void* v, void* o,
-                                      int B, int Hq, int Hkv, int Sq, int Skv, int D,
-                                      void* scratch, float scale, int causal, int use_window,
-                                      int window, int use_softcap, float softcap, void* stream) {
+                                      float* lse, int B, int Hq, int Hkv, int Sq, int Skv,
+                                      int D, void* scratch, float scale, int causal,
+                                      int use_window, int window, int use_softcap,
+                                      float softcap, void* stream) {
   if (D != kTfD) return static_cast<int>(cudaErrorInvalidValue);
   const Mask mk{Sq, Skv, scale, causal, use_window, window, use_softcap, softcap};
-  return static_cast<int>(launch_tf32x3<3>(q, k, v, o, scratch, B, Hq, Hkv, mk,
+  return static_cast<int>(launch_tf32x3<3>(q, k, v, o, lse, scratch, B, Hq, Hkv, mk,
                                            static_cast<cudaStream_t>(stream)));
 }
 
@@ -1335,23 +1080,23 @@ extern "C" int flash_attention_tf32x3(const void* q, const void* k, const void* 
 // route with P as one bf16 term, and the tf32x3 route with P V as P_hi
 // V_hi alone.  Arguments as the entries above.
 extern "C" int flash_attention_wgmma_p_bf16(const void* q, const void* k, const void* v,
-                                            void* o, int B, int Hq, int Hkv, int Sq, int Skv,
-                                            int D, float scale, int causal, int use_window,
-                                            int window, int use_softcap, float softcap,
-                                            void* stream) {
+                                            void* o, float* lse, int B, int Hq, int Hkv,
+                                            int Sq, int Skv, int D, float scale, int causal,
+                                            int use_window, int window, int use_softcap,
+                                            float softcap, void* stream) {
   const Mask mk{Sq, Skv, scale, causal, use_window, window, use_softcap, softcap};
-  return static_cast<int>(
-      dispatch_wgmma<1>(D, q, k, v, o, B, Hq, Hkv, mk, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(dispatch_wgmma<1>(D, q, k, v, o, lse, B, Hq, Hkv, mk,
+                                            static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int flash_attention_tf32x3_pv_hi(const void* q, const void* k, const void* v,
-                                            void* o, int B, int Hq, int Hkv, int Sq, int Skv,
-                                            int D, void* scratch, float scale, int causal,
-                                            int use_window, int window, int use_softcap,
-                                            float softcap, void* stream) {
+                                            void* o, float* lse, int B, int Hq, int Hkv,
+                                            int Sq, int Skv, int D, void* scratch, float scale,
+                                            int causal, int use_window, int window,
+                                            int use_softcap, float softcap, void* stream) {
   if (D != kTfD) return static_cast<int>(cudaErrorInvalidValue);
   const Mask mk{Sq, Skv, scale, causal, use_window, window, use_softcap, softcap};
-  return static_cast<int>(launch_tf32x3<1>(q, k, v, o, scratch, B, Hq, Hkv, mk,
+  return static_cast<int>(launch_tf32x3<1>(q, k, v, o, lse, scratch, B, Hq, Hkv, mk,
                                            static_cast<cudaStream_t>(stream)));
 }
 #endif

@@ -1,5 +1,5 @@
-"""Naive full-softmax attention oracle (f32) with the same mask options, and
-its backward.
+"""Naive full-softmax attention oracle (f32) with the same mask options, its
+log-sum-exp, and its backward.
 
 ``attention_ref`` is the plain version of ``csrc/flash_attention.cu`` and
 ``attention_bwd_ref`` of ``csrc/flash_attention_bwd.cu``: ``ops`` takes
@@ -14,17 +14,19 @@ import torch
 NEG_INF = -1e30
 
 
-def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None,
-                  softcap: float | None = None):
-    B, Hq, Sq, D = q.shape
-    _, Hkv, Skv, _ = k.shape
-    group = Hq // Hkv
-    scale = D ** -0.5
-    kq = k.repeat_interleave(group, dim=1).float()
-    vq = v.repeat_interleave(group, dim=1).float()
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kq) * scale
+def _scores(q, k, *, causal=True, window=None, softcap=None, ct=torch.float32):
+    """``(s, mask, dcap)`` of ``q [B,Hq,Sq,D]`` against ``k [B,Hkv,Skv,D]``
+    in dtype ``ct``: the scores after scale and softcap with invisible
+    ones at ``NEG_INF``, the visibility mask ``[Sq, Skv]`` and the
+    softcap's derivative ``1 - tanh^2`` (None without a softcap)."""
+    Sq, D, Skv = q.shape[2], q.shape[3], k.shape[2]
+    kq = k.to(ct).repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(ct), kq) * D ** -0.5
+    dcap = None
     if softcap is not None:
-        s = softcap * torch.tanh(s / softcap)
+        t = torch.tanh(s / softcap)
+        s = softcap * t
+        dcap = 1 - t * t
     qi = torch.arange(Sq, device=q.device)[:, None]
     kj = torch.arange(Skv, device=q.device)[None, :]
     mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
@@ -32,12 +34,41 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None,
         mask &= qi >= kj
     if window is not None:
         mask &= (qi - kj) < window
-    s = torch.where(mask, s, NEG_INF)
+    return torch.where(mask, s, NEG_INF), mask, dcap
+
+
+def _lse(s, mask):
+    """Each row's log-sum-exp over its visible scores; +inf where it sees
+    none (so exp(s - lse) is 0 there)."""
+    m = s.amax(-1, keepdim=True)
+    l = torch.where(mask, torch.exp(s - m), 0.0).sum(-1, keepdim=True)
+    return torch.where(l > 0, m + torch.log(l), torch.inf).squeeze(-1)
+
+
+def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None,
+                  softcap: float | None = None, return_lse: bool = False):
+    """``o`` in q's dtype (float32 arithmetic); with ``return_lse`` also
+    each row's log-sum-exp, float32 ``[B, Hq, Sq]`` in natural-log units
+    over the scores after scale, softcap and mask (+inf for a row that sees
+    no key): what the kernels write when given a log-sum-exp pointer."""
+    s, mask, _ = _scores(q, k, causal=causal, window=window, softcap=softcap,
+                         ct=torch.float32)
+    vq = v.float().repeat_interleave(q.shape[1] // k.shape[1], dim=1)
     p = torch.exp(s - s.amax(-1, keepdim=True))
     p = torch.where(mask, p, 0.0)
     o = torch.einsum("bhqk,bhkd->bhqd",
                      p / torch.clamp(p.sum(-1, keepdim=True), min=1e-30), vq)
+    if return_lse:
+        return o.to(q.dtype), _lse(s, mask)
     return o.to(q.dtype)
+
+
+def attention_lse_ref(q, k, *, causal: bool = True, window: int | None = None,
+                      softcap: float | None = None):
+    """``attention_ref``'s log-sum-exp, computed in float64 for float64
+    inputs and in float32 otherwise (the backward's limit takes both)."""
+    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
+    return _lse(*_scores(q, k, causal=causal, window=window, softcap=softcap, ct=ct)[:2])
 
 
 # ---- the tf32x3 route's operands (plain versions of its pre-pass)
@@ -85,17 +116,18 @@ def tf32x3_operands(k, v):
 
 # ---- the backward (plain version of csrc/flash_attention_bwd.cu)
 
-def attention_bwd_ref(q, k, v, o, do, *, causal: bool = True, window: int | None = None,
-                      softcap: float | None = None):
+def attention_bwd_ref(q, k, v, o, do, lse, *, causal: bool = True,
+                      window: int | None = None, softcap: float | None = None):
     """Gradients ``(dq, dk, dv)`` of ``attention_ref`` at ``(q, k, v)`` for
-    the output gradient ``do``, written out: S and P recomputed (softcap
-    included), ``dV = P^T dO``, ``dP = dO V^T``, ``dS = P * (dP - rowsum(dO
-    * O))`` times ``1 - tanh^2(s / cap)`` under the softcap, ``dQ = dS K *
-    scale``, ``dK = dS^T Q * scale``, each KV head's gradient summed over
-    its query heads.  A row that sees no key has P = 0, so it gives and
-    gets no gradient.  ``o`` is the forward's output.  The arithmetic is
-    float32 (float64 for float64 inputs); the results take the inputs'
-    dtype."""
+    the output gradient ``do``, written out from the forward's output ``o``
+    and log-sum-exp ``lse`` (``attention_ref(..., return_lse=True)``): S
+    recomputed (softcap included), ``P = exp(S - lse)`` on visible pairs,
+    ``dV = P^T dO``, ``dP = dO V^T``, ``dS = P * (dP - rowsum(dO * O))``
+    times ``1 - tanh^2(s / cap)`` under the softcap, ``dQ = dS K * scale``,
+    ``dK = dS^T Q * scale``, each KV head's gradient summed over its query
+    heads.  A row that sees no key (lse = +inf) has P = 0, so it gives and
+    gets no gradient.  The arithmetic is float32 (float64 for float64
+    inputs); the results take the inputs' dtype."""
     B, Hq, Sq, D = q.shape
     _, Hkv, Skv, _ = k.shape
     group = Hq // Hkv
@@ -104,23 +136,8 @@ def attention_bwd_ref(q, k, v, o, do, *, causal: bool = True, window: int | None
     q32, o32, do32 = (t.to(ct) for t in (q, o, do))
     kq = k.to(ct).repeat_interleave(group, dim=1)
     vq = v.to(ct).repeat_interleave(group, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q32, kq) * scale
-    dcap = None
-    if softcap is not None:
-        t = torch.tanh(s / softcap)
-        s = softcap * t
-        dcap = 1 - t * t
-    qi = torch.arange(Sq, device=q.device)[:, None]
-    kj = torch.arange(Skv, device=q.device)[None, :]
-    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= qi >= kj
-    if window is not None:
-        mask &= (qi - kj) < window
-    s = torch.where(mask, s, NEG_INF)
-    p = torch.exp(s - s.amax(-1, keepdim=True))
-    p = torch.where(mask, p, 0.0)
-    p = p / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    s, mask, dcap = _scores(q, k, causal=causal, window=window, softcap=softcap, ct=ct)
+    p = torch.where(mask, torch.exp(s - lse.to(ct)[..., None]), 0.0)
     dv = torch.einsum("bhqk,bhqd->bhkd", p, do32)
     dp = torch.einsum("bhqd,bhkd->bhqk", do32, vq)
     ds = p * (dp - (do32 * o32).sum(-1, keepdim=True))
@@ -156,10 +173,13 @@ BWD_BF16_REL = 2.0 ** -8
 def attention_bwd_limit(q, k, v, o, do, **kw):
     """The backward kernel's limit at these inputs (comment above):
     ``(want64, want32, e32, limit)``, each a tuple over ``(dq, dk, dv)``:
-    the plain version in float64 and in float32, the float32 one's largest
-    distance from float64, and the elementwise bound on ``|got - want64|``."""
-    want32 = attention_bwd_ref(*(t.float() for t in (q, k, v, o, do)), **kw)
-    want64 = attention_bwd_ref(*(t.double() for t in (q, k, v, o, do)), **kw)
+    the plain version in float64 and in float32 (each from its own
+    ``attention_lse_ref``), the float32 one's largest distance from
+    float64, and the elementwise bound on ``|got - want64|``."""
+    t32 = [t.float() for t in (q, k, v, o, do)]
+    t64 = [t.double() for t in (q, k, v, o, do)]
+    want32 = attention_bwd_ref(*t32, attention_lse_ref(t32[0], t32[1], **kw), **kw)
+    want64 = attention_bwd_ref(*t64, attention_lse_ref(t64[0], t64[1], **kw), **kw)
     rel = BWD_BF16_REL if q.dtype == torch.bfloat16 else 0.0
     floor = 2.0 ** -23 * max(w.abs().max().item() for w in want64)
     e32 = tuple((w32.double() - w64).abs().max().item()

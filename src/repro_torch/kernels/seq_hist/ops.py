@@ -26,7 +26,8 @@ a partition, scratch bytes), a pure function of the sizes and the card's
 SM count (the layout's arithmetic is ``kernels/bucket_count.py``).
 ``hist.launches`` counts calls of the C entry point, one per
 ``hist`` call on a CUDA tensor with elements, and ``hist.route_launches``
-the same by route.
+the same by route.  ``bucket_counts`` is the reference's entry over mined
+``[P, T]`` ids (row dedupe, hash, ``hist``).
 """
 from __future__ import annotations
 
@@ -132,6 +133,18 @@ def hist(h, mask, n_buckets: int) -> torch.Tensor:
         hist.launches += 1
         hist.route_launches[chosen] += 1
     return out
+
+
+def bucket_counts(seq, mask, n_buckets_log2: int) -> torch.Tensor:
+    """Distinct-patient bucket counts (int32 ``[2^n_buckets_log2]``) of
+    mined ``[P, T]`` ids under ``mask``: each row's ids deduplicated by a
+    sort, hashed and counted with :func:`hist`, which is
+    ``core/sparsity.local_bucket_counts``.  (The reference's ``interpret``
+    and ``force_kernel`` choose between its TPU kernel and a scatter; the
+    card's kernel takes every table size.)"""
+    from repro_torch.core import sparsity
+
+    return sparsity.local_bucket_counts(seq, mask, n_buckets_log2)
 
 
 def _launch(h, mask, out, force_route: str | None = None) -> str:

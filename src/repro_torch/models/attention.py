@@ -49,7 +49,7 @@ def _split_heads(x, n):
     return x.reshape(b, s, n, -1)
 
 
-def _sdpa_chunk(q, k, v, *, scale, softcap, causal, window, q_start):
+def _sdpa_chunk(q, k, v, *, scale, softcap, causal, window, q_start, kv_len):
     """q [B,Hkv,G,Cq,hd]; k/v [B,Hkv,Skv,hd] -> out [B,Hkv,G,Cq,hd]."""
     s = torch.einsum("bhgqd,bhkd->bhgqk", q.float(), k.float()) * scale
     if softcap is not None:
@@ -57,7 +57,7 @@ def _sdpa_chunk(q, k, v, *, scale, softcap, causal, window, q_start):
     cq, skv = q.shape[3], k.shape[2]
     qi = q_start + torch.arange(cq, device=q.device)[:, None]
     kj = torch.arange(skv, device=q.device)[None, :]
-    mask = torch.ones((cq, skv), dtype=torch.bool, device=q.device)
+    mask = (kj < kv_len).expand(cq, skv)
     if causal:
         mask = mask & (qi >= kj)
     if window is not None:
@@ -69,12 +69,18 @@ def _sdpa_chunk(q, k, v, *, scale, softcap, causal, window, q_start):
 
 
 def blocked_sdpa(q, k, v, *, causal=True, window=None, softcap=None,
-                 q_chunk=512):
-    """q [B,Sq,H,hd], k/v [B,Skv,Hkv,hd] -> [B,Sq,H,hd] without S^2 memory."""
+                 scale=None, q_chunk=512, kv_len=None):
+    """q [B,Sq,H,hd], k/v [B,Skv,Hkv,hd] -> [B,Sq,H,hd] without S^2 memory.
+
+    ``scale`` defaults to ``hd ** -0.5``; keys at and past ``kv_len``
+    (default Skv) are masked, as the reference's."""
     b, sq, h, hd = q.shape
     skv, hk = k.shape[1], k.shape[2]
     g = h // hk
-    scale = hd ** -0.5
+    if scale is None:
+        scale = hd ** -0.5
+    if kv_len is None:
+        kv_len = skv
     kt = k.transpose(1, 2)                                  # [B,Hkv,Skv,hd]
     vt = v.transpose(1, 2)
     qt = q.reshape(b, sq, hk, g, hd).permute(0, 2, 3, 1, 4)  # [B,Hkv,G,Sq,hd]
@@ -83,7 +89,7 @@ def blocked_sdpa(q, k, v, *, causal=True, window=None, softcap=None,
         c = sq  # irregular small inputs: single chunk
     o = torch.cat([_sdpa_chunk(qt[:, :, :, i:i + c], kt, vt, scale=scale,
                                softcap=softcap, causal=causal, window=window,
-                               q_start=i)
+                               q_start=i, kv_len=kv_len)
                    for i in range(0, sq, c)], dim=3)         # [B,Hkv,G,Sq,hd]
     return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
 
@@ -101,21 +107,28 @@ def resolve_impl(impl: str, x: torch.Tensor) -> str:
     return impl
 
 
-def full_attention(q, k, v, cfg, *, causal, window):
+def full_attention(q, k, v, cfg, *, causal, window, impl=None, kv_len=None):
     """q [B,Sq,H,hd], k/v [B,Skv,Hkv,hd] -> [B,Sq,H,hd].
 
-    Under ``'flash'`` every Sq takes the kernel (its plain version on the
-    CPU); the reference sends Sq = 1 to ``blocked_sdpa``, with the same
-    values within the kernel's tolerance."""
-    if resolve_impl(cfg.attn_impl, q) == "flash":
+    ``impl`` defaults to the config's ``attn_impl``; keys at and past
+    ``kv_len`` are masked (under ``'flash'`` the kernel is given the keys
+    before it, which is the same function).  Under ``'flash'`` every Sq
+    takes the kernel (its plain version on the CPU); the reference sends
+    Sq = 1 to ``blocked_sdpa``, with the same values within the kernel's
+    tolerance."""
+    if resolve_impl(impl or cfg.attn_impl, q) == "flash":
         from repro_torch.kernels.flash_attention import ops as flash_ops
 
+        if kv_len is not None and kv_len < k.shape[1]:
+            if kv_len <= 0:                      # every key masked: o = 0
+                return torch.zeros_like(q)
+            k, v = k[:, :kv_len], v[:, :kv_len]
         o = flash_ops.attention(q.transpose(1, 2), k.transpose(1, 2),
                                 v.transpose(1, 2), causal=causal, window=window,
                                 softcap=cfg.attn_softcap)
         return o.transpose(1, 2)
     return blocked_sdpa(q, k, v, causal=causal, window=window,
-                        softcap=cfg.attn_softcap)
+                        softcap=cfg.attn_softcap, kv_len=kv_len)
 
 
 def _cache_write(buf, x, pos):

@@ -12,7 +12,9 @@ Trees are dicts of tensors keyed by parameter name
 ``update`` done in place: it writes the new values into the parameters
 and the state's moment dicts, one parameter at a time, so a model whose
 moments and a second copy of them would not fit on the card (gemma2-2b:
-20.8 GB of float32 moments) trains there.
+20.8 GB of float32 moments) trains there.  ``update`` is the reference's
+functional form: it copies its inputs and runs ``update_`` on the copies,
+so both forms share one arithmetic path.
 """
 from __future__ import annotations
 
@@ -110,3 +112,14 @@ def update_(cfg: OptConfig, grads: dict, state: OptState, params: dict):
         p.copy_(new_p)
         del g, new_p
     return OptState(state.mu, state.nu, step), {"lr": lr, "grad_norm": gnorm}
+
+
+def update(cfg: OptConfig, grads: dict, state: OptState, params: dict):
+    """The reference's functional AdamW step: returns ``(new_params,
+    new_state, metrics)`` and leaves ``grads``, ``state`` and ``params`` as
+    they were (``update_`` on copies of them)."""
+    new_params = {n: p.detach().clone() for n, p in params.items()}
+    copy = OptState({n: m.clone() for n, m in state.mu.items()},
+                    {n: m.clone() for n, m in state.nu.items()}, state.step.clone())
+    new_state, metrics = update_(cfg, dict(grads), copy, new_params)
+    return new_params, new_state, metrics

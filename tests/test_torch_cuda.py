@@ -41,11 +41,19 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+def _host(x) -> np.ndarray:
+    """A numpy copy of ``x``; bfloat16 as its int16 bits (numpy has no
+    bfloat16)."""
+    if not torch.is_tensor(x):
+        return np.asarray(x)
+    x = x.detach().cpu()
+    return (x.view(torch.int16) if x.dtype == torch.bfloat16 else x).numpy()
+
+
 def assert_same(got, want, what: str = "") -> None:
     """Byte equality, dtype and shape included (this module stands alone,
     so it runs where only PyTorch is installed)."""
-    a = got.cpu().numpy() if torch.is_tensor(got) else np.asarray(got)
-    b = want.cpu().numpy() if torch.is_tensor(want) else np.asarray(want)
+    a, b = (_host(x) for x in (got, want))
     assert a.dtype == b.dtype and a.shape == b.shape, what
     assert a.tobytes() == b.tobytes(), what
 
@@ -446,8 +454,7 @@ def test_chunk_peak_within_budget_at_long_histories(cuda_device, screen, budget_
 FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-5, 2.0 ** -6)}
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,kw", [
+FLASH_CASES = [
     (1, 2, 2, 1, 1, 64, dict(causal=True)),
     (2, 4, 2, 129, 129, 64, dict(causal=True)),
     (1, 6, 2, 200, 200, 128, dict(causal=True, window=16, softcap=50.0)),
@@ -462,7 +469,11 @@ FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-5, 2.0 ** -6)}
     (2, 8, 1, 200, 200, 64, dict(causal=True)),
     (1, 4, 2, 96, 40, 64, dict(causal=False, window=16)),
     (1, 4, 2, 63, 1000, 64, dict(causal=True)),
-])
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,kw", FLASH_CASES)
 def test_flash_kernel_matches_plain_version(cuda_device, dtype, B, Hq, Hkv, Sq, Skv,
                                             D, kw):
     """Ragged tiles, GQA, window, softcap, Sq != Skv, rows with no visible
@@ -484,6 +495,44 @@ def test_flash_kernel_matches_plain_version(cuda_device, dtype, B, Hq, Hkv, Sq, 
     want = flash_ref.attention_ref(q, k, v, **kw)
     atol, rtol = FLASH_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+# the forward's log-sum-exp against the plain version's: the float32
+# output's limit (chip_smoke.py's LSE_TOL)
+LSE_TOL = 2e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,kw", FLASH_CASES)
+def test_flash_lse_matches_plain_version(cuda_device, dtype, B, Hq, Hkv, Sq, Skv, D, kw):
+    """Each route writes each row's log-sum-exp when given the pointer:
+    within 2e-5 + 2e-5 |want| of ``attention_ref(..., return_lse=True)``,
+    +inf where a row sees no key, and ``o`` byte-identical to the launch
+    without it (the serving launch)."""
+    g = torch.Generator(cuda_device).manual_seed(Sq * D + 1)
+    q = torch.randn(B, Hq, Sq, D, generator=g, device=cuda_device).to(dtype)
+    k = torch.randn(B, Hkv, Skv, D, generator=g, device=cuda_device).to(dtype)
+    v = torch.randn(B, Hkv, Skv, D, generator=g, device=cuda_device).to(dtype)
+    route = flash_ops.route(dtype, D)
+    before = flash_ops.attention.route_launches[route]
+    plain = flash_ops.attention(q, k, v, **kw)
+    o, lse = flash_ops.attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert flash_ops.attention.route_launches[route] == before + 2
+    assert_same(o, plain)
+    _, want = flash_ref.attention_ref(q, k, v, return_lse=True, **kw)
+    seen = torch.isfinite(want)
+    assert lse.dtype == torch.float32 and lse.shape == want.shape
+    assert (lse[~seen] == torch.inf).all()
+    torch.testing.assert_close(lse[seen], want[seen], atol=LSE_TOL, rtol=LSE_TOL)
+
+
+def test_flash_lse_takes_no_gradient(cuda_device):
+    """``return_lse`` under autograd raises (the log-sum-exp is not
+    differentiated; the gradient path asks for it itself)."""
+    q = torch.randn(1, 2, 8, 64, device=cuda_device, requires_grad=True)
+    with pytest.raises(ValueError, match="return_lse takes no gradient"):
+        flash_ops.attention(q, q, q, return_lse=True)
 
 
 @pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv", [(1, 3, 1, 10, 13), (2, 4, 2, 129, 200)])
@@ -558,47 +607,78 @@ def _assert_bwd_within_limit(got, q, k, v, o, do, kw):
     (1, 8, 1, 130, 130, 256, dict(causal=True, window=64, softcap=50.0)),
     (1, 4, 2, 96, 40, 64, dict(causal=False, window=16)),
     (1, 6, 2, 96, 96, 64, dict(causal=True, window=1)),
+    (1, 4, 2, 63, 63, 128, dict(causal=True)),
+    (1, 4, 2, 127, 127, 256, dict(causal=True)),
+    (1, 4, 2, 128, 128, 64, dict(causal=True)),
+    (1, 4, 2, 1000, 1000, 256, dict(causal=True)),
+    (1, 4, 2, 63, 1000, 256, dict(causal=True)),
+    (1, 4, 2, 1000, 129, 128, dict(causal=False)),
+    (1, 8, 8, 200, 200, 256, dict(causal=True)),
+    (1, 8, 2, 200, 200, 256, dict(causal=True)),
+    (1, 8, 1, 200, 200, 64, dict(causal=True)),
+    (1, 4, 2, 700, 700, 256, dict(causal=True, window=300, softcap=50.0)),
+    (1, 4, 2, 96, 40, 256, dict(causal=False, window=16)),
 ])
 def test_flash_bwd_kernel_matches_plain_version(cuda_device, dtype, B, Hq, Hkv, Sq, Skv,
                                                 D, kw):
-    """The backward kernel (one count, three launches) against the plain
+    """The backward kernel (one count, on the route ``ops.bwd_route``
+    names: wgmma for bfloat16 at D 64/128/256, ffma else) against the plain
     version in float64, within ``ref.attention_bwd_limit`` (``BWD_ERR_FACTOR``
     times the float32 plain version's own error, plus the rounding to
-    bfloat16): ragged tiles,
-    Sq != Skv causal and not, every head width, GQA groups 1 to 8, windows,
-    softcap, rows that see no key."""
+    bfloat16), given the forward's log-sum-exp: ragged tiles, Sq != Skv
+    causal and not, every head width, GQA groups 1 to 8, windows, softcap,
+    rows that see no key."""
     q, k, v, do = _bwd_inputs(cuda_device, B, Hq, Hkv, Sq, Skv, D, dtype, Sq + D)
-    o = flash_ops.attention(q, k, v, **kw)
-    before = flash_ops.attention_bwd.launches
-    got = flash_ops.attention_bwd(q, k, v, o, do, **kw)
+    o, lse = flash_ops.attention(q, k, v, return_lse=True, **kw)
+    route = flash_ops.bwd_route(dtype, D)
+    before = flash_ops.attention_bwd.launches, flash_ops.attention_bwd.route_launches[route]
+    got = flash_ops.attention_bwd(q, k, v, o, do, lse, **kw)
     torch.cuda.synchronize()
-    assert flash_ops.attention_bwd.launches == before + 1
+    assert (flash_ops.attention_bwd.launches,
+            flash_ops.attention_bwd.route_launches[route]) == (before[0] + 1, before[1] + 1)
     _assert_bwd_within_limit(got, q, k, v, o, do, kw)
 
 
-def test_flash_bwd_repeats_bit_for_bit(cuda_device):
-    """No atomics: two backward calls give the same bytes."""
-    q, k, v, do = _bwd_inputs(cuda_device, 2, 12, 4, 300, 300, 64, torch.float32, 1)
-    o = flash_ops.attention(q, k, v, causal=True)
-    a = flash_ops.attention_bwd(q, k, v, o, do, causal=True)
-    b = flash_ops.attention_bwd(q, k, v, o, do, causal=True)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_repeats_bit_for_bit(cuda_device, dtype):
+    """No atomics: two backward calls give the same bytes, on each route."""
+    D = 64 if dtype == torch.float32 else 256
+    q, k, v, do = _bwd_inputs(cuda_device, 2, 12, 4, 300, 300, D, dtype, 1)
+    o, lse = flash_ops.attention(q, k, v, return_lse=True, causal=True)
+    a = flash_ops.attention_bwd(q, k, v, o, do, lse, causal=True)
+    b = flash_ops.attention_bwd(q, k, v, o, do, lse, causal=True)
     for x, y in zip(a, b):
         assert_same(x, y)
 
 
 def test_flash_bwd_refuses_what_it_does_not_take(cuda_device):
     x = torch.zeros(1, 2, 8, 48, device=cuda_device)
+    lse = torch.zeros(1, 2, 8, device=cuda_device)
     with pytest.raises(ValueError, match="head dim"):
-        flash_ops.attention_bwd(x, x, x, x, x)
+        flash_ops.attention_bwd(x, x, x, x, x, lse)
     y = torch.zeros(1, 2, 8, 64, device=cuda_device)
     with pytest.raises(ValueError, match="device and dtype"):
-        flash_ops.attention_bwd(y, y, y, y.bfloat16(), y)
+        flash_ops.attention_bwd(y, y, y, y.bfloat16(), y, lse)
+    with pytest.raises(ValueError, match="lse must be float32"):
+        flash_ops.attention_bwd(y, y, y, y, y, lse.bfloat16())
     e = torch.zeros(0, 2, 8, 64, device=cuda_device)
     before = flash_ops.attention_bwd.launches
-    dq, dk, dv = flash_ops.attention_bwd(e, e, e, e, e)
+    dq, dk, dv = flash_ops.attention_bwd(e, e, e, e, e, torch.zeros(0, 2, 8, device=cuda_device))
     assert dq.shape == e.shape and flash_ops.attention_bwd.launches == before
     info = flash_ops.bwd_kernel_info(torch.float32, 256)
     assert info["dkv"]["key_rows"] == 32 and info["dkv"]["shared_bytes"] <= 232448
+
+
+def test_flash_bwd_wgmma_builds_spill_nothing(cuda_device):
+    """Every build of the wgmma backward keeps its registers (no local
+    bytes) and fits a block's shared memory; its streamed tiles are 64 rows,
+    32 at D = 256."""
+    for D in flash_ops.WGMMA_HEAD_DIMS:
+        info = flash_ops.bwd_kernel_info(torch.bfloat16, D)
+        assert set(info) == {"prepass", "bwd_wgmma"}
+        assert all(k["local_bytes"] == 0 for k in info.values()), (D, info)
+        assert info["bwd_wgmma"]["shared_bytes"] <= 232448
+        assert info["bwd_wgmma"]["key_rows"] == (32 if D == 256 else 64)
 
 
 def test_attention_gradient_on_card_goes_through_the_kernel(cuda_device, monkeypatch):
@@ -622,7 +702,7 @@ def test_attention_gradient_on_card_goes_through_the_kernel(cuda_device, monkeyp
         before = flash_ops.attention_bwd.launches
         if dev != "cpu":
             with monkeypatch.context() as m:
-                for name in ("attention_ref", "attention_bwd_ref"):
+                for name in ("attention_ref", "attention_bwd_ref", "attention_lse_ref"):
                     m.setattr(flash_ref, name, lambda *a, **k: pytest.fail("plain version ran"))
                 loss, _ = loss_fn(model, tb)
                 loss.backward()

@@ -446,10 +446,10 @@ def test_bwd_ref_matches_autograd_and_jax_grad(B, Hq, Hkv, Sq, Skv, D, kw):
 
     q, k, v, do = _bwd_inputs(B, Hq, Hkv, Sq, Skv, D, seed=Sq + Skv)
     tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
-    o = ref.attention_ref(tq, tk, tv, **kw)
+    o, lse = ref.attention_ref(tq, tk, tv, return_lse=True, **kw)
     auto = torch.autograd.grad(o, (tq, tk, tv), torch.from_numpy(do))
     got = ref.attention_bwd_ref(tq.detach(), tk.detach(), tv.detach(), o.detach(),
-                                torch.from_numpy(do), **kw)
+                                torch.from_numpy(do), lse.detach(), **kw)
     _, vjp = jax.vjp(lambda a, b, c: j_ref.attention_ref(a, b, c, **kw),
                      *(jnp.asarray(a) for a in (q, k, v)))
     jgrads = vjp(jnp.asarray(do))
@@ -472,10 +472,11 @@ def test_bwd_ref_in_bfloat16_and_float64():
     kw = dict(causal=True, softcap=20.0)
     t64 = [torch.from_numpy(a).double() for a in (q, k, v, do)]
     want = ref.attention_bwd_ref(*t64[:3], ref.attention_ref(*t64[:3], **kw).double(),
-                                 t64[3], **kw)
+                                 t64[3], ref.attention_lse_ref(*t64[:2], **kw), **kw)
     assert all(w.dtype == torch.float64 for w in want)
     tb = [t.to(torch.bfloat16) for t in t64]
-    got = ref.attention_bwd_ref(*tb[:3], ref.attention_ref(*tb[:3], **kw), tb[3], **kw)
+    o, lse = ref.attention_ref(*tb[:3], return_lse=True, **kw)
+    got = ref.attention_bwd_ref(*tb[:3], o, tb[3], lse, **kw)
     for g, w in zip(got, want):
         assert g.dtype == torch.bfloat16
         _close(_f32(g), _f32(w), 2e-2)
@@ -491,29 +492,161 @@ def test_bwd_limit_holds_the_plain_version_and_catches_a_dropped_row(dtype, B, H
     dropped (a kernel that skips a row) does not."""
     q, k, v, do = (torch.from_numpy(a).to(dtype)
                    for a in _bwd_inputs(B, Hq, Hkv, Sq, Skv, D, seed=Sq + D))
-    o = ref.attention_ref(q, k, v, **kw)
+    o, lse = ref.attention_ref(q, k, v, return_lse=True, **kw)
     want64, want32, e32, limits = ref.attention_bwd_limit(q, k, v, o, do, **kw)
     assert all(w.dtype == torch.float64 for w in want64)
     assert all(e >= 0 for e in e32)
-    for g, w64, limit in zip(ref.attention_bwd_ref(q, k, v, o, do, **kw), want64, limits):
+    for g, w64, limit in zip(ref.attention_bwd_ref(q, k, v, o, do, lse, **kw), want64,
+                             limits):
         assert g.dtype == dtype and ((g.double() - w64).abs() <= limit).all()
     dropped = do.clone()
     dropped[:, :, 0] = 0
     fault = ref.attention_bwd_ref(q.double(), k.double(), v.double(), o.double(),
-                                  dropped.double(), **kw)
+                                  dropped.double(), lse, **kw)
     assert any(((f - w64).abs() > limit).any() for f, w64, limit in zip(fault, want64, limits))
 
 
 def test_bwd_wrapper_refusals():
     q = torch.zeros(1, 4, 8, 16)
     k = torch.zeros(1, 2, 8, 16)
+    lse = torch.zeros(1, 4, 8)
     with pytest.raises(ValueError, match="q's shape"):
-        ops.attention_bwd(q, k, k, q[:, :, :4], q)
+        ops.attention_bwd(q, k, k, q[:, :, :4], q, lse)
     with pytest.raises(ValueError, match="multiple"):
-        ops.attention_bwd(q, torch.zeros(1, 3, 8, 16), torch.zeros(1, 3, 8, 16), q, q)
+        ops.attention_bwd(q, torch.zeros(1, 3, 8, 16), torch.zeros(1, 3, 8, 16), q, q, lse)
+    with pytest.raises(ValueError, match="lse must be float32"):
+        ops.attention_bwd(q, k, k, q, q, lse[:, :, :4])
+    with pytest.raises(ValueError, match="lse must be float32"):
+        ops.attention_bwd(q, k, k, q, q, lse.double())
     meta = torch.zeros(1, 2, 8, 16, device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
-        ops.attention_bwd(meta, meta, meta, meta, meta)
-    before = ops.attention_bwd.launches
-    dq, dk, dv = ops.attention_bwd(q, k, k, q, q)      # the plain version: no launch
-    assert ops.attention_bwd.launches == before and dq.shape == q.shape
+        ops.attention_bwd(meta, meta, meta, meta, meta, torch.zeros(1, 2, 8, device="meta"))
+    before = ops.attention_bwd.launches, dict(ops.attention_bwd.route_launches)
+    dq, dk, dv = ops.attention_bwd(q, k, k, q, q, lse)   # the plain version: no launch
+    assert (ops.attention_bwd.launches, ops.attention_bwd.route_launches) == before
+    assert dq.shape == q.shape
+
+
+def test_bwd_route_follows_dtype_and_head_dim():
+    """``ops.bwd_route``: the wgmma backward takes bfloat16 at the wgmma
+    forward's head widths, FFMA the rest (every float32 width, bfloat16 at
+    D 16 and 32); dtypes and widths no backward takes raise."""
+    assert ops.BWD_ROUTES == ("ffma", "wgmma")
+    for D in ops.HEAD_DIMS:
+        assert ops.bwd_route(torch.float32, D) == "ffma"
+        assert ops.bwd_route(torch.bfloat16, D) == ("wgmma" if D in ops.WGMMA_HEAD_DIMS
+                                                    else "ffma")
+    assert ops.WGMMA_HEAD_DIMS == (64, 128, 256)
+    assert set(ops.BWD_KERNELS) == set(ops.BWD_ROUTES) == set(ops.BWD_ENTRIES)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.bwd_route(torch.bfloat16, 160)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.bwd_route(torch.float16, 64)
+    # the wgmma route's scratch: log2-unit lse and delta, rows padded to 64
+    assert ops.bwd_scratch_elems("wgmma", 2, 4, 65) == 2 * 2 * 4 * 128
+    assert ops.bwd_scratch_elems("ffma", 2, 4, 65) == 2 * 4 * 65
+
+
+# ---- the forward's log-sum-exp (written by every route when asked)
+
+LSE_CASES = [
+    (1, 4, 2, 40, 40, 16, dict(causal=True, softcap=5.0)),
+    (1, 2, 1, 33, 60, 32, dict(causal=False, window=9)),
+    (2, 4, 4, 48, 20, 16, dict(causal=False, window=8)),     # rows 27.. see no key
+]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,kw", LSE_CASES)
+def test_lse_ref_against_float64_and_blocked_sdpa(B, Hq, Hkv, Sq, Skv, D, kw):
+    """The plain log-sum-exp (``attention_ref(..., return_lse=True)``, what
+    ``ops.attention`` returns on CPU tensors) against a float64
+    ``logsumexp`` over the visible scores, +inf on a row that sees no key;
+    ``o`` is the call's without it, and sum_j exp(s - lse) v reproduces the
+    reference's ``blocked_sdpa`` on the same inputs."""
+    arrays = _inputs(B, Hq, Hkv, Sq, Skv, D, seed=Sq)
+    q, k, v = (torch.from_numpy(a).float() for a in arrays)
+    o, lse = ops.attention(q, k, v, return_lse=True, **kw)
+    assert torch.equal(o, ops.attention(q, k, v, **kw))
+    assert lse.dtype == torch.float32 and lse.shape == (B, Hq, Sq)
+    s, mask, _ = ref._scores(q.double(), k.double(), ct=torch.float64, **kw)
+    want = torch.logsumexp(torch.where(mask, s, -torch.inf), -1)
+    seen = mask.any(-1).expand_as(want)
+    assert torch.equal(torch.isinf(lse), ~seen) and (lse[~seen] > 0).all()
+    np.testing.assert_allclose(lse[seen].numpy(), want[seen].numpy(), rtol=2e-6, atol=2e-6)
+    assert torch.equal(ref.attention_lse_ref(q.double(), k.double(), **kw), want.where(
+        seen, torch.inf))
+    p = torch.where(mask, torch.exp(s - lse.double()[..., None]), 0.0)
+    o_lse = torch.einsum("bhqk,bhkd->bhqd", p, v.double().repeat_interleave(Hq // Hkv, 1))
+    jq, jk, jv = (jnp.asarray(np.swapaxes(a, 1, 2), jnp.float32) for a in arrays)
+    blocked = np.swapaxes(np.asarray(j_attention.blocked_sdpa(jq, jk, jv, q_chunk=Sq, **kw)),
+                          1, 2)
+    _close(o_lse.float().numpy(), blocked, 2e-5)
+
+
+# ---- the wgmma backward's roundings (bfloat16 at D 64/128/256)
+
+BWD_LONG = dict(B=1, Hq=2, Hkv=1, S=2048, D=256,
+                kw=dict(causal=True, window=4096, softcap=50.0))
+
+
+@functools.cache
+def _bwd_long_case():
+    """gemma2-2b's training layer cut to two query heads of one kv head:
+    bfloat16 inputs, the forward's output and log-sum-exp, and the
+    backward's limit (``ref.attention_bwd_limit``)."""
+    c = BWD_LONG
+    rng = np.random.default_rng(17)
+    shapes = [(c["B"], H, c["S"], c["D"]) for H in (c["Hq"], c["Hkv"], c["Hkv"], c["Hq"])]
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(sh)).bfloat16() for sh in shapes)
+    o, lse = ref.attention_ref(q, k, v, return_lse=True, **c["kw"])
+    return (q, k, v, o, do, lse), ref.attention_bwd_limit(q, k, v, o, do, **c["kw"])
+
+
+def _emulated_wgmma_bwd(q, k, v, o, do, lse, *, single, causal, window, softcap):
+    """The wgmma backward's numerics in plain torch: S and dP in float32
+    from bfloat16 inputs (each product exact), P = exp(S - lse), dS = P (dP
+    - delta) dcap in float32, then the three products with a register
+    operand take it as bfloat16 hi + lo (hi = bf16(x), lo = bf16(x - hi)),
+    or as one bfloat16 for the operands named in ``single`` (``"dS"``: dS
+    into dQ and dS^T into dK; ``"P"``: P^T into dV); float32 sums, one
+    rounding of each gradient to bfloat16."""
+    G, scale = q.shape[1] // k.shape[1], q.shape[3] ** -0.5
+    s, mask, dcap = ref._scores(q, k, causal=causal, window=window, softcap=softcap,
+                                ct=torch.float32)
+    qf, of, dof = (t.float() for t in (q, o, do))
+    kq, vq = (t.float().repeat_interleave(G, 1) for t in (k, v))
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vq) - (dof * of).sum(-1, keepdim=True))
+    ds = ds * dcap
+
+    def operand(x, name):
+        hi = x.bfloat16().float()
+        return hi if name in single else hi + (x - hi).bfloat16().float()
+
+    def per_kv_head(x):
+        return x.reshape(x.shape[0], k.shape[1], G, *x.shape[2:]).sum(2)
+
+    p, ds = operand(p, "P"), operand(ds, "dS")
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kq) * scale
+    dk = per_kv_head(torch.einsum("bhqk,bhqd->bhkd", ds, qf)) * scale
+    dv = per_kv_head(torch.einsum("bhqk,bhqd->bhkd", p, dof))
+    return tuple(t.bfloat16() for t in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("single", ["", "dS", "P"])
+def test_wgmma_bwd_rounding_against_the_bf16_limit(single):
+    """The wgmma backward's hazard: P^T, dS and dS^T enter their products
+    as bfloat16 register operands.  Split into bfloat16 hi + lo (what the
+    route ships) every gradient holds ``ref.attention_bwd_limit`` at
+    gemma2-2b's long causal, windowed, softcapped shape; one bfloat16
+    rounding of dS breaks dq's and dk's limits, one of P^T dv's, each by
+    more than 10x at thousands of elements."""
+    args, (want64, _, _, limits) = _bwd_long_case()
+    got = _emulated_wgmma_bwd(*args, single=single, **BWD_LONG["kw"])
+    broken = {"": (), "dS": ("dq", "dk"), "P": ("dv",)}[single]
+    for name, g, w64, limit in zip(("dq", "dk", "dv"), got, want64, limits):
+        ratio = ((g.double() - w64).abs() / limit)
+        if name in broken:
+            assert ratio.max() > 10 and (ratio > 1).sum() > 1000, name
+        else:
+            assert ratio.max() <= 1, (name, ratio.max().item())

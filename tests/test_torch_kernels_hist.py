@@ -30,6 +30,20 @@ def test_wrapper_matches_pallas_kernel(R, T, B):
     assert t_ops.hist.launches == before  # a CPU tensor never launches
 
 
+@pytest.mark.parametrize("H", [9, 14, 18])
+def test_bucket_counts_matches_reference(H):
+    """The twin of the reference's ``ops.bucket_counts`` (its Pallas kernel
+    up to 2^14 buckets in interpret mode, its scatter above), byte for
+    byte, without a launch on CPU tensors."""
+    db = random_dbmart(np.random.default_rng(H), n_patients=9, max_events=14)
+    mined = j_mining.mine_triangular(db.phenx, db.date, db.nevents)
+    seq, mask = np.array(mined.seq), np.array(mined.mask)
+    before = t_ops.hist.launches
+    got = t_ops.bucket_counts(torch.from_numpy(seq), torch.from_numpy(mask), H)
+    assert_same(got, j_ops.bucket_counts(seq, mask, H), "bucket_counts")
+    assert got.dtype == torch.int32 and t_ops.hist.launches == before
+
+
 @pytest.mark.parametrize("H", [10, 12, 14])
 def test_local_bucket_counts_matches_pallas_bucket_counts(H):
     db = random_dbmart(np.random.default_rng(3), n_patients=8, max_events=16)

@@ -266,6 +266,41 @@ def test_full_attention_matches_reference(Sq, impl):
     _close(got, want)
 
 
+@pytest.mark.parametrize("kv_len", [None, 21, 0])
+@pytest.mark.parametrize("impl", ["torch", "flash"])
+def test_full_attention_impl_and_kv_len_match_reference(impl, kv_len):
+    """``impl`` overrides the config's ``attn_impl``, and keys at and past
+    ``kv_len`` are masked, as the reference's ``full_attention(...,
+    impl='xla', kv_len=...)`` masks them (its Pallas kernel takes no
+    ``kv_len``; the port's ``'flash'`` gives the kernel the keys before it)."""
+    rng = np.random.default_rng(7)
+    q = rng.standard_normal((2, 24, 4, 16)).astype(np.float32)
+    k, v = (rng.standard_normal((2, 32, 2, 16)).astype(np.float32) for _ in range(2))
+    cfg = get_config("gemma2-2b", reduced=True)
+    kw = dict(causal=False, window=None, kv_len=kv_len)
+    want = j_attention.full_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                      dataclasses.replace(cfg, attn_impl="flash"),
+                                      impl="xla", **kw)
+    other = {"torch": "flash", "flash": "torch"}[impl]
+    got = attention.full_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                                   dataclasses.replace(cfg, attn_impl=other), impl=impl, **kw)
+    _close(got, want)
+    if kv_len == 0:
+        assert not got.any()
+
+
+@pytest.mark.parametrize("scale,kv_len,causal", [(0.3, None, True), (None, 25, True),
+                                                 (0.3, 25, False), (None, 0, False)])
+def test_blocked_sdpa_scale_and_kv_len_match_reference(scale, kv_len, causal):
+    rng = np.random.default_rng(13)
+    q = rng.standard_normal((1, 40, 4, 16)).astype(np.float32)
+    k, v = (rng.standard_normal((1, 40, 2, 16)).astype(np.float32) for _ in range(2))
+    kw = dict(causal=causal, window=None, softcap=None, scale=scale, kv_len=kv_len)
+    want = j_attention.blocked_sdpa(*(jnp.asarray(a) for a in (q, k, v)), q_chunk=8, **kw)
+    got = attention.blocked_sdpa(*(torch.from_numpy(a) for a in (q, k, v)), q_chunk=8, **kw)
+    _close(got, want)
+
+
 @pytest.mark.parametrize("window,softcap", [(None, None), (12, None), (None, 30.0),
                                             (12, 30.0)])
 def test_blocked_sdpa_matches_reference(window, softcap):

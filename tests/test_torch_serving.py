@@ -11,6 +11,9 @@ from a ``torch.Generator`` and cannot match ``jax.random`` bit for bit,
 so only their properties are checked.
 """
 import re
+import runpy
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -181,6 +184,25 @@ def test_launcher_runs_on_the_cpu(capsys):
     assert j_st["queries"] == st["queries"]
     served = r"serving ([0-9,]+) mined rows at tick (\d+)"
     assert re.search(served, out).groups() == re.search(served, j_out).groups()
+
+
+def test_serve_example_runs_the_reduced_launcher(monkeypatch, capsys):
+    """``examples/serve_lm_torch.py --device cpu`` serves what
+    ``examples/serve_lm.py`` serves with no argument: reduced tspm-mlho, 8
+    requests in batches of 4, each within the launcher's 24 new tokens."""
+    root = Path(__file__).resolve().parents[1] / "examples"
+    monkeypatch.syspath_prepend(str(root))
+    import serve_lm_torch
+
+    assert serve_lm_torch.args_for(["--device", "cpu"]) == [
+        "--arch", "tspm-mlho", "--reduced", "--requests", "8", "--batch", "4",
+        "--device", "cpu"]
+    assert serve_lm_torch.args_for(["--arch", "gemma2-2b"]) == ["--arch", "gemma2-2b"]
+    monkeypatch.setattr(sys, "argv", ["serve_lm_torch.py", "--device", "cpu"])
+    runpy.run_path(str(root / "serve_lm_torch.py"), run_name="__main__")
+    out = capsys.readouterr().out
+    assert "serving tspm-mlho on cpu" in out and "batch=4" in out
+    assert "served 8 requests" in out
 
 
 def test_engine_and_launcher_default_to_the_card():

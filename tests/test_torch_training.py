@@ -139,6 +139,43 @@ def test_update_matches_reference(dtype):
         _close(tm["grad_norm"], jm["grad_norm"], tol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_functional_update_matches_reference(dtype):
+    """The functional ``update`` (copies, then ``update_``) against the
+    reference's ``update`` over three steps, leaving its inputs as they
+    were."""
+    jdt, tdt = {"float32": (jnp.float32, torch.float32),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    cfg = dict(peak_lr=1e-2, warmup_steps=2, decay_steps=10)
+    rng = np.random.default_rng(3)
+    p = {"w": rng.standard_normal((6, 5)).astype(np.float32),
+         "s": rng.standard_normal(5).astype(np.float32)}
+    tp = {k: torch.tensor(v, dtype=tdt) for k, v in p.items()}
+    jp = {k: jnp.asarray(v, jdt) for k, v in p.items()}
+    ts, js = opt_lib.init(tp), j_opt.init(jp)
+    tol = 1e-6 if dtype == "float32" else 2 ** -8
+    for i in range(3):
+        g = {k: rng.standard_normal(v.shape).astype(np.float32) * 3 for k, v in p.items()}
+        tg = {k: torch.from_numpy(v).to(tdt) for k, v in g.items()}
+        kept = ({k: v.clone() for k, v in tp.items()}, {k: v.clone() for k, v in tg.items()},
+                {k: v.clone() for k, v in ts.mu.items()}, ts.step.clone())
+        new_p, new_s, tm = opt_lib.update(opt_lib.OptConfig(**cfg), tg, ts, tp)
+        jp, js, jm = j_opt.update(j_opt.OptConfig(**cfg),
+                                  {k: jnp.asarray(v, jdt) for k, v in g.items()}, js, jp)
+        for was, now in zip(kept[:3], (tp, tg, ts.mu)):
+            assert was.keys() == now.keys() and all(torch.equal(was[k], now[k]) for k in was)
+        assert torch.equal(kept[3], ts.step)
+        for k in p:
+            assert new_p[k].dtype == tdt and new_s.mu[k].dtype == torch.float32
+            _close(new_p[k], np.asarray(jp[k], np.float32), tol=tol, what=f"step {i} {k}")
+            _close(new_s.mu[k], js.mu[k], tol=1e-6)
+            _close(new_s.nu[k], js.nu[k], tol=1e-6)
+        assert int(new_s.step) == int(js.step) == i + 1
+        _close(tm["lr"], jm["lr"], tol=1e-7)
+        _close(tm["grad_norm"], jm["grad_norm"], tol=1e-5)
+        tp, ts = new_p, new_s
+
+
 # ---------------------------------------------------------------- one step
 
 @pytest.mark.parametrize("arch,impl", [("tspm-mlho", "auto"), ("gemma2-2b", "auto"),
