@@ -4,7 +4,7 @@ test (``chip_smoke.py``) does not take.
 Run from the root of a checkout, with one visible CUDA device:
 
     python3 card_probe.py [idle] [share] [price] [scratch] [flex] [psplit] [tf32] [count]
-                          [logits] [bwd] [lse] [step] [steptrace]
+                          [logits] [bwd] [lse] [step] [steptrace] [moe]
 
 (all when none is named; ``lse`` and ``step`` only with
 ``CARD_PROBE_BASE`` set).
@@ -91,7 +91,13 @@ Each prints one JSON line:
          a ``torch.profiler`` trace (CUDA activity): the step's host wall,
          the device's busy time (the union of its kernel, copy and memset
          intervals) and idle share, and device ms by kernel family
-         (attention forward and backward, matmuls, the rest).
+         (attention forward and backward, matmuls, the rest);
+  moe    where deepseek-moe-16b's serving time goes at full size: a warm
+         prefill wave (4 x 512 tokens) and a warm decode step (batch 4),
+         each traced like ``steptrace`` (device ms by family: attention,
+         matmuls, sorts and searches, gathers and scatters, the rest), and
+         the expert product alone (one ``torch.bmm`` at the decode's and
+         the prefill's capacity) against its bound.
 
 ``psplit`` and ``tf32`` build ``csrc/flash_attention.cu`` once more with
 ``-DFLASH_PROBES`` into ``build/probes/``, and ``count`` builds
@@ -610,8 +616,6 @@ def probe_step(torch) -> dict:
 
 
 def probe_steptrace(torch) -> dict:
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.configs import get_config
     from repro_torch.models import model as model_lib
     from repro_torch.training import optimizer as opt_lib, train_loop
@@ -628,21 +632,36 @@ def probe_steptrace(torch) -> dict:
         peak_lr=smoke.GEMMA_TRAIN_LR, warmup_steps=0, decay_steps=100))
     for _ in range(2):
         state, _ = step(state, batch)
+    metrics = {}
+    r = traced(torch, lambda: metrics.update(step(state, batch)[1]), {
+        "attention_bwd": ("bwd_wgmma_kernel", "prepass_kernel", "dq_kernel", "dkv_kernel"),
+        "attention_fwd": ATTENTION_FWD, "matmul": MATMUL})
+    return {"card": smoke.smi(), **r, "loss": float(metrics["loss"])}
+
+
+ATTENTION_FWD = ("flash_wgmma_kernel", "flash_tf32x3_kernel", "flash_kernel",
+                 "tf32x3_split_kernel")
+MATMUL = ("gemm", "gemv", "xmma", "cutlass", "nvjet")
+
+
+def traced(torch, fn, families: dict) -> dict:
+    """One call of ``fn`` under a ``torch.profiler`` trace (CUDA activity),
+    ended by a synchronize: its host wall, the device's busy time (the
+    union of its kernel, copy and memset intervals) and idle share, device
+    ms by kernel family (names containing a family's keys) and category,
+    and the eight longest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, metrics = step(state, batch)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         dev_int = smoke.device_intervals(path)
-    families = {"attention_bwd": ("bwd_wgmma_kernel", "prepass_kernel", "dq_kernel",
-                                  "dkv_kernel"),
-                "attention_fwd": ("flash_wgmma_kernel", "flash_tf32x3_kernel",
-                                  "flash_kernel", "tf32x3_split_kernel"),
-                "matmul": ("gemm", "xmma", "cutlass", "nvjet")}
     by_family = dict.fromkeys((*families, "other"), 0.0)
     for name, us in dev_int["by_kernel"].items():
         fam = next((f for f, keys in families.items() if any(k in name for k in keys)),
@@ -650,11 +669,64 @@ def probe_steptrace(torch) -> dict:
         by_family[fam] += us / 1e3
     busy = union_us(dev_int["spans"]) / 1e3
     top = sorted(dev_int["by_kernel"].items(), key=lambda kv: -kv[1])[:8]
-    return {"card": smoke.smi(), "wall_ms": wall * 1e3, "device_busy_ms": busy,
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
             "idle_share": 1 - busy / (wall * 1e3), "device_ms_by_family": by_family,
             "device_ms_by_category": {k: v / 1e3 for k, v in dev_int["by_cat"].items()},
-            "top_kernels_ms": [(n[:120], us / 1e3) for n, us in top],
-            "loss": float(metrics["loss"])}
+            "top_kernels_ms": [(n[:120], us / 1e3) for n, us in top]}
+
+
+MOE_FAMILIES = {"attention_fwd": ATTENTION_FWD, "matmul": MATMUL,
+                "sort_search": ("sort", "Sort", "radix", "Radix", "searchsorted", "cub::"),
+                "gather_scatter": ("index", "Index", "gather", "scatter")}
+
+
+def probe_moe(torch) -> dict:
+    """deepseek-moe-16b at full size (bf16, seeded init): a warm prefill
+    wave of the smoke's 4 x 512 tokens and a warm decode step at batch 4
+    after it, each traced (``traced``), and the expert product alone, one
+    ``torch.bmm`` of ``[64, c, 2048] @ [64, 2048, 1408]``, timed with CUDA
+    events at the decode's capacity (8) and the prefill's (240) beside its
+    bound (the weight bytes over 3.35 TB/s, the flops at 989 TFLOP/s)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib, moe
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config("deepseek-moe-16b")
+    mdl = model_lib.build(cfg)
+    params = mdl.init(torch.Generator(dev).manual_seed(smoke.SEED))
+    B, S = smoke.DEEPSEEK_BATCH, smoke.DEEPSEEK_PROMPT_LEN
+    toks = torch.randint(4, cfg.vocab_size, (B, S), device=dev,
+                         generator=torch.Generator(dev).manual_seed(smoke.SEED))
+    state = {}
+
+    def prefill():
+        caches = mdl.init_caches(B, smoke.DEEPSEEK_MAX_LEN, device=dev)
+        state["caches"] = mdl.apply(params, {"tokens": toks}, mode="prefill",
+                                    caches=caches)[1]
+
+    def decode():
+        state["caches"] = mdl.apply(params, {"tokens": toks[:, :1]}, mode="decode",
+                                    caches=state["caches"])[1]
+
+    for _ in range(2):
+        prefill()
+    out = {"card": smoke.smi(), "prefill": traced(torch, prefill, MOE_FAMILIES)}
+    for _ in range(3):
+        decode()
+    out["decode"] = traced(torch, decode, MOE_FAMILIES)
+    w = params.blocks[0].ffn.w_gate
+    e, d, ffe = w.shape
+    for name, n in (("decode", B), ("prefill", B * S)):
+        c = moe._capacity(n, cfg)
+        h = torch.randn(e, c, d, device=dev).to(w.dtype)
+        nbytes = (w.numel() + h.numel() + e * c * ffe) * w.element_size()
+        out[f"expert_bmm_{name}"] = {
+            "capacity": c, "ms": smoke.cuda_ms(torch, lambda: torch.bmm(h, w), 20),
+            "bound_ms": max(nbytes / smoke.HBM_BYTES_PER_S,
+                            2 * e * c * d * ffe / smoke.BF16_OPS_PER_S) * 1e3}
+    del params, state
+    torch.cuda.empty_cache()
+    return out
 
 
 def count_kernels(torch, calls: dict, tables: dict, want) -> dict:
@@ -832,7 +904,7 @@ def main(argv: list[str]) -> int:
               "scratch": probe_scratch, "flex": probe_flex, "psplit": probe_psplit,
               "tf32": probe_tf32, "count": probe_count, "logits": probe_logits,
               "bwd": probe_bwd, "lse": probe_lse, "step": probe_step,
-              "steptrace": probe_steptrace}
+              "steptrace": probe_steptrace, "moe": probe_moe}
     if not argv and "CARD_PROBE_BASE" not in os.environ:
         probes.pop("lse")
         probes.pop("step")

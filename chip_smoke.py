@@ -154,6 +154,35 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with
      ``scaled_dot_product_attention``, and at tspm-mlho's shape the ffma
      route is timed in turns with tf32x3, and tf32x3's pre-pass and main
      kernel are timed on the device from a ``torch.profiler`` trace;
+     then the MoE and VLM families, each model freed before the next and
+     allocated device memory after them within 1 GiB of before:
+     (d) deepseek-moe-16b's full widths (d 2,048, 64 experts of 1,408,
+     top-6, 2 shared, vocab 102,400) cut to 2 layers, in float32, the same
+     weights on the card and the CPU: one prefill of 2 x 128 seeded tokens
+     and 8 decode steps on each; every layer's routing (``eid``, ``keep``,
+     ``slot``) byte-equal first, a difference allowed only where the
+     CPU's k-th against (k+1)-th probability margin is below 1e-5 (the
+     smallest margin printed), then the logits of the requests whose
+     routing agreed in every layer within ``MOE_LOGIT_TOL`` (at least one
+     request compared), and the first MoE layer alone on one input;
+     (e) deepseek-moe-16b at full size (28 layers, bf16, seeded init on
+     the card) serves 8 seeded prompts of 512 tokens, 16 new each, through
+     ``ServeEngine(batch_size=4, max_len=640)``: 56 ``flash_attention``
+     launches, all wgmma, no backward; prefill s a wave, decode ms a step,
+     tokens/s, peak device memory and the first prefill's dropped
+     assignments at the config's capacity factor; then, at
+     ``capacity_factor=16`` (no drops), prefill + decode logits against
+     the train-mode forward at the same positions (the reference's check,
+     tests/test_archs_smoke.py), read in bfloat16 and held with the same
+     weights made float32 within 2e-3 on the requests whose routing agreed
+     on both paths (each flip at a margin below 1e-5);
+     (f) pixtral-12b at full size (40 layers, bf16): 2 requests of 1,024
+     seeded patch embeddings + 64 tokens through ``model.apply`` prefill
+     (40 launches, all wgmma, GQA 32/8), 8 decode steps, the same check at
+     offset ``n_patches`` in bfloat16, within ``BF16_CONSIST_REL``, a
+     limit the off-by-one rows must break; the kernel is timed at both prefill shapes
+     beside its bound, its plain version and
+     ``scaled_dot_product_attention``;
  10. trains (last): (a) tspm-mlho at full width cut to 2 layers, batch 8
      x 256 tokens of the launcher's corpus, initialised on the CPU and
      copied to the card: step 1's gradients per parameter within
@@ -235,6 +264,11 @@ BF16_REL = 2.0 ** -6
 # scores differ from the plain version's by float32 sums in another order
 # (3xTF32's ~2^-22 a product on tf32x3), and exp2 / log2 by 2^-22
 LSE_TOL = 2e-5
+# |SDPA - the kernel| below which the library computes the same function
+# (a wrong mask or scale moves o by O(1)): float32 1e-3; bfloat16 2^-4, a
+# few bfloat16 ulps of |o| <= max |v| ~ 4 (SDPA rounds P to bfloat16 before
+# P V, the wgmma route splits it into hi + lo)
+SDPA_SAME_FUNCTION = {"float32": 1e-3, "bfloat16": 2.0 ** -4}
 LM_PROMPT_LEN, LM_NEW_TOKENS, LM_REQUESTS = 896, 64, 16   # phase 9, tspm-mlho
 LM_BATCH, LM_MAX_LEN = 8, 1024
 GEMMA_PROMPT_LEN, GEMMA_NEW_TOKENS, GEMMA_REQUESTS = 8192, 8, 2
@@ -2366,8 +2400,9 @@ def time_flash(torch, q, k, v, *, causal, window, softcap, sdpa: bool,
             return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                   enable_gqa=True)
         lib_err = (call().float() - out.float()).abs().max().item()
-        require(lib_err < 1e-3, f"scaled_dot_product_attention computes another "
-                                f"function here (max |diff| {lib_err})")
+        require(lib_err < SDPA_SAME_FUNCTION[dtype],
+                f"scaled_dot_product_attention computes another function here "
+                f"(max |diff| {lib_err})")
         lib = cuda_ms(torch, call, 10)
     pairs = B * Hq * visible_pairs(Sq, k.shape[2], causal, window)
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, out))
@@ -2943,6 +2978,450 @@ def check_lm_serving(torch, raw_db, dev) -> tuple[dict, dict]:
     return out, timing
 
 
+# ---- phase 9 (d)-(f): the MoE and VLM families ------------------------------
+
+MOE_CHECK_LAYERS = 2           # (d): deepseek-moe-16b's full widths at 2 layers
+MOE_CHECK_BATCH, MOE_CHECK_PROMPT, MOE_CHECK_DECODE = 2, 128, 8
+# (d): a routing may differ between the card and the CPU only where the
+# CPU's k-th against (k+1)-th probability margin is below this
+MOE_NEAR_TIE = 1e-5
+# (d): max |card - CPU| of the float32 logits of the requests whose routing
+# agreed in every layer (prefill and each decode step; sound runs on an
+# H100 read 2.7e-6), and of the MoE layer alone (atol = rtol,
+# tests/test_moe_ssm.py's 2e-4)
+MOE_LOGIT_TOL = 1e-4
+MOE_LAYER_TOL = 2e-4
+DEEPSEEK_BATCH, DEEPSEEK_MAX_LEN = 4, 640                   # (e)
+DEEPSEEK_PROMPT_LEN, DEEPSEEK_NEW_TOKENS, DEEPSEEK_REQUESTS = 512, 16, 8
+UNBOUNDED_CAPACITY = 16.0      # capacity_factor at which no assignment drops
+CONSIST_BATCH, CONSIST_PROMPT, CONSIST_DECODE = 2, 120, 8   # (e)'s consistency check
+PIXTRAL_REQUESTS, PIXTRAL_TEXT, PIXTRAL_DECODE = 2, 64, 8   # (f)
+# (e), (f): prefill + decode logits against the train-mode forward's at the
+# same positions.  (e) holds deepseek-moe-16b's weights made float32 to
+# tests/test_archs_smoke.py's 2e-3 (atol = rtol) on the requests whose
+# routing agreed on both paths: in bfloat16 the two paths' roundings flip
+# experts at margins up to ~2e-2 in every request (on an H100: 182 of
+# 7,168 token-layers, a relative RMS of 0.109, 89% equal argmaxes), so
+# bfloat16 is read, not held.  (f) (dense) holds pixtral-12b's bfloat16
+# logits to a largest relative RMS of a row, |got - want|_2 / |want|_2, of
+# BF16_CONSIST_REL (0.0188 read on an H100); the rows held to the
+# positions one later (a planted off-by-one) must break it
+CONSIST_TOL = 2e-3
+BF16_CONSIST_REL = 0.05
+PHASE9_MEMORY_SLACK = 1 << 30  # allocated after (d)-(f) within this of before
+
+
+class RouteLog:
+    """While entered, ``models.moe.route`` also records each call: its
+    ``Routing`` (``full``), or its token count and the number of its
+    dropped assignments (a device scalar, read after the run), for the
+    first ``first`` calls."""
+
+    def __init__(self, full: bool = True, first: int | None = None):
+        self.full, self.first, self.calls = full, first, []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._moe, self._route = moe, moe.route
+
+        def route(p, xf, cfg):
+            r = self._route(p, xf, cfg)
+            if self.first is None or len(self.calls) < self.first:
+                self.calls.append(r if self.full else (xf.shape[0], (~r.keep).sum()))
+            return r
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+
+
+def per_assignment(torch, r, name: str):
+    """``r.keep`` / ``r.slot`` (sorted-assignment order) as ``[n, k]`` in
+    the order of ``r.eid``."""
+    v = getattr(r, name).cpu()
+    out = torch.empty_like(v)
+    out[r.order.cpu()] = v
+    return out.view(r.eid.shape)
+
+
+def top_k_margin(r):
+    """Each token's k-th against (k+1)-th probability margin (CPU)."""
+    k = r.eid.shape[1]
+    top = r.probs.sort(dim=-1, descending=True).values.cpu()
+    return top[:, k - 1] - top[:, k]
+
+
+def routing_agreement(torch, card: list, cpu: list, seq_lens: list) -> dict:
+    """Card against CPU routings of the same calls, layer by layer: ``eid``,
+    ``keep`` and ``slot`` byte-equal, except where the CPU's k-th against
+    (k+1)-th probability margin is below ``MOE_NEAR_TIE`` (any other
+    difference raises).  A token whose ``eid`` differs shifts later ranks
+    in its expert, so its call's other differences are then allowed too.
+    Returns the requests (a call's token ``t`` belongs to request ``t //
+    seq_len``) with any difference, the smallest margin seen and the
+    differing tokens."""
+    require(len(card) == len(cpu) == len(seq_lens),
+            f"{len(card)} card / {len(cpu)} CPU routings for {len(seq_lens)} calls")
+    bad, flips, min_margin = set(), 0, float("inf")
+    for g, w, S in zip(card, cpu, seq_lens):
+        margin = top_k_margin(w)
+        min_margin = min(min_margin, margin.min().item())
+        flipped = (g.eid.cpu() != w.eid).any(-1)
+        worst = margin[flipped].max().item() if flipped.any() else None
+        require(worst is None or worst < MOE_NEAR_TIE,
+                f"a routing differs at a margin of {worst}")
+        other = ((per_assignment(torch, g, "keep") != per_assignment(torch, w, "keep"))
+                 | (per_assignment(torch, g, "slot") != per_assignment(torch, w, "slot"))
+                 ).any(-1)
+        require(bool(flipped.any()) or not bool(other.any()),
+                "keep or slot differ with every expert id equal")
+        flips += int(flipped.sum())
+        bad |= {t // S for t in torch.nonzero(flipped | other).flatten().tolist()}
+    return {"differing_requests": sorted(bad), "flipped_tokens": flips,
+            "min_margin": min_margin}
+
+
+def prefill_decode(torch, mdl, params, tokens, n_prompt: int, n_decode: int, device,
+                   patches=None, max_len: int | None = None) -> dict:
+    """A prefill on ``tokens[:, :n_prompt]`` (after ``patches``), then
+    ``n_decode`` decode steps fed ``tokens[:, n_prompt + j]``: the
+    next-token logits ``[B, 1 + n_decode, V]`` (float32), the prefill's
+    seconds and flash launches (counts zeroed just before it) and each
+    decode step's ms (host clocks ended by a synchronize on the card)."""
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+    B = tokens.shape[0]
+    off = 0 if patches is None else patches.shape[1]
+    caches = mdl.init_caches(B, max_len or off + n_prompt + n_decode, device=device)
+    batch = {"tokens": tokens[:, :n_prompt]}
+    if patches is not None:
+        batch["patch_embeds"] = patches
+    sync()
+    zero_launches()
+    t0 = time.perf_counter()
+    logits, caches = mdl.apply(params, batch, mode="prefill", caches=caches)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    launches = read_launches()
+    out, decode_ms = [logits[:, -1].float()], []
+    for j in range(n_decode):
+        t0 = time.perf_counter()
+        logits, caches = mdl.apply(params, {"tokens": tokens[:, n_prompt + j:n_prompt + j + 1]},
+                                   mode="decode", caches=caches)
+        sync()
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(logits[:, 0].float())
+    del caches
+    return {"logits": torch.stack(out, 1), "prefill_s": prefill_s,
+            "prefill_launches": launches, "decode_ms": decode_ms}
+
+
+def path_routing(torch, cache_calls: list, train_calls: list, n_moe: int, B: int,
+                 P: int, T: int) -> dict:
+    """The prefill + decode path's routing against the train-mode
+    forward's, token by token (request b, position p, MoE layer l):
+    ``eid`` equal, else a flip, with the train path's k-th against (k+1)-th
+    probability margin there.  The cache path's calls are the prefill's
+    ``n_moe`` layers, then ``n_moe`` a decode step."""
+    k = train_calls[0].eid.shape[1]
+    flips, bad, worst = 0, set(), 0.0
+    for layer in range(n_moe):
+        tr = train_calls[layer]
+        want = tr.eid.view(B, P + T, k).cpu()
+        margin = top_k_margin(tr).view(B, P + T)
+        got = torch.cat([cache_calls[layer].eid.view(B, P, k)] + [
+            cache_calls[n_moe * (1 + j) + layer].eid.view(B, 1, k) for j in range(T)],
+            dim=1).cpu()
+        diff = (got != want).any(-1)
+        flips += int(diff.sum())
+        bad |= set(torch.nonzero(diff.any(-1)).flatten().tolist())
+        if diff.any():
+            worst = max(worst, margin[diff].max().item())
+    return {"differing_requests": sorted(bad), "flipped_token_layers": flips,
+            "token_layers": n_moe * B * (P + T), "largest_flip_margin": worst}
+
+
+def consistency(torch, mdl, params, tokens, n_prompt: int, n_decode: int, dev,
+                patches=None, n_moe: int = 0) -> dict:
+    """The reference's prefill/decode check (tests/test_archs_smoke.py)
+    on the card: prefill + decode logits against the train-mode forward's
+    at the same positions (offset by the patches).  Reads the largest
+    relative RMS of a row, |got - want|_2 / |want|_2, beside the same rows
+    held to the positions one later (a planted off-by-one), and, with
+    ``n_moe`` MoE layers, the two paths' routing (``path_routing``) and
+    the elements beyond ``CONSIST_TOL`` on the requests whose routing
+    agreed."""
+    with RouteLog() as cache_log:
+        r = prefill_decode(torch, mdl, params, tokens, n_prompt, n_decode, dev, patches)
+    batch = {"tokens": tokens[:, :n_prompt + n_decode]}
+    if patches is not None:
+        batch["patch_embeds"] = patches
+    with RouteLog() as train_log, torch.no_grad():
+        full, _ = mdl.apply(params, batch, mode="train")
+    a = (0 if patches is None else patches.shape[1]) + n_prompt - 1
+    want = full[:, a:a + n_decode + 1].float()
+    later = full[:, a + 1:a + n_decode + 1].float()
+    del full
+    got = r["logits"]
+
+    def rel(g, w):
+        return ((g - w).norm(dim=-1) / w.norm(dim=-1)).max().item()
+
+    out = {"dtype": str(params.embed.table.dtype).removeprefix("torch."),
+           "rows": got.shape[0] * got.shape[1], "rel_rms": rel(got, want),
+           "max_abs_diff": (got - want).abs().max().item(),
+           "max_abs_want": want.abs().max().item(),
+           "argmax_equal": (got.argmax(-1) == want.argmax(-1)).float().mean().item(),
+           "off_by_one_rel_rms": rel(got[:, :-1], later),
+           "prefill_s": r["prefill_s"], "decode_ms": r["decode_ms"],
+           "prefill_launches": {k: n for k, n in r["prefill_launches"].items()
+                                if k.startswith("flash_attention")}}
+    kept = list(range(got.shape[0]))
+    if n_moe:
+        out["routing"] = path_routing(torch, cache_log.calls, train_log.calls, n_moe,
+                                      tokens.shape[0], n_prompt, n_decode)
+        kept = [b for b in kept if b not in out["routing"]["differing_requests"]]
+    g, w = got[kept], want[kept]
+    out.update(compared_requests=kept, limit=CONSIST_TOL,
+               beyond_limit=int(((g - w).abs() > CONSIST_TOL + CONSIST_TOL * w.abs()).sum()))
+    return out
+
+
+def to_float32_(torch, module) -> None:
+    """``module``'s parameters made float32 in place, one at a time, each
+    old tensor's memory given back before the next (a model too large to
+    hold in both dtypes at once)."""
+    with torch.no_grad():
+        for p in module.parameters():
+            p.data = p.data.float()
+            torch.cuda.empty_cache()
+
+
+def check_moe_card_vs_cpu(torch, dev) -> dict:
+    """Phase 9 (d): deepseek-moe-16b's full widths cut to 2 layers, in
+    float32, initialised on the card and copied to the CPU: one prefill of
+    2 x 128 seeded tokens and 8 decode steps on each device; every layer's
+    routing compared first (``routing_agreement``), then the logits of the
+    requests whose routing agreed in every call, and the first MoE layer
+    alone on one input."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib, moe
+
+    cfg = get_config("deepseek-moe-16b").replace(n_layers=MOE_CHECK_LAYERS,
+                                                 dtype="float32")
+    mdl = model_lib.build(cfg)
+    params = mdl.init(torch.Generator(dev).manual_seed(SEED))
+    cpu_params = copy.deepcopy(params).to("cpu")
+    rng = np.random.default_rng(SEED)
+    B, P, T = MOE_CHECK_BATCH, MOE_CHECK_PROMPT, MOE_CHECK_DECODE
+    tokens = rng.integers(4, cfg.vocab_size, (B, P + T)).astype(np.int32)
+    runs, logs = {}, {}
+    for name, p, device in (("card", params, dev), ("cpu", cpu_params, "cpu")):
+        t0 = time.perf_counter()
+        with RouteLog() as log:
+            runs[name] = prefill_decode(torch, mdl, p, torch.from_numpy(tokens).to(device),
+                                        P, T, device)
+        runs[name]["s"] = time.perf_counter() - t0
+        logs[name] = log.calls
+    launches = runs["card"]["prefill_launches"]
+    require(launches["flash_attention"] == cfg.n_layers == launches["flash_attention.ffma"],
+            f"(d): {launches}")
+    seq_lens = [P] * cfg.n_layers + [1] * (cfg.n_layers * T)
+    agree = routing_agreement(torch, logs["card"], logs["cpu"], seq_lens)
+    kept = [b for b in range(B) if b not in agree["differing_requests"]]
+    require(len(kept) >= 1, f"(d): no request's routing agreed in every layer: {agree}")
+    g, w = runs["card"]["logits"].cpu()[kept], runs["cpu"]["logits"][kept]
+    logits_err = (g - w).abs().max().item()
+    dropped = [int((~r.keep).sum()) for r in logs["cpu"][:cfg.n_layers]]
+    del logs
+    # the first MoE layer alone on one input
+    x = torch.from_numpy(rng.standard_normal((B, P, cfg.d_model)).astype(np.float32))
+    layer = {}
+    for name, p, device in (("card", params, dev), ("cpu", cpu_params, "cpu")):
+        with RouteLog() as log, torch.no_grad():
+            y, aux = moe.apply(p.blocks[0].ffn, x.to(device), cfg)
+        layer[name] = (y.cpu(), float(aux), log.calls)
+    alone = routing_agreement(torch, layer["card"][2], layer["cpu"][2], [P])
+    same = [b for b in range(B) if b not in alone["differing_requests"]]
+    require(len(same) >= 1, f"(d): the MoE layer's routing agreed on no request: {alone}")
+    yg, yw = layer["card"][0][same], layer["cpu"][0][same]
+    layer_bad = ((yg - yw).abs() > MOE_LAYER_TOL + MOE_LAYER_TOL * yw.abs()).sum().item()
+    out = {"layers": cfg.n_layers, "d_model": cfg.d_model, "experts": cfg.n_experts,
+           "top_k": cfg.experts_per_token, "shared": cfg.n_shared_experts,
+           "params": model_lib.param_count(params), "batch": B, "prompt": P,
+           "decode_steps": T, "launches": {k: launches[k] for k in (
+               "flash_attention", "flash_attention.ffma")},
+           "routing": agree, "compared_requests": kept, "logits_max_diff": logits_err,
+           "logit_limit": MOE_LOGIT_TOL,
+           "max_abs_logit": w.abs().max().item(), "prefill_dropped_by_layer": dropped,
+           "card_s": runs["card"]["s"], "cpu_s": runs["cpu"]["s"],
+           "layer_alone": {"routing": alone, "compared_requests": same,
+                           "max_diff": (yg - yw).abs().max().item(), "beyond_limit": layer_bad,
+                           "aux_card": layer["card"][1], "aux_cpu": layer["cpu"][1]}}
+    print(f"phase 9 (d, deepseek-moe-16b widths at {cfg.n_layers} layers, card vs CPU): "
+          f"{json.dumps(out)}", flush=True)
+    require(logits_err <= MOE_LOGIT_TOL, f"(d): the logits differ by {logits_err}")
+    require(layer_bad == 0 and abs(layer["card"][1] - layer["cpu"][1])
+            <= 1e-6 * abs(layer["cpu"][1]), "(d): the MoE layer alone differs from the CPU's")
+    del params, cpu_params, runs, layer
+    return out
+
+
+def check_deepseek(torch, dev) -> tuple[dict, dict]:
+    """Phase 9 (e): deepseek-moe-16b at full size (28 layers, bfloat16,
+    seeded init on the card) serves 8 seeded prompts of 512 tokens, 16 new
+    tokens each, through ``ServeEngine(batch_size=4, max_len=640)``: two
+    waves, 56 ``flash_attention`` launches all on wgmma and no backward,
+    with the first prefill's dropped assignments at the config's capacity
+    factor; then the consistency check at ``capacity_factor=16``, read in
+    bfloat16 and held with the weights made float32 in place; and
+    ``flash_attention`` timed at its prefill shape."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+
+    cfg = get_config("deepseek-moe-16b")
+    mdl = model_lib.build(cfg)
+    t0 = time.perf_counter()
+    params = mdl.init(torch.Generator(dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(4, cfg.vocab_size, DEEPSEEK_PROMPT_LEN).astype(np.int32)
+               for _ in range(DEEPSEEK_REQUESTS)]
+    with RouteLog(full=False, first=cfg.n_layers) as log:
+        r = serve_on(torch, mdl, params, prompts, DEEPSEEK_NEW_TOKENS, dev, DEEPSEEK_BATCH,
+                     DEEPSEEK_MAX_LEN, timed=True)
+    n = DEEPSEEK_BATCH * DEEPSEEK_PROMPT_LEN
+    require([c[0] for c in log.calls] == [n] * cfg.n_layers,
+            f"(e): the first prefill's MoE calls took {[c[0] for c in log.calls]} tokens")
+    dropped = [int(c[1]) for c in log.calls]
+    launches = r["launches"]
+    require(r["waves"] == 2 and launches["flash_attention"] == cfg.n_layers * 2
+            == launches["flash_attention.wgmma"] and launches["flash_attention_bwd"] == 0,
+            f"(e): {launches} in {r['waves']} waves")
+    require(sorted(r["results"]) == list(range(DEEPSEEK_REQUESTS))
+            and all(len(t) == DEEPSEEK_NEW_TOKENS or t[-1] == 2 for t in r["results"].values()),
+            "(e): lost or short requests")
+    out = {k: r[k] for k in ("launches", "wall_s", "waves", "tokens", "tokens_per_s",
+                             "prefill_s_per_wave", "decode_ms_per_step", "decode_steps",
+                             "peak_device_bytes")}
+    from repro_torch.models import moe
+    c = moe._capacity(n, cfg)
+    out.update(params=model_lib.param_count(params), init_s=init_s,
+               prompt_len=DEEPSEEK_PROMPT_LEN, requests=DEEPSEEK_REQUESTS,
+               batch=DEEPSEEK_BATCH, capacity=c, capacity_factor=cfg.capacity_factor,
+               first_prefill_dropped=sum(dropped), first_prefill_dropped_by_layer=dropped,
+               assignments_per_layer=n * cfg.experts_per_token,
+               expert_bytes_per_step=sum(int(t.numel()) * t.element_size()
+                                         for name, t in params.named_parameters()
+                                         if ".ffn.w_" in name),
+               first_tokens=r["results"][0][:8].tolist())
+    print(f"phase 9 (e, deepseek-moe-16b): {json.dumps(out)}", flush=True)
+    del r
+    gen = torch.Generator(dev).manual_seed(SEED + 1)
+    tokens = torch.randint(4, cfg.vocab_size, (CONSIST_BATCH, CONSIST_PROMPT + CONSIST_DECODE),
+                           generator=gen, device=dev)
+    unbounded = model_lib.build(cfg.replace(capacity_factor=UNBOUNDED_CAPACITY))
+    args = (tokens, CONSIST_PROMPT, CONSIST_DECODE, dev)
+    out["consistency_bf16"] = consistency(torch, unbounded, params, *args, n_moe=cfg.n_layers)
+    print(f"phase 9 (e, bfloat16 consistency at capacity_factor={UNBOUNDED_CAPACITY}, read): "
+          f"{json.dumps(out['consistency_bf16'])}", flush=True)
+    to_float32_(torch, params)
+    unbounded = model_lib.build(unbounded.cfg.replace(dtype="float32"))   # float32 caches
+    c = out["consistency"] = consistency(torch, unbounded, params, *args, n_moe=cfg.n_layers)
+    print(f"phase 9 (e, float32 consistency at capacity_factor={UNBOUNDED_CAPACITY}): "
+          f"{json.dumps(c)}", flush=True)
+    require(c["compared_requests"] and c["beyond_limit"] == 0
+            and c["routing"]["largest_flip_margin"] < MOE_NEAR_TIE
+            and c["off_by_one_rel_rms"] > BF16_CONSIST_REL,
+            "(e): prefill + decode logits differ from the train-mode forward's")
+    del params
+    torch.cuda.empty_cache()
+    B, S = DEEPSEEK_BATCH, DEEPSEEK_PROMPT_LEN
+    q, k, v = (torch.randn(B, cfg.n_heads, S, cfg.hd, generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    timing = time_flash(torch, q, k, v, causal=True, window=None, softcap=None, sdpa=True)
+    print(f"phase 9 (deepseek-moe-16b attention): {json.dumps(timing)}", flush=True)
+    return out, timing
+
+
+def check_pixtral(torch, dev) -> tuple[dict, dict]:
+    """Phase 9 (f): pixtral-12b at full size (40 layers, bfloat16): 2
+    requests of 1,024 seeded patch embeddings and 64 seeded tokens through
+    ``model.apply`` prefill (40 ``flash_attention`` launches, all wgmma, at
+    GQA 32/8), then 8 decode steps, held to the train-mode forward at
+    offset ``n_patches`` within ``BF16_CONSIST_REL`` (``consistency``);
+    ``flash_attention`` timed at its prefill shape."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+
+    cfg = get_config("pixtral-12b")
+    mdl = model_lib.build(cfg)
+    t0 = time.perf_counter()
+    params = mdl.init(torch.Generator(dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(dev).manual_seed(SEED + 2)
+    patches = torch.randn(PIXTRAL_REQUESTS, cfg.n_patches, cfg.frontend_dim, generator=gen,
+                          device=dev)
+    tokens = torch.randint(4, cfg.vocab_size, (PIXTRAL_REQUESTS, PIXTRAL_TEXT + PIXTRAL_DECODE),
+                           generator=gen, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    c = consistency(torch, mdl, params, tokens, PIXTRAL_TEXT, PIXTRAL_DECODE, dev, patches)
+    require(c["rel_rms"] <= BF16_CONSIST_REL < c["off_by_one_rel_rms"],
+            f"(f): prefill + decode logits against the train-mode forward: {json.dumps(c)}")
+    launches = c["prefill_launches"]
+    require(launches["flash_attention"] == cfg.n_layers == launches["flash_attention.wgmma"]
+            and launches["flash_attention_bwd"] == 0, f"(f): {launches}")
+    S = cfg.n_patches + PIXTRAL_TEXT
+    out = {"params": model_lib.param_count(params), "init_s": init_s,
+           "requests": PIXTRAL_REQUESTS, "patches": cfg.n_patches, "text": PIXTRAL_TEXT,
+           "prefill_tokens": PIXTRAL_REQUESTS * S, "prefill_s": c["prefill_s"],
+           "decode_ms_per_step": sum(c["decode_ms"]) / len(c["decode_ms"]),
+           "launches": {k: launches[k] for k in ("flash_attention", "flash_attention.wgmma",
+                                                 "flash_attention_bwd")},
+           "peak_device_bytes": torch.cuda.max_memory_allocated(), "consistency": c}
+    print(f"phase 9 (f, pixtral-12b): {json.dumps(out)}", flush=True)
+    del params, patches
+    torch.cuda.empty_cache()
+    q = torch.randn(PIXTRAL_REQUESTS, cfg.n_heads, S, cfg.hd, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(PIXTRAL_REQUESTS, cfg.n_kv_heads, S, cfg.hd, generator=gen,
+                        device=dev).to(torch.bfloat16) for _ in range(2))
+    timing = time_flash(torch, q, k, v, causal=True, window=None, softcap=None, sdpa=True)
+    print(f"phase 9 (pixtral-12b attention): {json.dumps(timing)}", flush=True)
+    return out, timing
+
+
+def check_moe_vlm(torch, dev) -> tuple[dict, dict]:
+    """Phase 9 (d), (e), (f), each model freed before the next; allocated
+    device memory after them within ``PHASE9_MEMORY_SLACK`` of before."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out, timing = {"d_card_vs_cpu": check_moe_card_vs_cpu(torch, dev)}, {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["e_deepseek"], timing["deepseek"] = check_deepseek(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["f_pixtral"], timing["pixtral"] = check_pixtral(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated()
+    out.update(allocated_before_bytes=before, allocated_after_bytes=after,
+               phase_s=time.perf_counter() - t0)
+    require(after - before <= PHASE9_MEMORY_SLACK,
+            f"(d)-(f) left {after - before} B allocated")
+    return out, timing
+
+
 # ---- phase 10: training -----------------------------------------------------
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_PATIENTS = 8, 256, 512   # examples/train_lm_torch.py --full
@@ -3150,13 +3629,15 @@ def flash_rows(routes: dict, lm: dict, timing: dict) -> list:
     """The ``kernels`` line's rows of ``flash_attention``'s three routes:
     tf32x3 at tspm-mlho's shape (float32) and ffma timed in turns with it
     at the same shape, wgmma at gemma2-2b's global layer (bfloat16; both
-    layers beside it); launches from the serving runs (no served model
-    takes the ffma route since float32 at D 64 went to tf32x3), max_abs_err
-    over the route's edge cases (``routes``, phase 3b) and timed shapes."""
+    layers and the deepseek-moe-16b and pixtral-12b prefill shapes beside
+    it); launches from the serving runs (the full-size models serve on
+    tf32x3 and wgmma; ffma's are phase 9 (d)'s float32 D 128 prefill),
+    max_abs_err over the route's edge cases (``routes``, phase 3b) and
+    timed shapes."""
     t = timing["tspm_mlho"]
-    ffma = {**t, **t["beside"], "note": "no served model takes this route: it serves "
-            "float32 at D 16/32/128/256 and bfloat16 at D 16/32; timed in turns with "
-            "tf32x3 at tspm-mlho's shape"}
+    ffma = {**t, **t["beside"], "note": "it serves float32 at D 16/32/128/256 and "
+            "bfloat16 at D 16/32 (phase 9 (d)'s float32 D 128 prefill launches it); "
+            "timed in turns with tf32x3 at tspm-mlho's shape"}
     tf32x3 = {**t, "ms_turns_ffma": t["beside"]["ms_turns"]}
     rows = []
     for route, t, extra in (
@@ -3167,12 +3648,15 @@ def flash_rows(routes: dict, lm: dict, timing: dict) -> list:
             ("wgmma", timing["gemma2_global"],
              {"library": "flex_attention: card_probe.py flex (a compiled yardstick, "
                          "kept out of this script)",
-              **{n: timing[n] for n in ("gemma2_local", "gemma2_global")}})):
+              **{n: timing[n] for n in ("gemma2_local", "gemma2_global", "deepseek",
+                                        "pixtral")}})):
         rows.append({"name": f"flash_attention_{route}", "route": "cuda",
                      "source": "src/repro_torch/csrc/flash_attention.cu",
                      "replaces": "src/repro/kernels/flash_attention/flash.py:24",
                      "launches": lm["flash_launches"][route],
-                     "max_abs_err": max(routes[route]["max_abs_err"], t["max_abs_err"]),
+                     "max_abs_err": max([routes[route]["max_abs_err"], t["max_abs_err"]] + [
+                         timing[n]["max_abs_err"] for n in ("deepseek", "pixtral")
+                         if route == "wgmma"]),
                      "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                      "ms_lse": None if route == "ffma" else t["ms_lse"],
@@ -3322,6 +3806,13 @@ def main() -> int:
     lm, flash_t = check_lm_serving(torch, raw, dev)
     del raw
     lap("9_lm_serving")
+    lm["moe_vlm"], moe_t = check_moe_vlm(torch, dev)
+    flash_t.update(moe_t)
+    lm["flash_launches"]["wgmma"] += sum(
+        lm["moe_vlm"][n]["launches"]["flash_attention.wgmma"] for n in ("e_deepseek", "f_pixtral"))
+    lm["flash_launches"]["ffma"] += lm["moe_vlm"]["d_card_vs_cpu"]["launches"][
+        "flash_attention.ffma"]
+    lap("9def_moe_vlm")
     gc.collect()
     torch.cuda.empty_cache()
     train = {"a_card_vs_cpu": check_train_card_vs_cpu(torch, dev)}

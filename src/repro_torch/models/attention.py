@@ -9,6 +9,9 @@ device under ``impl="auto"`` (the config's ``attn_impl``):
     query chunks (never the ``[Sq, Skv]`` scores of the whole sequence),
     for CPU tensors only: it raises for a CUDA tensor.
 
+Under ``'flash'`` a single query row (Sq = 1) takes ``blocked_sdpa`` on
+either device, as the reference's dispatch does.
+
 Decode is a one-position einsum over the cache (linear, no blocking), as
 in the reference, which computes it outside any kernel.
 
@@ -112,11 +115,10 @@ def full_attention(q, k, v, cfg, *, causal, window, impl=None, kv_len=None):
 
     ``impl`` defaults to the config's ``attn_impl``; keys at and past
     ``kv_len`` are masked (under ``'flash'`` the kernel is given the keys
-    before it, which is the same function).  Under ``'flash'`` every Sq
-    takes the kernel (its plain version on the CPU); the reference sends
-    Sq = 1 to ``blocked_sdpa``, with the same values within the kernel's
-    tolerance."""
-    if resolve_impl(impl or cfg.attn_impl, q) == "flash":
+    before it, which is the same function).  Under ``'flash'`` Sq > 1
+    takes the kernel (its plain version on the CPU) and Sq = 1 takes
+    ``blocked_sdpa`` on either device, as in the reference."""
+    if resolve_impl(impl or cfg.attn_impl, q) == "flash" and q.shape[1] > 1:
         from repro_torch.kernels.flash_attention import ops as flash_ops
 
         if kv_len is not None and kv_len < k.shape[1]:

@@ -1,13 +1,17 @@
 """Carry the reference's parameters, and trees shaped like them, over to
 the port.
 
-The reference keeps a dense decoder's parameters as a tree
+The reference keeps a decoder's parameters as a tree
 (``transformer.init``'s: ``blk{i}`` stacked over the pattern's
 repetitions, linear weights ``[d_in, d_out]``), and so do its optimizer
 moments and gradients.  ``named_arrays(cfg, tree)`` maps any such tree to
 the port's parameter names (``Transformer.named_parameters()``): layer
 ``rep * len(pattern) + i`` is ``blk{i}[rep]``, and each linear weight is
-transposed to PyTorch's ``[d_out, d_in]``.  ``from_jax_params`` builds the
+transposed to PyTorch's ``[d_out, d_in]``.  An MoE layer's ``ffn`` is
+``router [d, e]``, ``w_gate`` / ``w_up [e, d, ffe]`` and ``w_down [e, ffe,
+d]`` in the reference's layout, which is the port's (``torch.bmm`` takes
+it as it is: no transpose), and ``shared.{gate,up,down}``, linear weights
+transposed as any other; a VLM's ``patch_proj`` is a linear weight.  ``from_jax_params`` builds the
 port's model from reference params, ``named_tensors`` gives a tree as
 tensors of the model's shapes (``train_loop.from_jax_train_state`` carries
 the moments so).  Leaves are numpy arrays (``jax.tree.map(np.asarray,
@@ -22,6 +26,7 @@ from repro_torch.models import transformer
 
 _NORMS = ("ln1", "ln2")
 _POST_NORMS = ("ln1b", "ln2b")
+_EXPERTS = ("router", "w_gate", "w_up", "w_down")    # kept as they are
 
 
 def named_arrays(cfg, tree) -> dict[str, np.ndarray]:
@@ -43,11 +48,21 @@ def named_arrays(cfg, tree) -> dict[str, np.ndarray]:
             out[f"{pre}.{name}.scale"] = np.asarray(blk[name]["scale"][rep])
         for name in ("wq", "wk", "wv", "wo"):
             linear(f"{pre}.attn.{name}", blk["attn"][name], rep)
-        for name in ("gate", "up", "down"):
-            linear(f"{pre}.ffn.{name}", blk["ffn"][name], rep)
+        ffn = blk["ffn"]
+        if pattern[i] == "moe":
+            for name in _EXPERTS:
+                out[f"{pre}.ffn.{name}"] = np.asarray(ffn[name][rep])
+            ffn, ffn_pre = ffn.get("shared"), f"{pre}.ffn.shared"
+        else:
+            ffn_pre = f"{pre}.ffn"
+        if ffn is not None:
+            for name in ("gate", "up", "down"):
+                linear(f"{ffn_pre}.{name}", ffn[name], rep)
     out["ln_f.scale"] = np.asarray(tree["ln_f"]["scale"])
     if not cfg.tie_embeddings:
         linear("head", tree["head"])
+    if cfg.family == "vlm":
+        linear("patch_proj", tree["patch_proj"])
     return out
 
 

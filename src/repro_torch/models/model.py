@@ -1,7 +1,7 @@
 """Model registry: family -> (init, apply, init_caches).
 
-The dense family (``transformer``) is ported; the others raise
-``NotImplementedError`` naming their ROADMAP item.  ``init`` takes an
+The dense, MoE and VLM families (``transformer``) are ported; the others
+raise ``NotImplementedError`` naming their ROADMAP item.  ``init`` takes an
 explicit ``torch.Generator`` in place of the reference's PRNG key and
 allocates on the generator's device; the entry points default to the card.
 """
@@ -14,7 +14,6 @@ import torch
 from repro_torch.models import transformer
 
 _NOT_PORTED = {
-    "moe": "MoE layers", "vlm": "the VLM family (patch-embed prefix)",
     "xlstm": "the xLSTM family", "hybrid": "the hybrid (Zamba) family",
     "encdec": "the encoder-decoder family",
 }
@@ -47,9 +46,8 @@ def build(cfg) -> Model:
         raise NotImplementedError(
             f"{cfg.name}: {_NOT_PORTED[fam]} is not ported yet "
             "(ROADMAP queue 1, item 17)")
-    if fam != "dense":
+    if fam not in ("dense", "moe", "vlm"):
         raise ValueError(f"unknown family {fam!r}")
-    transformer.pattern_of(cfg)            # refuses what the family lacks
 
     def init(generator=None, device="cuda"):
         device = resolve_device(generator.device if generator is not None else device)

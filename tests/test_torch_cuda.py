@@ -745,7 +745,8 @@ def test_train_steps_on_card_match_cpu(cuda_device):
     assert int(card.opt.step) == 3 and card.opt.mu["embed.table"].device.type == "cuda"
 
 
-@pytest.mark.parametrize("arch", ["tspm-mlho", "gemma2-2b"])
+@pytest.mark.parametrize("arch", ["tspm-mlho", "gemma2-2b", "deepseek-moe-16b",
+                                  "llama4-maverick-400b-a17b", "pixtral-12b"])
 def test_reduced_model_serves_on_card_as_on_cpu(cuda_device, arch):
     """Greedy serving of a reduced model: the card (flash kernel, one
     launch per layer per wave) gives the CPU's tokens."""
@@ -768,6 +769,96 @@ def test_reduced_model_serves_on_card_as_on_cpu(cuda_device, arch):
         rng = np.random.default_rng(0)
     for rid in results[0]:
         np.testing.assert_array_equal(results[0][rid], results[1][rid])
+
+
+# --- MoE and attention dispatch on the card ----------------------------------
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "llama4-maverick-400b-a17b"])
+def test_moe_apply_on_card_matches_cpu(cuda_device, arch):
+    """``moe.apply`` of a reduced MoE layer on the card against the CPU on
+    the same weights and input (float32): the routing (``eid``, ``order``,
+    ``keep``, ``slot``) byte-equal, ``y`` within 2e-4 and ``aux`` within
+    1e-6 relative; in bfloat16 the card's ``y`` repeats bit for bit (no
+    float atomics in the combine)."""
+    from repro_torch.models import moe
+
+    cfg = get_config(arch, reduced=True)
+    mdl = model_lib.build(cfg)
+    card = mdl.init(torch.Generator(cuda_device).manual_seed(0))
+    i = [b.kind for b in card.blocks].index("moe")
+    layer = card.blocks[i].ffn
+    cpu_layer = copy.deepcopy(layer).to("cpu")
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (3, 40, cfg.d_model)).astype(np.float32))
+    with torch.no_grad():
+        got_r = moe.route(layer, x.reshape(-1, cfg.d_model).to(cuda_device), cfg)
+        want_r = moe.route(cpu_layer, x.reshape(-1, cfg.d_model), cfg)
+        for name in ("eid", "order", "keep", "slot"):
+            assert_same(getattr(got_r, name), getattr(want_r, name), name)
+        y, aux = moe.apply(layer, x.to(cuda_device), cfg)
+        want, want_aux = moe.apply(cpu_layer, x, cfg)
+    torch.testing.assert_close(y.cpu(), want, atol=2e-4, rtol=2e-4)
+    assert float(aux) == pytest.approx(float(want_aux), rel=1e-6)
+    bf = copy.deepcopy(layer).to(torch.bfloat16)
+    bf.router.data = layer.router.data.clone()               # the router stays float32
+    xb = x.to(cuda_device, torch.bfloat16)
+    with torch.no_grad():
+        a, _ = moe.apply(bf, xb, cfg.replace(dtype="bfloat16"))
+        b, _ = moe.apply(bf, xb, cfg.replace(dtype="bfloat16"))
+    assert a.dtype == torch.bfloat16
+    assert_same(a, b, "bfloat16 y twice")
+
+
+def test_tf32_stays_off_for_float32_matmuls(cuda_device):
+    """Float32 router logits on the card must not run on TF32 (a flip of
+    experts at margins of ~1e-3): the port sets no TF32 switch, so after
+    building and serving a reduced MoE model both stay at PyTorch's
+    defaults."""
+    cfg = get_config("deepseek-moe-16b", reduced=True)
+    mdl = model_lib.build(cfg)
+    params = mdl.init(torch.Generator(cuda_device).manual_seed(0))
+    caches = mdl.init_caches(2, 16, device=cuda_device)
+    toks = torch.randint(4, cfg.vocab_size, (2, 8), device=cuda_device)
+    mdl.apply(params, {"tokens": toks}, mode="prefill", caches=caches)
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
+
+
+@pytest.mark.parametrize("Sq", [1, 2, 40])
+def test_one_query_row_never_reaches_the_kernel_on_card(cuda_device, Sq):
+    """Under ``'flash'`` a CUDA tensor with Sq = 1 takes ``blocked_sdpa``
+    (no launch), as the reference's dispatch, and equals the CPU's; Sq > 1
+    launches the kernel once."""
+    from repro_torch.models import attention
+
+    cfg = get_config("gemma2-2b", reduced=True).replace(attn_impl="flash")
+    rng = np.random.default_rng(Sq)
+    q = torch.from_numpy(rng.standard_normal((2, Sq, 4, 256)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((2, 40, 2, 256)).astype(np.float32))
+            for _ in range(2))
+    before = flash_ops.attention.launches
+    got = attention.full_attention(*(t.to(cuda_device) for t in (q, k, v)), cfg,
+                                   causal=False, window=None)
+    torch.cuda.synchronize()
+    assert flash_ops.attention.launches - before == (Sq > 1)
+    want = attention.full_attention(q, k, v, cfg, causal=False, window=None)
+    torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=2e-5)
+
+
+def test_flash_gqa_32_8_at_d128_takes_wgmma(cuda_device):
+    """pixtral-12b's attention shape (GQA 32/8, D 128, bfloat16, causal)
+    launches the wgmma route and equals the plain version within the
+    bfloat16 limit."""
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    q = torch.randn(1, 32, 300, 128, generator=gen, device=cuda_device).to(torch.bfloat16)
+    k, v = (torch.randn(1, 8, 300, 128, generator=gen, device=cuda_device)
+            .to(torch.bfloat16) for _ in range(2))
+    assert flash_ops.route(q.dtype, 128) == "wgmma"
+    before = flash_ops.attention.route_launches["wgmma"]
+    got = flash_ops.attention(q, k, v, causal=True)
+    assert flash_ops.attention.route_launches["wgmma"] - before == 1
+    want = flash_ref.attention_ref(q, k, v, causal=True)
+    atol, rtol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
 # --- the sharded engine and checkpoints on the card -------------------------

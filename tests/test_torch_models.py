@@ -1,13 +1,19 @@
-"""The port's dense decoder against the reference's, on carried-over weights.
+"""The port's decoder against the reference's, on carried-over weights.
 
 Weights come from the reference's own init (``model.build(cfg).init``)
-and cross with ``models.convert.from_jax_params``; tokens are numpy draws
-from a seed.  Logits of ``transformer.apply`` in modes ``train``,
-``prefill`` and ``decode`` (several steps) must agree within 2e-5, the
-tolerance of tests/test_attention.py, and so must the caches' ``pos`` and
-the keys and values they hold.  Reduced ``tspm-mlho`` (dense, GQA) and
-reduced ``gemma2-2b`` (local/global layers with window 16, both softcaps,
-post-norms, GeGLU, scaled embeddings) run on the CPU, where attention is
+and cross with ``models.convert.from_jax_params``; tokens (and a VLM's
+patch embeddings) are numpy draws from a seed.  Logits of
+``transformer.apply`` in modes ``train``, ``prefill`` and ``decode``
+(several steps) must agree within 2e-5, the tolerance of
+tests/test_attention.py, and so must the caches' ``pos`` and the keys and
+values they hold; where an MoE layer lies between, within 2e-4, the
+reference MoE test's tolerance (tests/test_moe_ssm.py), and the train
+mode's ``aux`` within 1e-6 relative.  Reduced ``tspm-mlho`` (dense, GQA),
+``gemma2-2b`` (local/global layers with window 16, both softcaps,
+post-norms, GeGLU, scaled embeddings), ``deepseek-moe-16b`` (MoE every
+layer, top-2 of 8, 2 shared), ``llama4-maverick-400b-a17b`` (dense and
+MoE layers interleaved, top-1, 1 shared) and ``pixtral-12b`` (8 projected
+patch embeddings before the tokens) run on the CPU, where attention is
 the plain ``blocked_sdpa``.
 """
 import dataclasses
@@ -26,8 +32,11 @@ from repro_torch.configs import ARCHS, get_config
 from repro_torch.models import attention, convert, layers, transformer
 from repro_torch.models import model as model_lib
 
-ARCH_CASES = ["tspm-mlho", "gemma2-2b"]
+ARCH_CASES = ["tspm-mlho", "gemma2-2b", "deepseek-moe-16b", "llama4-maverick-400b-a17b",
+              "pixtral-12b"]
 TOL = 2e-5
+MOE_TOL = 2e-4
+UNPORTED = ["xlstm-125m", "zamba2-2.7b", "seamless-m4t-large-v2"]
 
 
 def _f32(x) -> np.ndarray:
@@ -52,6 +61,24 @@ def _tokens(cfg, b, s, seed=1):
     return np.random.default_rng(seed).integers(4, cfg.vocab_size, (b, s)).astype(np.int32)
 
 
+def _tol(cfg):
+    return MOE_TOL if cfg.n_experts else TOL
+
+
+def _batch(cfg, toks, seed=1):
+    """``{"tokens"}``, with a VLM's patch embeddings ``[B, n_patches,
+    frontend_dim]`` (a seeded normal draw) before them."""
+    batch = {"tokens": toks}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = np.random.default_rng(seed + 100).standard_normal(
+            (toks.shape[0], cfg.n_patches, cfg.frontend_dim)).astype(np.float32)
+    return batch
+
+
+def _as(batch, fn):
+    return {k: fn(v) for k, v in batch.items()}
+
+
 def test_configs_resolve_the_same_arch_names():
     from repro.configs import ARCHS as J_ARCHS
 
@@ -66,30 +93,48 @@ def test_configs_resolve_the_same_arch_names():
 
 @pytest.mark.parametrize("arch", ARCH_CASES)
 def test_param_count_and_converted_values(arch):
+    """Linear weights transposed, expert weights and the router as they
+    are (``torch.bmm``'s layout is the reference's)."""
     cfg, jm, params, port = _pair(arch)
     assert model_lib.param_count(port) == j_model.param_count(params)
-    blk = params["blk1" if cfg.local_global else "blk0"]
-    layer = 1 if cfg.local_global else cfg.n_layers - 1
-    rep = layer // len(transformer.pattern_of(cfg))
+    pattern = transformer.pattern_of(cfg)
+    layer = cfg.n_layers - 1
+    blk = params[f"blk{layer % len(pattern)}"]
+    rep = layer // len(pattern)
     np.testing.assert_array_equal(
         port.blocks[layer].attn.wq.weight.numpy(),
         np.asarray(blk["attn"]["wq"]["w"][rep]).T)
-    pattern = transformer.pattern_of(cfg)
     assert port.blocks[layer].kind == pattern[layer % len(pattern)]
+    if pattern[-1] == "moe":
+        ffn, jffn = port.blocks[layer].ffn, blk["ffn"]
+        assert ffn.router.dtype == torch.float32
+        for name in ("router", "w_gate", "w_up", "w_down"):
+            np.testing.assert_array_equal(getattr(ffn, name).numpy(),
+                                          np.asarray(jffn[name][rep]), err_msg=name)
+        np.testing.assert_array_equal(ffn.shared.down.weight.numpy(),
+                                      np.asarray(jffn["shared"]["down"]["w"][rep]).T)
+    if cfg.family == "vlm":
+        np.testing.assert_array_equal(port.patch_proj.weight.numpy(),
+                                      np.asarray(params["patch_proj"]["w"]).T)
 
 
 @pytest.mark.parametrize("arch", ARCH_CASES)
 @pytest.mark.parametrize("seq", [8, 40])
 def test_train_logits_match_reference(arch, seq):
-    """seq 40 crosses gemma2's reduced window (16) on its local layers."""
+    """seq 40 crosses gemma2's reduced window (16) on its local layers; a
+    VLM's logits cover its patches and tokens; ``aux`` is the MoE layers'
+    sum (0 without them)."""
     cfg, jm, params, port = _pair(arch)
-    toks = _tokens(cfg, 2, seq)
-    want, aux = jm.apply(params, {"tokens": jnp.asarray(toks)}, mode="train")
-    got, got_aux = transformer.apply(port, {"tokens": torch.from_numpy(toks)}, cfg,
-                                     mode="train")
-    assert got.shape == want.shape == (2, seq, cfg.vocab_size)
-    _close(got, want)
-    assert float(got_aux) == float(aux) == 0.0
+    batch = _batch(cfg, _tokens(cfg, 2, seq))
+    want, aux = jm.apply(params, _as(batch, jnp.asarray), mode="train")
+    got, got_aux = transformer.apply(port, _as(batch, torch.from_numpy), cfg, mode="train")
+    assert got.shape == want.shape == (2, cfg.n_patches + seq, cfg.vocab_size)
+    _close(got, want, tol=_tol(cfg))
+    assert got_aux.dtype == torch.float32 and got_aux.shape == ()
+    if cfg.n_experts:
+        assert float(got_aux) == pytest.approx(float(aux), rel=1e-6) and float(aux) > 0
+    else:
+        assert float(got_aux) == float(aux) == 0.0
 
 
 def _caches_as_reference(cfg, caches):
@@ -105,25 +150,24 @@ def _caches_as_reference(cfg, caches):
 def _assert_caches_match(cfg, got, want, what):
     for g, w in zip(_caches_as_reference(cfg, got), want):
         np.testing.assert_array_equal(g["pos"], np.asarray(w["pos"]), err_msg=what)
-        _close(g["k"], w["k"], what=f"{what} k")
-        _close(g["v"], w["v"], what=f"{what} v")
+        _close(g["k"], w["k"], tol=_tol(cfg), what=f"{what} k")
+        _close(g["v"], w["v"], tol=_tol(cfg), what=f"{what} v")
 
 
 @pytest.mark.parametrize("arch", ARCH_CASES)
 def test_prefill_and_decode_match_reference(arch):
-    """Prefill 20 tokens, then 6 decode steps fed the reference's greedy
-    tokens: logits and caches agree at every step."""
+    """Prefill 20 tokens (after a VLM's patches), then 6 decode steps fed
+    the reference's greedy tokens: logits and caches agree at every step."""
     cfg, jm, params, port = _pair(arch)
     mdl = model_lib.build(cfg)
-    b, plen, max_len = 2, 20, 32
-    toks = _tokens(cfg, b, plen, seed=2)
+    b, plen, max_len = 2, 20, 32 + cfg.n_patches
+    batch = _batch(cfg, _tokens(cfg, b, plen, seed=2))
     jc = jm.init_caches(b, max_len)
     tc = mdl.init_caches(b, max_len, device="cpu")
-    want, jc = jm.apply(params, {"tokens": jnp.asarray(toks)}, mode="prefill", caches=jc)
-    got, tc = mdl.apply(port, {"tokens": torch.from_numpy(toks)}, mode="prefill",
-                        caches=tc)
+    want, jc = jm.apply(params, _as(batch, jnp.asarray), mode="prefill", caches=jc)
+    got, tc = mdl.apply(port, _as(batch, torch.from_numpy), mode="prefill", caches=tc)
     assert got.shape == want.shape == (b, 1, cfg.vocab_size)
-    _close(got, want, what="prefill logits")
+    _close(got, want, tol=_tol(cfg), what="prefill logits")
     _assert_caches_match(cfg, tc, jc, "prefill")
     for step in range(6):
         nxt = np.asarray(jnp.argmax(want[:, -1], -1)).astype(np.int32)[:, None]
@@ -131,25 +175,41 @@ def test_prefill_and_decode_match_reference(arch):
                             caches=jc)
         got, tc = mdl.apply(port, {"tokens": torch.from_numpy(nxt)}, mode="decode",
                             caches=tc)
-        _close(got, want, what=f"decode step {step} logits")
+        _close(got, want, tol=_tol(cfg), what=f"decode step {step} logits")
         _assert_caches_match(cfg, tc, jc, f"decode step {step}")
 
 
-def test_decode_equals_the_last_row_of_train():
+def _assert_decode_equals_train(cfg):
     """The port alone: prefill + decode steps give the train-mode logits
-    of the whole sequence at each position (the cache is exact)."""
-    cfg = get_config("gemma2-2b", reduced=True)
+    of the whole sequence at each position (the cache is exact), a VLM's
+    at offset ``n_patches``."""
     mdl = model_lib.build(cfg)
     port = mdl.init(torch.Generator("cpu").manual_seed(3))
-    toks = torch.from_numpy(_tokens(cfg, 2, 26, seed=4))
-    full, _ = mdl.apply(port, {"tokens": toks}, mode="train")
-    caches = mdl.init_caches(2, 32, device="cpu")
-    got, caches = mdl.apply(port, {"tokens": toks[:, :20]}, mode="prefill", caches=caches)
-    _close(got[:, 0], full[:, 19], tol=1e-4)
+    batch = _as(_batch(cfg, _tokens(cfg, 2, 26, seed=4)), torch.from_numpy)
+    toks, off = batch["tokens"], cfg.n_patches
+    full, _ = mdl.apply(port, batch, mode="train")
+    caches = mdl.init_caches(2, 32 + off, device="cpu")
+    got, caches = mdl.apply(port, dict(batch, tokens=toks[:, :20]), mode="prefill",
+                            caches=caches)
+    _close(got[:, 0], full[:, off + 19], tol=1e-4)
     for t in range(20, 26):
         got, caches = mdl.apply(port, {"tokens": toks[:, t:t + 1]}, mode="decode",
                                 caches=caches)
-        _close(got[:, 0], full[:, t], tol=1e-4, what=f"position {t}")
+        _close(got[:, 0], full[:, off + t], tol=1e-4, what=f"position {t}")
+
+
+def test_decode_equals_the_last_row_of_train():
+    _assert_decode_equals_train(get_config("gemma2-2b", reduced=True))
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "llama4-maverick-400b-a17b",
+                                  "pixtral-12b"])
+def test_decode_equals_train_at_unbounded_capacity(arch):
+    """``_assert_decode_equals_train`` for the MoE and VLM families, at
+    ``capacity_factor=16`` so that no assignment drops on either path (the
+    reference's own check, tests/test_archs_smoke.py)."""
+    cfg = get_config(arch, reduced=True)
+    _assert_decode_equals_train(cfg.replace(capacity_factor=16.0) if cfg.n_experts else cfg)
 
 
 def test_layers_match_reference():
@@ -193,11 +253,14 @@ def test_decode_attention_matches_reference(window, softcap):
     _close(got, want)
 
 
-def test_unported_families_and_devices_raise():
-    for arch in ("deepseek-moe-16b", "xlstm-125m", "zamba2-2.7b",
-                 "seamless-m4t-large-v2", "pixtral-12b", "llama4-maverick-400b-a17b"):
-        with pytest.raises(NotImplementedError, match="item 17"):
-            model_lib.build(get_config(arch, reduced=True))
+@pytest.mark.parametrize("arch", UNPORTED)
+def test_unported_families_and_devices_raise(arch):
+    cfg = get_config(arch, reduced=True)
+    assert cfg.family in ("xlstm", "hybrid", "encdec")
+    with pytest.raises(NotImplementedError, match="item 17"):
+        model_lib.build(cfg)
+    with pytest.raises(NotImplementedError, match="item 17"):
+        model_lib.build(get_config(arch))
     mdl = model_lib.build(get_config("tspm-mlho", reduced=True))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -249,9 +312,8 @@ def test_embed_lookup_out_of_range_ids_match_take(dtype, scale):
 def test_full_attention_matches_reference(Sq, impl):
     """``full_attention`` under each ``cfg.attn_impl`` against the
     reference's on the CPU; the reference's ``'xla'`` is the port's
-    ``'torch'``.  At Sq = 1 under ``'flash'`` the reference takes
-    ``blocked_sdpa`` and the port the kernel's plain version; at Sq = 128
-    the reference runs its Pallas kernel in interpret mode."""
+    ``'torch'``.  At Sq = 1 under ``'flash'`` both take ``blocked_sdpa``;
+    at Sq = 128 the reference runs its Pallas kernel in interpret mode."""
     rng = np.random.default_rng(Sq)
     Skv = max(Sq, 16)
     q = rng.standard_normal((2, Sq, 4, 16)).astype(np.float32)
@@ -311,3 +373,40 @@ def test_blocked_sdpa_matches_reference(window, softcap):
     want = j_attention.blocked_sdpa(*(jnp.asarray(a) for a in (q, k, v)), q_chunk=8, **kw)
     got = attention.blocked_sdpa(*(torch.from_numpy(a) for a in (q, k, v)), q_chunk=8, **kw)
     _close(got, want)
+
+
+@pytest.mark.parametrize("Sq", [1, 2, 17])
+def test_flash_sends_one_query_row_to_blocked_sdpa(monkeypatch, Sq):
+    """Under ``'flash'`` Sq = 1 never reaches ``flash_ops.attention`` (the
+    reference's dispatch, ``full_attention``'s ``q.shape[1] > 1``): the
+    calls are counted, and the values equal the reference's and the port's
+    own ``blocked_sdpa``; Sq > 1 calls the kernel's wrapper once."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    calls = []
+    attention_op = flash_ops.attention
+    monkeypatch.setattr(flash_ops, "attention",
+                        lambda *a, **kw: calls.append(1) or attention_op(*a, **kw))
+    rng = np.random.default_rng(20 + Sq)
+    q = rng.standard_normal((2, Sq, 4, 16)).astype(np.float32)
+    k, v = (rng.standard_normal((2, 9, 2, 16)).astype(np.float32) for _ in range(2))
+    cfg = get_config("gemma2-2b", reduced=True)
+    kw = dict(causal=False, window=None)
+    got = attention.full_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                                   dataclasses.replace(cfg, attn_impl="flash"), **kw)
+    assert len(calls) == (Sq > 1)
+    want = j_attention.full_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                      dataclasses.replace(cfg, attn_impl="flash"), **kw)
+    _close(got, want)
+    if Sq == 1:
+        plain = attention.blocked_sdpa(*(torch.from_numpy(a) for a in (q, k, v)),
+                                       causal=False, softcap=cfg.attn_softcap)
+        assert torch.equal(got, plain)
+    # a decode step's cache path never reaches full_attention at all
+    calls.clear()
+    mdl = model_lib.build(dataclasses.replace(cfg, attn_impl="flash"))
+    port = mdl.init(torch.Generator("cpu").manual_seed(0))
+    caches = mdl.init_caches(2, 8, device="cpu")
+    toks = torch.from_numpy(_tokens(cfg, 2, 1))
+    mdl.apply(port, {"tokens": toks}, mode="prefill", caches=caches)
+    assert not calls

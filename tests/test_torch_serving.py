@@ -6,7 +6,7 @@ sides, over 4 requests of mixed prompt lengths in 2 waves with an EOS
 stop, must give each request the same tokens.  A token may differ only
 where the reference's top-1/top-2 logit margin is under 1e-4 (a near
 tie); the test then reports it and holds the logits, teacher-forced on
-the reference's tokens, within 2e-5.  Temperature and top-k sampling draw
+the reference's tokens, within 2e-5 (2e-4 for the MoE family).  Temperature and top-k sampling draw
 from a ``torch.Generator`` and cannot match ``jax.random`` bit for bit,
 so only their properties are checked.
 """
@@ -75,10 +75,12 @@ def _assert_same_or_near_tie(cfg, jm, params, mdl, port, prompt, got, want, rid)
     assert margin < NEAR_TIE, f"request {rid}: token {t} differs at margin {margin}"
     port_logits = _teacher_forced(mdl.apply, port, prompt, want,
                                   lambda a: torch.from_numpy(a))
-    np.testing.assert_allclose(port_logits, ref, atol=2e-5, rtol=2e-5)
+    tol = 2e-4 if cfg.n_experts else 2e-5       # tests/test_torch_models.py's
+    np.testing.assert_allclose(port_logits, ref, atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("arch", ["tspm-mlho", "gemma2-2b"])
+@pytest.mark.parametrize("arch", ["tspm-mlho", "gemma2-2b", "deepseek-moe-16b",
+                                  "llama4-maverick-400b-a17b", "pixtral-12b"])
 def test_greedy_engine_matches_reference(arch):
     cfg, jm, params, mdl, port = _pair(arch)
     requests = _requests(cfg)
@@ -184,6 +186,22 @@ def test_launcher_runs_on_the_cpu(capsys):
     assert j_st["queries"] == st["queries"]
     served = r"serving ([0-9,]+) mined rows at tick (\d+)"
     assert re.search(served, out).groups() == re.search(served, j_out).groups()
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "pixtral-12b"])
+def test_launcher_serves_moe_and_vlm_on_the_cpu(capsys, arch):
+    """``--arch deepseek-moe-16b`` / ``pixtral-12b`` at ``--reduced
+    --device cpu``: the launcher's defaults serve them through ``build``
+    (pixtral as text: the engine takes no patch input, as the
+    reference's)."""
+    cfg = get_config(arch, reduced=True)
+    results = serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                          "--requests", "4", "--max-new", "6"])
+    assert sorted(results) == list(range(4))
+    assert all(0 < len(v) <= 6 and ((0 <= v) & (v < cfg.vocab_size)).all()
+               for v in results.values())
+    out = capsys.readouterr().out
+    assert f"serving {arch} on cpu" in out and "served 4 requests" in out
 
 
 def test_serve_example_runs_the_reduced_launcher(monkeypatch, capsys):
