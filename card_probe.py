@@ -4,9 +4,9 @@ test (``chip_smoke.py``) does not take.
 Run from the root of a checkout, with one visible CUDA device:
 
     python3 card_probe.py [idle] [share] [price] [scratch] [flex] [psplit] [tf32] [count]
-                          [logits] [bwd] [lse] [step] [steptrace] [moe]
+                          [logits] [bwd] [lse] [widths] [step] [steptrace] [moe]
 
-(all when none is named; ``lse`` and ``step`` only with
+(all when none is named; ``lse``, ``widths`` and ``step`` only with
 ``CARD_PROBE_BASE`` set).
 Each prints one JSON line:
 
@@ -79,6 +79,16 @@ Each prints one JSON line:
          such as the commit before the pointer), timed in turns (base,
          null, pointer, pointer, null, base), with ``o`` of the three
          compared byte for byte;
+  widths the forward at the widths served before D 160, in turns with
+         the checkout at ``$CARD_PROBE_BASE``'s build of
+         ``flash_attention.cu`` (its entries take the log-sum-exp pointer,
+         as this one's do; built with the port's flags into
+         ``build/probes/``): the wgmma route at gemma2-2b's global layer
+         (D 256), deepseek-moe-16b's and pixtral-12b's prefill shapes (D
+         128), the tf32x3 route at tspm-mlho's (D 64), each launched as
+         serving launches it (null log-sum-exp pointer), in turns (base,
+         this, this, base), with ``o`` compared byte for byte; and this
+         build alone at zamba2-2.7b's (D 160);
   bwd    each kernel's device time of ``flash_attention_bwd`` at
          tspm-mlho's and gemma2-2b's training layers (the smoke's
          ``BWD_MODEL_SHAPES``), from a ``torch.profiler`` trace taken first
@@ -499,10 +509,10 @@ def probe_tf32(torch) -> dict:
 
 
 @functools.cache
-def base_entries() -> dict:
+def base_entries(with_lse: bool = False) -> dict:
     """The forward's wgmma and tf32x3 entries as ``$CARD_PROBE_BASE``'s
-    ``flash_attention.cu`` has them (no log-sum-exp pointer), built with
-    the port's flags into ``build/probes/``."""
+    ``flash_attention.cu`` has them (with or without the log-sum-exp
+    pointer), built with the port's flags into ``build/probes/``."""
     import subprocess
 
     from repro_torch.kernels import _build
@@ -520,7 +530,8 @@ def base_entries() -> dict:
     for route in ("wgmma", "tf32x3"):
         name, argtypes = ops.ENTRIES[route]
         fn = getattr(dll, name)
-        fn.argtypes, fn.restype = argtypes[:4] + argtypes[5:], ctypes.c_int
+        fn.argtypes = argtypes if with_lse else argtypes[:4] + argtypes[5:]
+        fn.restype = ctypes.c_int
         out[route] = fn
     return out
 
@@ -563,6 +574,65 @@ def probe_lse(torch) -> dict:
                      **{f"{n}_ms": t for n, t in turns.items()},
                      "o_identical": all(torch.equal(outs["base"], outs[n])
                                         for n in ("null", "pointer"))}
+    return out
+
+
+def probe_widths(torch) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(dev).manual_seed(smoke.SEED)
+
+    def qkv(B, Hq, Hkv, S, D, dtype):
+        return [torch.randn(B, H, S, D, generator=gen, device=dev).to(dtype)
+                for H in (Hq, Hkv, Hkv)]
+
+    (gq, gk, gv), _ = gemma_layers(torch, dev)
+    gemma = get_config("gemma2-2b")
+    tspm = get_config("tspm-mlho")
+    cases = {
+        "gemma2_global": ((gq, gk, gv), dict(causal=True, window=None,
+                                             softcap=gemma.attn_softcap)),
+        "deepseek": (qkv(smoke.DEEPSEEK_BATCH, 16, 16, smoke.DEEPSEEK_PROMPT_LEN, 128,
+                         torch.bfloat16), dict(causal=True, window=None, softcap=None)),
+        "pixtral": (qkv(2, 32, 8, 1088, 128, torch.bfloat16),
+                    dict(causal=True, window=None, softcap=None)),
+        "tspm_mlho": (qkv(smoke.LM_BATCH, tspm.n_heads, tspm.n_kv_heads, smoke.LM_PROMPT_LEN,
+                          tspm.hd, torch.float32), dict(causal=True, window=None, softcap=None)),
+    }
+    out = {"card": smoke.smi(), "base": os.environ["CARD_PROBE_BASE"]}
+    for name, ((q, k, v), kw) in cases.items():
+        route = ops.route(q.dtype, q.shape[3])
+        outs = {n: torch.empty_like(q) for n in ("base", "this")}
+        scratch = torch.empty(ops.tf32x3_scratch_elems(k.shape), dtype=torch.float32,
+                              device=dev) if route == "tf32x3" else None
+
+        def base():
+            ptrs, mask = ops.entry_args(q, k, v, outs["base"], **kw)
+            extra = [scratch.data_ptr()] if scratch is not None else []
+            rc = base_entries(True)[route](*ptrs, *extra, *mask,
+                                           torch.cuda.current_stream(dev).cuda_stream)
+            if rc:
+                raise RuntimeError(f"base {route}: CUDA error {rc}")
+
+        calls = {"base": base,
+                 "this": lambda: ops._launch(q, k, v, outs["this"], scratch=scratch, **kw)}
+        turns = smoke.in_turns(torch, calls, 20)
+        ms = {n: sum(t) / len(t) for n, t in turns.items()}
+        out[name] = {"route": route, "shape": f"q {list(q.shape)} k {list(k.shape)} {kw}",
+                     **{f"{n}_ms": t for n, t in turns.items()},
+                     "base_mean_ms": ms["base"], "this_mean_ms": ms["this"],
+                     "this_over_base": ms["this"] / ms["base"],
+                     "o_identical": torch.equal(outs["base"], outs["this"])}
+        del q, k, v, outs, scratch
+    zq, zk, zv = qkv(2, 32, 32, 4096, 160, torch.bfloat16)
+    zo = torch.empty_like(zq)
+    kw = dict(causal=True, window=None, softcap=None)
+    turns = smoke.in_turns(torch, {"this": lambda: ops._launch(zq, zk, zv, zo, **kw)}, 20)
+    out["zamba2"] = {"route": ops.route(zq.dtype, 160), "shape": f"q {list(zq.shape)} {kw}",
+                     "this_ms": turns["this"],
+                     "this_mean_ms": sum(turns["this"]) / len(turns["this"])}
     return out
 
 
@@ -903,11 +973,11 @@ def main(argv: list[str]) -> int:
     probes = {"idle": probe_idle, "share": probe_share, "price": probe_price,
               "scratch": probe_scratch, "flex": probe_flex, "psplit": probe_psplit,
               "tf32": probe_tf32, "count": probe_count, "logits": probe_logits,
-              "bwd": probe_bwd, "lse": probe_lse, "step": probe_step,
+              "bwd": probe_bwd, "lse": probe_lse, "widths": probe_widths, "step": probe_step,
               "steptrace": probe_steptrace, "moe": probe_moe}
     if not argv and "CARD_PROBE_BASE" not in os.environ:
-        probes.pop("lse")
-        probes.pop("step")
+        for name in ("lse", "widths", "step"):
+            probes.pop(name)
     for name in argv or list(probes):
         t0 = time.perf_counter()
         result = probes[name](torch)

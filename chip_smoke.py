@@ -36,8 +36,14 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with
      Sq != Skv (63/1,000, 1,000/129) causal and not at each of its head
      widths, GQA groups 1/2/4/8, windows 1 and 300 with softcap 50 and rows
      that see no key at D = 256; the float32 cases at D = 64 (with a window
-     of 300 and softcap 50 added at S = 700) take the tf32x3 route; each
-     case must launch the route ``ops.route`` names for it; then
+     of 300 and softcap 50 added at S = 700) take the tf32x3 route; D 160
+     (wgmma's three 64-column boxes in bfloat16, ffma in float32) at S =
+     1/63/127/128/129/1,000, Sq != Skv (63/1,000, 1,000/129) causal and
+     not, GQA groups 1/2/4/8, windows 1 and 300 with softcap 50 and rows
+     that see no key, its last 32 columns also held on their own; each
+     case must launch the route ``ops.route`` names for it; every forward
+     build's registers, spill and shared memory printed (the tensor-core
+     builds and float32 D 160 must spill nothing); then
      ``flash_attention_bwd`` (each build's registers, spill and shared
      memory printed once) against ``attention_bwd_ref`` in float64 at
      S = 1/127/128/129, Sq != Skv causal and not, D = 16/32/64/128/256,
@@ -103,19 +109,19 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with
      and the corpus-free counting pass alone to peak under 1 GB of device
      memory; it times ``tspm_fused`` there;
   8. drives the streaming path at Table 1 (between phases 6 and 7): the
-     stream fit, an 8-wave replay through ``session.submit``/``run``, the
+     stream fit, a 4-wave replay through ``session.submit``/``run``, the
      same replay of the cohort's first 1,248 patients under a 1 GiB budget
      (eviction, host-tier restores) and the fused screen on the stream
      engine, each with the launch counts zeroed just before and read just
      after (``tspm_delta`` launches = ticks); the sketch table must equal
      the batch engine's and the rows the batch rows as multisets (sorted on
      the card), the evicting replay the plain replay's rows of its patients
-     row for row; then (e) the 8-wave replay through 4 shards
+     row for row; then (e) the 4-wave replay through 4 shards
      (``placement='host'``, hash router, rebalancing every 32 ticks, the 64
      heaviest patients migrated after wave 2): ``tspm_delta`` launches =
      shard ticks, merged table = the batch table, rows = the batch rows as
      multisets; (f) the same under ``placement='devices'`` (every shard on
-     the card, two-pass ticks, async admits), checkpointed after wave 4,
+     the card, two-pass ticks, async admits), checkpointed after wave 2,
      restored in this process and finished there: byte-identical to (e),
      journaled across the restore, and its journal verifies; (g) (c) again
      with a tick journal: byte-identical to (c), the journal verifies
@@ -183,6 +189,30 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with
      limit the off-by-one rows must break; the kernel is timed at both prefill shapes
      beside its bound, its plain version and
      ``scaled_dot_product_attention``;
+     then the xLSTM and hybrid families, each model freed before the next
+     and allocated device memory after them within 1 GiB of before:
+     (g) zamba2-2.7b's and xlstm-125m's full widths cut to 6 layers
+     (zamba2: one group of 6 Mamba2 layers and one shared attention
+     invocation at D 160, on ffma in float32; xlstm: 5 mLSTM and 1 sLSTM),
+     in float32, the same weights on the card and the CPU: one prefill of
+     1 x 256 seeded tokens and 8 decode steps on each, logits within
+     ``RECUR_LOGIT_REL`` of the CPU's largest |logit|;
+     (h) zamba2-2.7b at full size (54 Mamba2 layers, 2 shared blocks of 32
+     heads x 160, bf16, seeded init on the card) serves 2 seeded prompts of
+     4,096 tokens, 32 new each, through ``ServeEngine(batch_size=2,
+     max_len=4128)``: one wave, 9 ``flash_attention`` launches, all wgmma
+     at D 160 (each launch's head width recorded), no backward; prefill s a
+     wave, decode ms a step, tokens/s and peak device memory; then prefill
+     + decode logits against the train-mode forward (under no_grad) at 1 x
+     (1,024 + 128) tokens (both in chunks of 128), read in bf16 and held
+     with the weights made float32 within 2e-3; the kernel timed at the prefill shape (q
+     [2,32,4,096,160]) beside its bound, its plain version and
+     ``scaled_dot_product_attention``, and the ffma route at float32 D 160
+     (q [1,32,1,024,160]);
+     (i) xlstm-125m at full size (12 layers, bf16) serves 4 seeded prompts
+     of 2,048 tokens, 32 new each, through ``ServeEngine(batch_size=4,
+     max_len=2080)``: no ``flash_attention`` launch; the same readings and
+     the same consistency check at 2 x (512 + 128) tokens;
  10. trains (last): (a) tspm-mlho at full width cut to 2 layers, batch 8
      x 256 tokens of the launcher's corpus, initialised on the CPU and
      copied to the card: step 1's gradients per parameter within
@@ -225,7 +255,10 @@ BUDGET_BYTES = 4 << 30         # budget_bytes of the chunked/files/fused runs
 SMALL_BUDGET_BYTES = 512 << 20  # ... of a second chunked run (many small chunks)
 CHECK_BUDGET_BYTES = 32 << 20  # ... of the card-vs-CPU runs (several chunks)
 CHECK_DISK_BYTES = 16 << 20    # disk_bytes of the card-vs-CPU stream run
-STREAM_WAVES = 8               # deltas a patient in the replays of phase 8
+# deltas a patient in the replays of phase 8: 4 (with 8 the smoke read
+# 1,002 s of its 1,200 s limit on a slow host)
+STREAM_WAVES = 4
+STREAM_CHECKPOINT_WAVE = 2     # (f): waves before its checkpoint
 STREAM_BUDGET_BYTES = 1 << 30  # budget_bytes of phase 8's evicting replay
 # patients of the evicting replay (the cohort's first quarter, 78 ticks a
 # wave): 1 GiB of the store's cost model holds ~445 whole Table 1 histories
@@ -643,7 +676,10 @@ def flash_edge_cases():
     tiles, 64- or 128-key tiles): at each of its head widths lengths that
     are no multiple of 64 or 128 and Sq != Skv causal and not; at D = 256
     GQA groups 1, 2, 4 and 8, windows 1 and 300 with softcap 50, and rows
-    that see no key.  Each case runs in float32 too: at D = 64 on the
+    that see no key; D 160 (the wgmma route's three boxes, the last half
+    filled) at S = 1/63/127/128/129/1,000, Sq != Skv causal and not, GQA
+    groups 1, 2, 4 and 8, windows 1 and 300 with softcap 50, and rows that
+    see no key.  Each case runs in float32 too: at D = 64 on the
     tf32x3 route (with a window of 300 and softcap 50 at S = 700 for it),
     at the other widths on the ffma route."""
     for S in (1, 127, 128, 129, 200):
@@ -672,6 +708,18 @@ def flash_edge_cases():
     for window in (1, 300):
         yield 1, 4, 2, 700, 700, 256, dict(causal=True, window=window, softcap=50.0)
     yield 1, 4, 2, 96, 40, 256, dict(causal=False, window=16)
+    # D 160 (zamba2-2.7b's shared attention): three 64-column boxes on
+    # wgmma, the third half filled (bfloat16); ffma (float32)
+    for S in (1, 63, 127, 128, 129, 1000):
+        yield 1, 4, 2, S, S, 160, dict(causal=True)
+    for Sq, Skv in ((63, 1000), (1000, 129)):
+        for causal in (True, False):
+            yield 1, 4, 2, Sq, Skv, 160, dict(causal=causal)
+    for Hkv in (8, 4, 2, 1):
+        yield 1, 8, Hkv, 200, 200, 160, dict(causal=True)
+    for window in (1, 300):
+        yield 1, 4, 2, 700, 700, 160, dict(causal=True, window=window, softcap=50.0)
+    yield 1, 4, 2, 96, 40, 160, dict(causal=False, window=16)
 
 
 def flash_limit(want, dtype: str):
@@ -728,7 +776,8 @@ def lse_err(torch, got, want, case: str) -> float:
 def check_flash_kernel(torch, dev) -> tuple[dict, int, list, dict]:
     """Phase 3 for ``flash_attention``: the kernels against
     ``attention_ref`` on the card at every edge case within ``flash_limit``,
-    each case through the route ``ops.route`` names for it, with each
+    each case through the route ``ops.route`` names for it (at D 160 the
+    last 32 columns also held on their own), with each
     bfloat16 case's reading (``bf16_reading``); each case once more with
     the log-sum-exp, whose ``o`` must be the same bytes and whose lse must
     be the plain version's within ``LSE_TOL`` (``lse_err``); an empty batch
@@ -753,6 +802,10 @@ def check_flash_kernel(torch, dev) -> tuple[dict, int, list, dict]:
                     f"{dtype} D={D} with its log-sum-exp did not launch the {route} route")
             want, want_lse = flash_ref.attention_ref(q, k, v, return_lse=True, **kw)
             e = flash_err(torch, got, want, dtype)
+            if D == 160:      # the third box's 32 columns on their own
+                flash_err(torch, got[..., 128:], want[..., 128:], dtype)
+                require(want[..., 128:].float().abs().max().item() > 0.1,
+                        "D 160: the last 32 columns of the plain version are all but zero")
             require(torch.equal(got, o_lse),
                     f"{route} {[B, Hq, Hkv, Sq, Skv, D]} {kw}: o differs with the log-sum-exp")
             e_lse = lse_err(torch, lse, want_lse, f"{route} {[B, Hq, Hkv, Sq, Skv, D]} {kw}")
@@ -766,6 +819,16 @@ def check_flash_kernel(torch, dev) -> tuple[dict, int, list, dict]:
                 readings.append(bf16_reading(
                     torch, got, want, f"{[B, Hq, Hkv, Sq, Skv, D]} {kw}"))
             n += 1
+    builds = [("wgmma", "bfloat16", D) for D in flash_ops.WGMMA_HEAD_DIMS]
+    builds += [("tf32x3", "float32", D) for D in flash_ops.TF32X3_HEAD_DIMS]
+    builds += [("ffma", "float32", D) for D in flash_ops.HEAD_DIMS]
+    builds += [("ffma", "bfloat16", D) for D in (16, 32)]
+    info = {f"{r} {dt} D={D}": flash_ops.kernel_info(getattr(torch, dt), D, r)
+            for r, dt, D in builds}
+    print(f"phase 3b flash_attention builds: {json.dumps(info)}", flush=True)
+    require(all(i["local_bytes"] == 0 for b, i in info.items()
+                if not b.startswith("ffma") or b.endswith("D=160")),
+            f"a tensor-core or D 160 flash_attention build spills: {info}")
     empty = torch.zeros(0, 4, 8, 64, device=dev)
     before = flash_ops.attention.launches
     require(flash_ops.attention(empty, empty, empty).shape == empty.shape
@@ -1578,7 +1641,7 @@ def require_same_multiset(torch, got_rows, want_sorted, device, what: str) -> No
 
 def check_stream(torch, db, device) -> tuple[dict, dict]:
     """Phase 8: the streaming path at Table 1 on the card — (a) the stream
-    fit, (b) an 8-wave replay, (c) the same replay of the first
+    fit, (b) a ``STREAM_WAVES``-wave replay, (c) the same replay of the first
     ``STREAM_BUDGET_PATIENTS`` patients under a 1 GiB budget
     (eviction and restores through the host tier), (d) the fused screen
     on the stream engine; every check on the card, no host sort."""
@@ -1599,8 +1662,8 @@ def check_stream(torch, db, device) -> tuple[dict, dict]:
 
     fb, out["b_waves"] = run_stream(torch, db, device, waves=STREAM_WAVES, screen="hash")
     rows_b = engine_rows(fb)
-    require(np.array_equal(fb._corpus.counts(), b_table), "8-wave table != batch table")
-    require_same_multiset(torch, rows_b, want, device, "8-wave replay")
+    require(np.array_equal(fb._corpus.counts(), b_table), "wave replay table != batch table")
+    require_same_multiset(torch, rows_b, want, device, "wave replay")
     print(f"phase 8 (b, {STREAM_WAVES} waves): {json.dumps(out['b_waves'])}", flush=True)
 
     # (c) on the first STREAM_BUDGET_PATIENTS patients: the same wave cuts
@@ -1647,7 +1710,7 @@ def check_stream(torch, db, device) -> tuple[dict, dict]:
 
 
 JOURNAL_COMMIT_EVERY = 16      # journal_commit_every of phase 8 (g)
-JOURNAL_UPTO_TICK = 312        # the partial replay of phase 8 (g)
+JOURNAL_UPTO_TICK = 156        # the partial replay of phase 8 (g): half its 312 ticks
 
 
 def journal_readings(jdir: str) -> dict:
@@ -1708,12 +1771,12 @@ def forge_delta(src: str, dst: str, tick_keys: list) -> tuple[int, int]:
 
 
 def check_journaled_replay(torch, db, device, plain, plain_wall: float) -> dict:
-    """Phase 8 (g): (c) again (the first 1,248 patients, 8 waves, 1 GiB)
+    """Phase 8 (g): (c) again (the first 1,248 patients, 4 waves, 1 GiB)
     with ``journal_dir`` set (a commit every 16 ticks).  It must end
     byte-identical to (c) (snapshot and the tier of every key); the
     journal must verify (its replay launching ``tspm_delta`` once a tick),
     ``MiningSession.replay`` on the card must reach the live
-    ``state_digest`` and ``upto_tick=312`` must stop at tick 312; a flipped
+    ``state_digest`` and ``upto_tick=156`` must stop at tick 156; a flipped
     byte in a segment must give a proof naming the segment, and a
     re-chained journal with one delta's codes changed a ``Divergence`` at
     the first tick that mined that delta."""
@@ -1845,13 +1908,14 @@ def sharded_readings(torch, session, wall: float, launches: dict, ticks: int) ->
 
 
 def check_sharded(torch, db, device, want, b_table) -> tuple[dict, dict]:
-    """Phase 8 (e): the 8-wave Table 1 replay through 4 shards ('host'
-    placement, hash router, rebalancing every 32 ticks), the 64 heaviest
-    patients migrated after wave 2; its merged table must equal the batch
-    table and its rows the batch rows as multisets.  (f): the same replay
-    under 'devices' placement (every shard on the card, two-pass ticks,
-    async admits), checkpointed after wave 4, restored in this process
-    into a new session, waves 5-8 there; its snapshot, pids, pins and
+    """Phase 8 (e): the ``STREAM_WAVES``-wave Table 1 replay through 4
+    shards ('host' placement, hash router, rebalancing every 32 ticks), the
+    64 heaviest patients migrated after wave 2; its merged table must equal
+    the batch table and its rows the batch rows as multisets.  (f): the
+    same replay under 'devices' placement (every shard on the card,
+    two-pass ticks, async admits), checkpointed after wave
+    ``STREAM_CHECKPOINT_WAVE``, restored in this process into a new
+    session, the other waves there; its snapshot, pids, pins and
     migrations must equal (e)'s byte for byte."""
     import gc
 
@@ -1901,7 +1965,7 @@ def check_sharded(torch, db, device, want, b_table) -> tuple[dict, dict]:
         for w in launch_stream.replay_waves(db, session, STREAM_WAVES):
             session.run()
             after(session, w)
-            if w == 3:
+            if w == STREAM_CHECKPOINT_WAVE - 1:
                 require(session.service.placement == "devices" and
                         session.service.async_migration, "(f): not 'devices' placement")
                 t1 = time.perf_counter()
@@ -1919,7 +1983,7 @@ def check_sharded(torch, db, device, want, b_table) -> tuple[dict, dict]:
         session = MiningSession.restore(ckpt_dir, device=device)
         restore_s = time.perf_counter() - t1
         start = int(session.restore_extra["next_wave"])
-        require(start == 4, f"(f): restored at wave {start}")
+        require(start == STREAM_CHECKPOINT_WAVE, f"(f): restored at wave {start}")
         for w in launch_stream.replay_waves(db, session, STREAM_WAVES, start_wave=start):
             session.run()
         torch.cuda.synchronize()
@@ -1959,7 +2023,8 @@ def check_sharded(torch, db, device, want, b_table) -> tuple[dict, dict]:
     gc.collect()          # sharded services and replayed sessions hold cycles
     torch.cuda.empty_cache()
     jroot.cleanup()
-    print(f"phase 8 (f, {SHARDS} shards, devices, checkpoint after wave 4, journaled): "
+    print(f"phase 8 (f, {SHARDS} shards, devices, checkpoint after wave "
+          f"{STREAM_CHECKPOINT_WAVE}, journaled): "
           f"{json.dumps(f)}", flush=True)
     return e, f
 
@@ -2540,7 +2605,7 @@ def check_flash_bwd_kernel(torch, dev) -> dict:
     from repro_torch.kernels.flash_attention import ops as flash_ops, ref as flash_ref
 
     info = {f"{dt} D={D}": flash_ops.bwd_kernel_info(getattr(torch, dt), D)
-            for dt in ("float32", "bfloat16") for D in flash_ops.HEAD_DIMS}
+            for dt in ("float32", "bfloat16") for D in flash_ops.BWD_HEAD_DIMS}
     print(f"phase 3b flash_attention_bwd builds: {json.dumps(info)}", flush=True)
     for build, kernels in info.items():
         if "bwd_wgmma" in kernels:
@@ -3422,6 +3487,233 @@ def check_moe_vlm(torch, dev) -> tuple[dict, dict]:
     return out, timing
 
 
+# ---- phase 9 (g)-(i): the xLSTM and hybrid (Zamba2) families -----------------
+
+RECUR_CHECK_LAYERS = 6         # (g): zamba2-2.7b's first group, xlstm-125m's 5 mLSTM + 1 sLSTM
+RECUR_CHECK_BATCH, RECUR_CHECK_PROMPT, RECUR_CHECK_DECODE = 1, 256, 8
+# (g): max |card - CPU| of the float32 logits over the CPU's largest
+# |logit| (prefill and each decode step): sound runs on an H100 read
+# 5.8e-7 (zamba2-2.7b) and 8.0e-7 (xlstm-125m), ~150x under it
+RECUR_LOGIT_REL = 1e-4
+ZAMBA_BATCH, ZAMBA_MAX_LEN = 2, 4128                         # (h)
+ZAMBA_PROMPT_LEN, ZAMBA_NEW_TOKENS, ZAMBA_REQUESTS = 4096, 32, 2
+XLSTM_BATCH, XLSTM_MAX_LEN = 4, 2080                         # (i)
+XLSTM_PROMPT_LEN, XLSTM_NEW_TOKENS, XLSTM_REQUESTS = 2048, 32, 4
+# (h), (i): the consistency check's requests and prompt, shorter than the
+# served prompts, and its decode steps: the prompt and the prompt plus the
+# steps are multiples of ssm_chunk (128), so the prefill and the train-mode
+# forward both scan in chunks of 128.  With 8 steps the train-mode forward
+# takes one chunk of S (the reference's rule for S no multiple of the
+# chunk): its float32 cumulative log-decays reach ~700 at 1,032 tokens
+# (~0.69 a token) and lose ~700 x 2^-24 = 4e-5 in each exponent, which
+# put zamba2-2.7b's float32 logits past 2e-3 + 2e-3 |want| on an H100; in
+# chunks of 128 they stay under ~90
+RECUR_CONSIST = {"zamba2-2.7b": (1, 1024), "xlstm-125m": (2, 512)}
+RECUR_CONSIST_DECODE = 128
+
+
+class WidthLog:
+    """While entered, each ``flash_attention`` launch also records its head
+    width (the forward's ``ops._launch``)."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops
+
+        self._ops, self._launch, self.widths = ops, ops._launch, []
+
+        def launch(q, *a, **kw):
+            self.widths.append(int(q.shape[3]))
+            return self._launch(q, *a, **kw)
+        ops._launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        self._ops._launch = self._launch
+
+
+def check_recurrent_card_vs_cpu(torch, dev) -> dict:
+    """Phase 9 (g): zamba2-2.7b's and xlstm-125m's full widths cut to 6
+    layers (zamba2: one group of 6 Mamba2 layers and one shared attention
+    invocation at D 160, on the ffma route in float32; xlstm: 5 mLSTM and 1
+    sLSTM), in float32, initialised on the card and copied to the CPU: one
+    prefill of 1 x 256 seeded tokens and 8 decode steps on each device,
+    logits within ``RECUR_LOGIT_REL`` of the CPU's largest."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+
+    out = {}
+    for arch in ("zamba2-2.7b", "xlstm-125m"):
+        cfg = get_config(arch).replace(n_layers=RECUR_CHECK_LAYERS, dtype="float32")
+        mdl = model_lib.build(cfg)
+        params = mdl.init(torch.Generator(dev).manual_seed(SEED))
+        cpu_params = copy.deepcopy(params).to("cpu")
+        rng = np.random.default_rng(SEED)
+        B, P, T = RECUR_CHECK_BATCH, RECUR_CHECK_PROMPT, RECUR_CHECK_DECODE
+        tokens = rng.integers(4, cfg.vocab_size, (B, P + T)).astype(np.int32)
+        runs = {}
+        for name, p, device in (("card", params, dev), ("cpu", cpu_params, "cpu")):
+            t0 = time.perf_counter()
+            with WidthLog() as widths:
+                runs[name] = prefill_decode(torch, mdl, p, torch.from_numpy(tokens).to(device),
+                                            P, T, device)
+            runs[name].update(s=time.perf_counter() - t0, widths=widths.widths)
+        launches = runs["card"]["prefill_launches"]
+        attn = 1 if cfg.family == "hybrid" else 0
+        require(launches["flash_attention"] == attn == launches["flash_attention.ffma"]
+                and runs["card"]["widths"] == [160] * attn and not runs["cpu"]["widths"],
+                f"(g) {arch}: {launches}, widths {runs['card']['widths']}")
+        g, w = runs["card"]["logits"].cpu(), runs["cpu"]["logits"]
+        diff, top = (g - w).abs().max().item(), w.abs().max().item()
+        out[arch] = {"layers": cfg.n_layers, "d_model": cfg.d_model,
+                     "params": model_lib.param_count(params), "batch": B, "prompt": P,
+                     "decode_steps": T, "launches": {k: launches[k] for k in (
+                         "flash_attention", "flash_attention.ffma")},
+                     "logits_max_diff": diff, "max_abs_logit": top, "rel": diff / top,
+                     "limit_rel": RECUR_LOGIT_REL, "card_s": runs["card"]["s"],
+                     "cpu_s": runs["cpu"]["s"]}
+        print(f"phase 9 (g, {arch} widths at {cfg.n_layers} layers, card vs CPU): "
+              f"{json.dumps(out[arch])}", flush=True)
+        require(diff <= RECUR_LOGIT_REL * top, f"(g) {arch}: the logits differ by {diff}")
+        del params, cpu_params, runs
+    return out
+
+
+def serve_recurrent(torch, dev, arch: str, batch: int, max_len: int, prompt_len: int,
+                    new_tokens: int, requests: int) -> tuple[dict, object, object]:
+    """``arch`` at full size (bfloat16, seeded init on the card) serves
+    ``requests`` seeded prompts through ``ServeEngine``, the launch counts
+    zeroed just before ``run`` (``serve_on``) and each flash launch's head
+    width recorded -> (readings, model, params)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+
+    cfg = get_config(arch)
+    mdl = model_lib.build(cfg)
+    t0 = time.perf_counter()
+    params = mdl.init(torch.Generator(dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(4, cfg.vocab_size, prompt_len).astype(np.int32)
+               for _ in range(requests)]
+    with WidthLog() as widths:
+        r = serve_on(torch, mdl, params, prompts, new_tokens, dev, batch, max_len, timed=True)
+    require(sorted(r["results"]) == list(range(requests))
+            and all(len(t) == new_tokens or t[-1] == 2 for t in r["results"].values()),
+            f"{arch}: lost or short requests")
+    out = {k: r[k] for k in ("launches", "wall_s", "waves", "tokens", "tokens_per_s",
+                             "prefill_s_per_wave", "decode_ms_per_step", "decode_steps",
+                             "peak_device_bytes")}
+    out.update(params=model_lib.param_count(params), init_s=init_s, prompt_len=prompt_len,
+               requests=requests, batch=batch, widths=sorted(set(widths.widths)),
+               width_launches=len(widths.widths), first_tokens=r["results"][0][:8].tolist())
+    return out, mdl, params
+
+
+def recurrent_consistency(torch, dev, arch: str, mdl, params, out: dict) -> None:
+    """The reference's prefill/decode check (``consistency``) on ``arch``'s
+    full-size model: read in bfloat16, then held with the weights made
+    float32 in place within ``CONSIST_TOL`` (and the off-by-one rows beyond
+    ``BF16_CONSIST_REL``); readings go to ``out``."""
+    from repro_torch.models import model as model_lib
+
+    B, P = RECUR_CONSIST[arch]
+    gen = torch.Generator(dev).manual_seed(SEED + 3)
+    tokens = torch.randint(4, mdl.cfg.vocab_size, (B, P + RECUR_CONSIST_DECODE),
+                           generator=gen, device=dev)
+    args = (tokens, P, RECUR_CONSIST_DECODE, dev)
+    out["consistency_bf16"] = consistency(torch, mdl, params, *args)
+    print(f"phase 9 ({arch}, bfloat16 consistency, read): "
+          f"{json.dumps(out['consistency_bf16'])}", flush=True)
+    to_float32_(torch, params)
+    c = out["consistency"] = consistency(
+        torch, model_lib.build(mdl.cfg.replace(dtype="float32")), params, *args)
+    print(f"phase 9 ({arch}, float32 consistency): {json.dumps(c)}", flush=True)
+    require(c["beyond_limit"] == 0 and c["off_by_one_rel_rms"] > BF16_CONSIST_REL,
+            f"{arch}: prefill + decode logits differ from the train-mode forward's")
+
+
+def check_zamba(torch, dev) -> tuple[dict, dict]:
+    """Phase 9 (h): zamba2-2.7b at full size (54 Mamba2 layers in 9 groups,
+    2 shared attention blocks of 32 heads x 160, bfloat16) serves 2 seeded
+    prompts of 4,096 tokens, 32 new each, through ``ServeEngine(batch_size=2,
+    max_len=4128)``: one wave, 9 ``flash_attention`` launches, all wgmma at D
+    160, no backward; then the consistency check (``recurrent_consistency``)
+    and the kernel timed at its prefill shape (wgmma, bfloat16) and at the
+    float32 check's (ffma)."""
+    out, mdl, params = serve_recurrent(torch, dev, "zamba2-2.7b", ZAMBA_BATCH, ZAMBA_MAX_LEN,
+                                       ZAMBA_PROMPT_LEN, ZAMBA_NEW_TOKENS, ZAMBA_REQUESTS)
+    cfg = mdl.cfg
+    n_inv = cfg.n_layers // cfg.shared_attn_every
+    launches = out["launches"]
+    print(f"phase 9 (h, zamba2-2.7b): {json.dumps(out)}", flush=True)
+    require(out["waves"] == 1 and launches["flash_attention"] == n_inv
+            == launches["flash_attention.wgmma"] == out["width_launches"]
+            and out["widths"] == [160] and launches["flash_attention_bwd"] == 0,
+            f"(h): {launches}, widths {out['widths']} in {out['waves']} waves")
+    recurrent_consistency(torch, dev, "zamba2-2.7b", mdl, params, out)
+    del params
+    torch.cuda.empty_cache()
+    gen = torch.Generator(dev).manual_seed(SEED + 4)
+    q, k, v = (torch.randn(ZAMBA_BATCH, cfg.n_heads, ZAMBA_PROMPT_LEN, 160, generator=gen,
+                           device=dev).to(torch.bfloat16) for _ in range(3))
+    timing = {"zamba2": time_flash(torch, q, k, v, causal=True, window=None, softcap=None,
+                                   sdpa=True)}
+    print(f"phase 9 (zamba2-2.7b attention): {json.dumps(timing['zamba2'])}", flush=True)
+    B, P = RECUR_CONSIST["zamba2-2.7b"]
+    q, k, v = (torch.randn(B, cfg.n_heads, P, 160, generator=gen, device=dev)
+               for _ in range(3))
+    timing["zamba2_f32"] = time_flash(torch, q, k, v, causal=True, window=None, softcap=None,
+                                      sdpa=True)
+    print(f"phase 9 (zamba2-2.7b attention, float32): {json.dumps(timing['zamba2_f32'])}",
+          flush=True)
+    return out, timing
+
+
+def check_xlstm(torch, dev) -> dict:
+    """Phase 9 (i): xlstm-125m at full size (12 layers, 5 mLSTM + 1 sLSTM
+    twice, bfloat16) serves 4 seeded prompts of 2,048 tokens, 32 new each,
+    through ``ServeEngine(batch_size=4, max_len=2080)``: no
+    ``flash_attention`` launch; then the consistency check."""
+    out, mdl, params = serve_recurrent(torch, dev, "xlstm-125m", XLSTM_BATCH, XLSTM_MAX_LEN,
+                                       XLSTM_PROMPT_LEN, XLSTM_NEW_TOKENS, XLSTM_REQUESTS)
+    print(f"phase 9 (i, xlstm-125m): {json.dumps(out)}", flush=True)
+    launches = out["launches"]
+    require(out["waves"] == 1 and launches["flash_attention"] == 0
+            and launches["flash_attention_bwd"] == 0 and not out["width_launches"],
+            f"(i): {launches} in {out['waves']} waves")
+    recurrent_consistency(torch, dev, "xlstm-125m", mdl, params, out)
+    del params
+    return out
+
+
+def check_recurrent(torch, dev) -> tuple[dict, dict]:
+    """Phase 9 (g), (h), (i), each model freed before the next; allocated
+    device memory after them within ``PHASE9_MEMORY_SLACK`` of before."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = {"g_card_vs_cpu": check_recurrent_card_vs_cpu(torch, dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["h_zamba2"], timing = check_zamba(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["i_xlstm"] = check_xlstm(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated()
+    out.update(allocated_before_bytes=before, allocated_after_bytes=after,
+               phase_s=time.perf_counter() - t0)
+    require(after - before <= PHASE9_MEMORY_SLACK, f"(g)-(i) left {after - before} B allocated")
+    return out, timing
+
+
 # ---- phase 10: training -----------------------------------------------------
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_PATIENTS = 8, 256, 512   # examples/train_lm_torch.py --full
@@ -3628,35 +3920,39 @@ def check_gemma_training(torch, dev) -> dict:
 def flash_rows(routes: dict, lm: dict, timing: dict) -> list:
     """The ``kernels`` line's rows of ``flash_attention``'s three routes:
     tf32x3 at tspm-mlho's shape (float32) and ffma timed in turns with it
-    at the same shape, wgmma at gemma2-2b's global layer (bfloat16; both
-    layers and the deepseek-moe-16b and pixtral-12b prefill shapes beside
-    it); launches from the serving runs (the full-size models serve on
-    tf32x3 and wgmma; ffma's are phase 9 (d)'s float32 D 128 prefill),
+    at the same shape (and alone at float32 D 160, zamba2-2.7b's float32
+    check), wgmma at gemma2-2b's global layer (bfloat16; both layers and
+    the deepseek-moe-16b, pixtral-12b and zamba2-2.7b (D 160) prefill shapes
+    beside it); launches from the serving runs (the full-size models serve on
+    tf32x3 and wgmma; ffma's are phase 9 (d)'s float32 D 128 prefill and
+    (g)'s float32 D 160 prefill),
     max_abs_err over the route's edge cases (``routes``, phase 3b) and
     timed shapes."""
     t = timing["tspm_mlho"]
-    ffma = {**t, **t["beside"], "note": "it serves float32 at D 16/32/128/256 and "
-            "bfloat16 at D 16/32 (phase 9 (d)'s float32 D 128 prefill launches it); "
-            "timed in turns with tf32x3 at tspm-mlho's shape"}
+    ffma = {**t, **t["beside"], "note": "it serves float32 at D 16/32/128/160/256 and "
+            "bfloat16 at D 16/32 (phase 9 (d)'s float32 D 128 prefill and (g)'s float32 "
+            "D 160 prefill launch it); timed in turns with tf32x3 at tspm-mlho's shape, "
+            "and alone at D 160 (float32_d160)"}
     tf32x3 = {**t, "ms_turns_ffma": t["beside"]["ms_turns"]}
+    beside = {"wgmma": ("deepseek", "pixtral", "zamba2"), "ffma": ("zamba2_f32",)}
     rows = []
     for route, t, extra in (
             ("tf32x3", tf32x3, {k: tf32x3.get(k) for k in (
                 "bound_ffma_ms", "prepass_ms", "main_kernel_ms", "prepass_share",
                 "ms_turns", "ms_turns_ffma", "profiler_kernels")}),
-            ("ffma", ffma, {k: ffma[k] for k in ("bound_ffma_ms", "ms_turns", "note")}),
+            ("ffma", ffma, {**{k: ffma[k] for k in ("bound_ffma_ms", "ms_turns", "note")},
+                            "float32_d160": timing["zamba2_f32"]}),
             ("wgmma", timing["gemma2_global"],
              {"library": "flex_attention: card_probe.py flex (a compiled yardstick, "
                          "kept out of this script)",
               **{n: timing[n] for n in ("gemma2_local", "gemma2_global", "deepseek",
-                                        "pixtral")}})):
+                                        "pixtral", "zamba2")}})):
         rows.append({"name": f"flash_attention_{route}", "route": "cuda",
                      "source": "src/repro_torch/csrc/flash_attention.cu",
                      "replaces": "src/repro/kernels/flash_attention/flash.py:24",
                      "launches": lm["flash_launches"][route],
                      "max_abs_err": max([routes[route]["max_abs_err"], t["max_abs_err"]] + [
-                         timing[n]["max_abs_err"] for n in ("deepseek", "pixtral")
-                         if route == "wgmma"]),
+                         timing[n]["max_abs_err"] for n in beside.get(route, ())]),
                      "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                      "ms_lse": None if route == "ffma" else t["ms_lse"],
@@ -3813,6 +4109,13 @@ def main() -> int:
     lm["flash_launches"]["ffma"] += lm["moe_vlm"]["d_card_vs_cpu"]["launches"][
         "flash_attention.ffma"]
     lap("9def_moe_vlm")
+    lm["recurrent"], rec_t = check_recurrent(torch, dev)
+    flash_t.update(rec_t)
+    lm["flash_launches"]["wgmma"] += lm["recurrent"]["h_zamba2"]["launches"][
+        "flash_attention.wgmma"]
+    lm["flash_launches"]["ffma"] += lm["recurrent"]["g_card_vs_cpu"]["zamba2-2.7b"][
+        "launches"]["flash_attention.ffma"]
+    lap("9ghi_recurrent")
     gc.collect()
     torch.cuda.empty_cache()
     train = {"a_card_vs_cpu": check_train_card_vs_cpu(torch, dev)}

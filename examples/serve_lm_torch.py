@@ -6,10 +6,11 @@ scheduler (the twin of examples/serve_lm.py, through repro_torch).
     PYTHONPATH=src python examples/serve_lm_torch.py --arch gemma2-2b --reduced
     PYTHONPATH=src python examples/serve_lm_torch.py --arch deepseek-moe-16b  # full size, 33.8 GB
     PYTHONPATH=src python examples/serve_lm_torch.py --arch pixtral-12b --reduced --device cpu
+    PYTHONPATH=src python examples/serve_lm_torch.py --arch zamba2-2.7b --reduced
+    PYTHONPATH=src python examples/serve_lm_torch.py --arch xlstm-125m --reduced --device cpu
 
 Wraps launch/serve.py.  ``--device`` (default ``cuda``) passes through and
-counts as no argument.  (serve_lm.py's ``zamba2-2.7b`` line waits for the
-port's hybrid family.)
+counts as no argument.
 """
 import sys
 

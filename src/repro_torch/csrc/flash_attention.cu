@@ -48,7 +48,9 @@
 // columns are masked.  Blocks walk query tiles from the last, so the
 // longest causal rows start first.  Shared memory: (64 + 2*64) padded rows
 // plus the 64 x 65 float p tile, 214,016 bytes at float32 and D = 256,
-// set as dynamic shared memory above the 48 KB default.
+// set as dynamic shared memory above the 48 KB default.  Float32 at D = 160
+// (zamba2's shared attention, held against the CPU in float32) is ten
+// accumulator columns a thread.
 //
 // ---- Route "wgmma" (flash_attention_wgmma): bfloat16 at D 64, 128, 256
 //
@@ -80,7 +82,8 @@
 // Tiles: BK = 64 keys and 2 stages at D = 256 (Q 64 KB + 2 x (K + V)
 // 64 KB = 192 KB of shared memory; BK = 128 would need 64 more registers
 // a thread for S and P).  BK = 128 at D <= 128 (3 stages at D = 64, 2 at
-// 128), not tuned: only D = 256 is on a served model's path.
+// 128), not tuned: only D = 256 is on a served model's path.  D = 160:
+// BK = 64 and 3 stages (hazard 7).
 //
 // Hazards, and what the design does about each:
 //  1. P in bf16.  Rounding p to bf16 costs 2^-9 relative on each term;
@@ -102,7 +105,8 @@
 //     past S is zero-filled instead of reading the next head's rows; the
 //     key mask still runs (a zero key scores 0, not -1e30).  A 128-byte
 //     swizzle caps a box at 64 bf16 columns, so a tile is D/64 boxes wide
-//     and the wgmma descriptors use the same swizzle (K-major: SBO 1024 B;
+//     (three at D = 160, hazard 7) and the wgmma descriptors use the same
+//     swizzle (K-major: SBO 1024 B;
 //     V MN-major: LBO = one box, SBO 1024 B).  Global strides are
 //     multiples of 16 B at every D here, and the wrapper starts every
 //     tensor on a 16-B boundary.
@@ -119,6 +123,21 @@
 //     do not time out: a __trap() anywhere in the kernel made ptxas (CUDA
 //     12.9) hold the consumers to the entry's 168 registers, spilling O
 //     and serializing the wgmmas.
+//  7. D = 160 (zamba2-2.7b's shared attention, 32 heads x 160) is 2.5
+//     boxes of 64 columns.  D / 64 boxes would drop columns 128-159, so a
+//     row takes three boxes (WgLayout::kPadD = 192): the third box's copy
+//     starts at column 128 and the map's OOB fill writes zeros for columns
+//     160-191 (a box's transaction bytes count the fill, so q_bytes and
+//     kv_bytes are whole boxes).  QK^T runs D/16 = 10 k-steps and never
+//     reads the zeros.  P V runs at N = 192 (m64n192k16, V MN-major across
+//     three whole boxes: the same descriptors, LBO one box, as at D = 128
+//     and 256), so its accumulator holds 96 floats a consumer thread, of
+//     which the last 16 (columns 160-191, products with zeros) stay 0 and
+//     are never stored.  Chosen over a 32-column tail box with its own
+//     swizzle and descriptors: one layout, one descriptor form, at 20%
+//     more P V work.  Registers: O 96 + S 32 + P hi/lo 32 a consumer
+//     thread at BK = 64 (BK = 128 would add 64), under setmaxnreg's 240;
+//     shared memory: Q 48 KB + 3 stages x (K 24 KB + V 24 KB) = 192 KB.
 //
 // ---- Route "tf32x3" (flash_attention_tf32x3): float32 at D 64
 //
@@ -389,32 +408,31 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(int D, const void* q, const void* k, const void* v, void* o, float* lse,
-                     int B, int Hq, int Hkv, int Sq, int Skv, float scale, int causal,
-                     int use_window, int window, int use_softcap, float softcap,
-                     cudaStream_t stream) {
+// f(T{}, integral_constant<D>) for the ffma route's (T, D): float32 at D
+// 16, 32, 64, 128, 160, 256; bfloat16 at D 16, 32 (bfloat16 at D >= 64 is
+// the wgmma route's)
+template <typename T, typename F>
+cudaError_t ffma_dims(int D, F&& f) {
+  using std::integral_constant;
   switch (D) {
-    case 16:
-      return launch<T, 16>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, scale, causal, use_window,
-                           window, use_softcap, softcap, stream);
-    case 32:
-      return launch<T, 32>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, scale, causal, use_window,
-                           window, use_softcap, softcap, stream);
+    case 16: return f(T{}, integral_constant<int, 16>{});
+    case 32: return f(T{}, integral_constant<int, 32>{});
   }
-  if constexpr (std::is_same_v<T, float>) {  // bfloat16 at D >= 64 is the wgmma route's
+  if constexpr (std::is_same_v<T, float>) {
     switch (D) {
-      case 64:
-        return launch<T, 64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, scale, causal, use_window,
-                             window, use_softcap, softcap, stream);
-      case 128:
-        return launch<T, 128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, scale, causal, use_window,
-                              window, use_softcap, softcap, stream);
-      case 256:
-        return launch<T, 256>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, scale, causal, use_window,
-                              window, use_softcap, softcap, stream);
+      case 64: return f(T{}, integral_constant<int, 64>{});
+      case 128: return f(T{}, integral_constant<int, 128>{});
+      case 160: return f(T{}, integral_constant<int, 160>{});
+      case 256: return f(T{}, integral_constant<int, 256>{});
     }
   }
+  return cudaErrorInvalidValue;
+}
+
+template <typename F>
+cudaError_t ffma_types(int dtype, int D, F&& f) {
+  if (dtype == 0) return ffma_dims<float>(D, f);
+  if (dtype == 1) return ffma_dims<__nv_bfloat16>(D, f);
   return cudaErrorInvalidValue;
 }
 
@@ -462,9 +480,11 @@ __device__ __forceinline__ CtaTile cta_tile(int BH, int Hq, int Hkv, int Sq) {
 //                   waits for V on (v_bar, parity) and adds P V to the
 //                   accumulator acc rescaled by alpha (row qi0, qi1);
 // then releases the stage, and last stores o = acc / max(l, 1e-30) in T
-// and, given lse, each row's (m + log2 l) ln 2 (m is in log2 units).
-template <int D, int BK, int STAGES, int ALIGN, typename T, typename LoadQ, typename LoadK,
-          typename LoadV, typename OnQ, typename Scores, typename Values>
+// and, given lse, each row's (m + log2 l) ln 2 (m is in log2 units).  The
+// accumulator spans DA >= D columns (the wgmma route pads D = 160 to 192);
+// only the first D are stored.
+template <int D, int DA, int BK, int STAGES, int ALIGN, typename T, typename LoadQ,
+          typename LoadK, typename LoadV, typename OnQ, typename Scores, typename Values>
 __device__ __forceinline__ void run_cta(const Ring<STAGES> ring, const Mask& mk, const CtaTile& ct,
                                         uint32_t q_bytes, uint32_t kv_bytes, T* __restrict__ o,
                                         float* __restrict__ lse, LoadQ load_q, LoadK load_k,
@@ -517,9 +537,9 @@ __device__ __forceinline__ void run_cta(const Ring<STAGES> ring, const Mask& mk,
   const int c2 = 2 * (lane % 4);                       // and columns c2, c2 + 1 of each 8
   const KeyBand wk = key_band(mk, wq0, wq_last);
 
-  float acc[D / 2];
+  float acc[DA / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DA / 2; ++i) acc[i] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // l: this thread's share
   // scores in log2 units: s * scale * log2(e), or, with a softcap,
   // softcap * log2(e) * tanh(s * scale / softcap)
@@ -616,13 +636,16 @@ __device__ __forceinline__ void run_cta(const Ring<STAGES> ring, const Mask& mk,
 // ---- the wgmma route's CTA
 
 // Shared memory of a CTA, from a 1024-byte aligned base: the query tile
-// (D/64 boxes of 128 rows x 128 B), then STAGES K tiles and STAGES V tiles
-// (D/64 boxes of BK rows x 128 B each), then the barriers.
+// (kBoxes boxes of 128 rows x 128 B), then STAGES K tiles and STAGES V tiles
+// (kBoxes boxes of BK rows x 128 B each), then the barriers.  A row is D
+// rounded up to whole 64-column boxes (kPadD): at D = 160 three boxes, the
+// third half filled by the copy and half zero (hazard 7).
 template <int D, int BK, int STAGES>
 struct WgLayout {
-  static constexpr int kBoxes = D / 64;
-  static constexpr uint32_t kQBytes = kWgBQ * D * 2;
-  static constexpr uint32_t kKVBytes = BK * D * 2;
+  static constexpr int kPadD = (D + 63) / 64 * 64;
+  static constexpr int kBoxes = kPadD / 64;
+  static constexpr uint32_t kQBytes = kWgBQ * kPadD * 2;
+  static constexpr uint32_t kKVBytes = BK * kPadD * 2;
   static constexpr uint32_t kK = kQBytes;
   static constexpr uint32_t kV = kK + STAGES * kKVBytes;
   static constexpr uint32_t kBar = kV + STAGES * kKVBytes;
@@ -654,6 +677,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     for (int b = 0; b < L::kBoxes; ++b)
       tma_load_3d(base + L::kV + s * L::kKVBytes + b * BK * 128, map_v, bar, 64 * b, k0, ct.kvh);
   };
+  // S = Q K^T over D's D/16 k-steps (at D = 160 the zero columns past 160
+  // are not read)
   auto scores = [&](int s, float (&sc)[BK / 2]) {
     const uint32_t k_tile = base + L::kK + s * L::kKVBytes;
     wgmma_fence();
@@ -667,10 +692,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     wgmma_wait_all();
     fence_regs(sc);
   };
+  constexpr int DA = L::kPadD;   // P V's N: D rounded up to whole boxes
   auto values = [&](int s, uint32_t v_bar, uint32_t parity, float (&p)[BK / 2], float alpha0,
-                    float alpha1, float (&acc)[D / 2]) {
+                    float alpha1, float (&acc)[DA / 2]) {
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] *= (i & 2) ? alpha1 : alpha0;
+    for (int i = 0; i < DA / 2; ++i) acc[i] *= (i & 2) ? alpha1 : alpha0;
     // P as bf16 A-fragments: fragment kk covers keys 16kk .. 16kk + 15
     uint32_t p_hi[BK / 16][4], p_lo[BK / 16][4];
 #pragma unroll
@@ -689,18 +715,18 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_rs<D>(acc, p_hi[kk], desc_sw128(v_tile + kk * 16 * 128, BK * 128, 1024));
+      wgmma_rs<DA>(acc, p_hi[kk], desc_sw128(v_tile + kk * 16 * 128, BK * 128, 1024));
     if (PTERMS == 2) {
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs<D>(acc, p_lo[kk], desc_sw128(v_tile + kk * 16 * 128, BK * 128, 1024));
+        wgmma_rs<DA>(acc, p_lo[kk], desc_sw128(v_tile + kk * 16 * 128, BK * 128, 1024));
     }
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(acc);
   };
-  run_cta<D, BK, STAGES, 1>(Ring<STAGES>{base + L::kBar}, mk, ct, L::kQBytes, L::kKVBytes, o,
-                            lse, load_q, load_k, load_v, [] {}, scores, values);
+  run_cta<D, DA, BK, STAGES, 1>(Ring<STAGES>{base + L::kBar}, mk, ct, L::kQBytes, L::kKVBytes,
+                                o, lse, load_q, load_k, load_v, [] {}, scores, values);
 }
 
 // --------------------------------------------------------------- tf32x3 route
@@ -942,8 +968,9 @@ flash_tf32x3_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
     for (int i = 0; i < D / 2; ++i) acc[i] = fmaf(acc[i], (i & 2) ? alpha1 : alpha0, pv[i]);
   };
   // key tiles start on a multiple of BK, so V^T's groups of 8 never straddle one (hazard 2)
-  run_cta<D, BK, kTfStages, BK>(Ring<kTfStages>{base + L::kBar}, mk, ct, L::kQHalf, L::kKVBytes,
-                                o, lse, load_q, load_k, load_v, split_q, scores, values);
+  run_cta<D, D, BK, kTfStages, BK>(Ring<kTfStages>{base + L::kBar}, mk, ct, L::kQHalf,
+                                   L::kKVBytes, o, lse, load_q, load_k, load_v, split_q, scores,
+                                   values);
 }
 
 template <int D, int BK, int STAGES, int PTERMS>
@@ -967,20 +994,43 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, f
   return cudaGetLastError();
 }
 
+// f(integral_constant<D>, <BK>, <STAGES>): the wgmma route's tiles at D
+// (hazard 7 for D = 160)
+template <typename F>
+cudaError_t wgmma_tiles(int D, F&& f) {
+  using std::integral_constant;
+  switch (D) {
+    case 64:
+      return f(integral_constant<int, 64>{}, integral_constant<int, 128>{},
+               integral_constant<int, 3>{});
+    case 128:
+      return f(integral_constant<int, 128>{}, integral_constant<int, 128>{},
+               integral_constant<int, 2>{});
+    case 160:
+      return f(integral_constant<int, 160>{}, integral_constant<int, 64>{},
+               integral_constant<int, 3>{});
+    case 256:
+      return f(integral_constant<int, 256>{}, integral_constant<int, 64>{},
+               integral_constant<int, 2>{});
+  }
+  return cudaErrorInvalidValue;
+}
+
 template <int PTERMS>
 cudaError_t dispatch_wgmma(int D, const void* q, const void* k, const void* v, void* o,
                            float* lse, int B, int Hq, int Hkv, const Mask& mk,
                            cudaStream_t stream) {
-  switch (D) {
-    case 64:
-      return launch_wgmma<64, 128, 3, PTERMS>(q, k, v, o, lse, B, Hq, Hkv, mk, stream);
-    case 128:
-      return launch_wgmma<128, 128, 2, PTERMS>(q, k, v, o, lse, B, Hq, Hkv, mk, stream);
-    case 256:
-      return launch_wgmma<256, 64, 2, PTERMS>(q, k, v, o, lse, B, Hq, Hkv, mk, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return wgmma_tiles(D, [&](auto d, auto bk, auto stages) {
+    return launch_wgmma<decltype(d)::value, decltype(bk)::value, decltype(stages)::value,
+                        PTERMS>(q, k, v, o, lse, B, Hq, Hkv, mk, stream);
+  });
+}
+
+void fill_info(const cudaFuncAttributes& attr, size_t smem, int rows, int* out) {
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = static_cast<int>(smem);
+  out[3] = rows;
 }
 
 template <int PV_TERMS>
@@ -1023,7 +1073,7 @@ cudaError_t launch_tf32x3(const void* q, const void* k, const void* v, void* o, 
 // given, each route writes each row's log-sum-exp there (the top of this
 // file).
 
-// The ffma route.  dtype: 0 = float32 (D in {16, 32, 64, 128, 256}), 1 =
+// The ffma route.  dtype: 0 = float32 (D in {16, 32, 64, 128, 160, 256}), 1 =
 // bfloat16 (D in {16, 32}), q, k, v and o alike.  The caller guarantees
 // B*Hq*Sq >= 1, Skv >= 1, Hq a multiple of Hkv, B*Hq*ceil(Sq/64) < 2^31,
 // contiguous tensors whose data start on a 4-byte boundary; the launch is
@@ -1033,17 +1083,14 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
                                int dtype, float scale, int causal, int use_window, int window,
                                int use_softcap, float softcap, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      dtype == 0 ? dispatch<float>(D, q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, scale, causal,
-                                   use_window, window, use_softcap, softcap, s)
-      : dtype == 1 ? dispatch<__nv_bfloat16>(D, q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, scale,
-                                             causal, use_window, window, use_softcap,
-                                             softcap, s)
-                   : cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  return static_cast<int>(ffma_types(dtype, D, [&](auto t, auto d) {
+    return launch<decltype(t), decltype(d)::value>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, scale,
+                                                   causal, use_window, window, use_softcap,
+                                                   softcap, s);
+  }));
 }
 
-// The wgmma route: bfloat16 q, k, v and o, D in {64, 128, 256}.  The
+// The wgmma route: bfloat16 q, k, v and o, D in {64, 128, 160, 256}.  The
 // caller guarantees B*Hq*Sq >= 1, Skv >= 1, Hq a multiple of Hkv,
 // B*Hq*ceil(Sq/128) < 2^31, contiguous tensors whose data start on a
 // 16-byte boundary; the launch is asynchronous on `stream`.
@@ -1100,6 +1147,39 @@ extern "C" int flash_attention_tf32x3_pv_hi(const void* q, const void* k, const 
                                            static_cast<cudaStream_t>(stream)));
 }
 #endif
+
+// Registers a thread, local (spill) bytes, dynamic shared memory and key
+// rows of a tile of the forward's kernel on `route` (0 ffma, 1 wgmma, 2
+// tf32x3) for `dtype` (0 float32, 1 bfloat16) at D, the ffma build's
+// shared memory as its launch sets it; cudaFuncGetAttributes reports the
+// first two.  Writes out[0..4).
+extern "C" int flash_attention_info(int route, int dtype, int D, int* out) {
+  cudaFuncAttributes attr;
+  if (route == 1) {
+    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(wgmma_tiles(D, [&](auto d, auto bk, auto stages) {
+      constexpr int DD = decltype(d)::value, BK = decltype(bk)::value;
+      constexpr int ST = decltype(stages)::value;
+      const cudaError_t err = cudaFuncGetAttributes(&attr, flash_wgmma_kernel<DD, BK, ST, 2>);
+      if (err == cudaSuccess) fill_info(attr, WgLayout<DD, BK, ST>::kSmemBytes, BK, out);
+      return err;
+    }));
+  }
+  if (route == 2) {
+    if (dtype != 0 || D != kTfD) return static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t err = cudaFuncGetAttributes(&attr, flash_tf32x3_kernel<3>);
+    if (err == cudaSuccess) fill_info(attr, TfLayout::kSmemBytes, kTfBK, out);
+    return static_cast<int>(err);
+  }
+  if (route != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(ffma_types(dtype, D, [&](auto t, auto d) {
+    using T = decltype(t);
+    constexpr int DD = decltype(d)::value;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, flash_kernel<T, DD>);
+    if (err == cudaSuccess) fill_info(attr, Tile<T, DD>::kSmemBytes, kBK, out);
+    return err;
+  }));
+}
 
 extern "C" const char* flash_attention_error(int rc) {
   return cudaGetErrorString(static_cast<cudaError_t>(rc));

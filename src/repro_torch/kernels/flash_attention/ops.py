@@ -9,7 +9,9 @@ TMA, warp-specialized), ``"tf32x3"`` for float32 at D in
 ``TF32X3_HEAD_DIMS`` (the same skeleton on TF32 tensor cores, each operand
 split into TF32 hi + lo, three products; a pre-pass writes k's and v's
 split operands into scratch that the wrapper allocates), ``"ffma"`` for
-the rest: float32 at D 16/32/128/256 and bfloat16 at D 16 and 32.  For a CPU tensor
+the rest: float32 at D 16/32/128/160/256 and bfloat16 at D 16 and 32.
+D 160 (zamba2-2.7b's shared attention) pads its rows to three 64-column
+boxes on the wgmma route (the source's hazard 7).  For a CPU tensor
 it takes the plain version (``ref.attention_ref``).  Any other device
 raises, and so does anything the kernels do not take: there is no
 fallback, from one route to another either.  ``attention.launches`` counts
@@ -29,10 +31,12 @@ log-sum-exp, which it saves, and its backward launches
 ``csrc/flash_attention_bwd.cu`` through ``attention_bwd``, which takes
 that log-sum-exp and never recomputes it.  The backward's route follows
 ``bwd_route(dtype, D)`` alone, as the forward's: ``"wgmma"`` for bfloat16
-at D in ``WGMMA_HEAD_DIMS`` (a delta pre-pass, then one launch of
+at D in ``BWD_WGMMA_HEAD_DIMS`` (a delta pre-pass, then one launch of
 tensor-core CTAs for dq, dk and dv, P and dS as bfloat16 hi + lo),
 ``"ffma"`` for the rest (a delta pre-pass, a dq and a dk/dv kernel on
-FFMA); none uses atomics.  Without a gradient to take the path and its
+FFMA); none uses atomics.  The backward takes D in ``BWD_HEAD_DIMS``: D
+160 is refused (``ValueError``) before any launch until the hybrid family
+trains on the card.  Without a gradient to take the path and its
 launches are the same, so serving does not change.  On a CPU tensor
 autograd differentiates the plain version.  ``attention_bwd.launches``
 counts backward calls that launch (all their kernels, one count) and
@@ -50,8 +54,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ref
 
 _NAME = "flash_attention"
-HEAD_DIMS = (16, 32, 64, 128, 256)
-WGMMA_HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 128, 160, 256)
+WGMMA_HEAD_DIMS = (64, 128, 160, 256)
 # float32 at D 128 would need 256 KB of shared memory for its tiles (Q and
 # a K/V stage of hi + lo at 128 KB each): it stays on ffma
 TF32X3_HEAD_DIMS = (64,)
@@ -87,6 +91,12 @@ ENTRIES = {
 
 _BWD_NAME = "flash_attention_bwd"
 BWD_ROUTES = ("ffma", "wgmma")
+# the backward's head widths: the forward's but 160, whose backward comes
+# with the hybrid family's training (BWD_PENDING names where)
+BWD_HEAD_DIMS = (16, 32, 64, 128, 256)
+BWD_WGMMA_HEAD_DIMS = (64, 128, 256)
+BWD_PENDING = ("the training of the MoE, VLM, xLSTM and hybrid families "
+               "(ROADMAP queue 1, item 17.6)")
 # q, k, v, o, do, lse, dq, dk, dv, scratch, B..D; the ffma entry takes the dtype code
 _BWD_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
 BWD_ENTRIES = {
@@ -101,13 +111,15 @@ BWD_LSE_ROWS = 64         # the wgmma route's log-sum-exp and delta rows are pad
 
 def bwd_route(dtype: torch.dtype, D: int) -> str:
     """The kernel that computes attention's gradient for ``dtype`` at head
-    width ``D``: ``"wgmma"`` for bfloat16 at D in ``WGMMA_HEAD_DIMS``, else
-    ``"ffma"``; raises for a dtype or width no backward takes."""
+    width ``D``: ``"wgmma"`` for bfloat16 at D in ``BWD_WGMMA_HEAD_DIMS``,
+    else ``"ffma"``; raises for a dtype or width no backward takes (D 160,
+    which the forward takes, names ``BWD_PENDING``)."""
     if dtype not in DTYPES:
         raise ValueError(f"dtype {dtype}: the backward takes one of {DTYPES}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
-    return "wgmma" if dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS else "ffma"
+    if D not in BWD_HEAD_DIMS:
+        pending = f"; its backward waits for {BWD_PENDING}" if D in HEAD_DIMS else ""
+        raise ValueError(f"head dim {D} not in the backward's {BWD_HEAD_DIMS}{pending}")
+    return "wgmma" if dtype == torch.bfloat16 and D in BWD_WGMMA_HEAD_DIMS else "ffma"
 
 
 def bwd_scratch_elems(r: str, B: int, Hq: int, Sq: int) -> int:
@@ -143,6 +155,21 @@ def bwd_kernel_info(dtype: torch.dtype, D: int) -> dict:
         _build.check(_BWD_NAME, fn(DTYPES.index(dtype), D, which, ctypes.addressof(vals)))
         out[name] = dict(zip(("registers", "local_bytes", "shared_bytes", "key_rows"), vals))
     return out
+
+
+def kernel_info(dtype: torch.dtype, D: int, r: str | None = None) -> dict:
+    """Registers a thread, local (spill) bytes, dynamic shared memory and key
+    rows of a tile of the forward's kernel on route ``r`` (default
+    ``route(dtype, D)``; the C entry's route codes are ``ROUTES``'
+    indices) at ``(dtype, D)``, as the card's runtime reports them
+    (``cudaFuncGetAttributes``)."""
+    fn = _build.load(_NAME).flash_attention_info
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    vals = (ctypes.c_int * 4)()
+    _build.check(_NAME, fn(ROUTES.index(r or route(dtype, D)), DTYPES.index(dtype), D,
+                           ctypes.addressof(vals)))
+    return dict(zip(("registers", "local_bytes", "shared_bytes", "key_rows"), vals))
 
 
 @functools.cache
@@ -208,6 +235,7 @@ class _Attention(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
+        bwd_route(q.dtype, q.shape[3])       # refuses D 160 before anything runs
         dq, dk, dv = attention_bwd(q, k, v, o, do.contiguous(), lse, **ctx.mask)
         return dq, dk, dv, None, None, None
 
@@ -233,12 +261,12 @@ def attention_bwd(q, k, v, o, do, lse, *, causal: bool = True, window: int | Non
     if q.device.type != "cuda":
         raise ValueError(f"attention_bwd runs on CUDA or CPU tensors, not {q.device}")
     kernel_route(q, k, v)
+    B, Hq, Sq, D = q.shape
+    r = bwd_route(q.dtype, D)
     if any(t.device != q.device or t.dtype != q.dtype for t in (o, do)) \
             or lse.device != q.device:
         raise ValueError("o and do must have q's device and dtype, lse its device")
-    B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
-    r = bwd_route(q.dtype, D)
     rows_q, rows_k = BWD_TILE_ROWS[r]
     blocks = B * Hq * -(-Sq // rows_q) + 2 * B * Hkv * -(-Skv // rows_k)
     if blocks > _INT32_MAX:

@@ -2,11 +2,14 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tspm-mlho
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tspm-mlho --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b    # full size, 5.6 GB
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --workload queries \\
       --patients 64 --clients 32 --queries 128
 
 ``--workload lm`` (default) runs batched generation over the LM wave
-scheduler with random weights from ``--seed``; ``--workload queries``
+scheduler with random weights from ``--seed``, for any family
+``model.build`` serves (dense, MoE, VLM as text, xLSTM, hybrid); ``--workload queries``
 mines a synthetic cohort through a live streaming session on ``--device``,
 stands up ``session.serve()``, and drives concurrent clients through the
 batched query path, printing wave/cache stats and the per-query latency

@@ -1,2 +1,3 @@
-"""The LM model zoo's dense decoder (``model.build`` for ``family="dense"``),
-its layers and the converter of the reference's parameters."""
+"""The LM model zoo (``model.build``): the decoder for the dense, MoE and VLM
+families, xLSTM and the Mamba2 / shared-attention hybrid (Zamba2), their
+layers and the converter of the reference's parameters."""

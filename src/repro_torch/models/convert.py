@@ -16,31 +16,88 @@ port's model from reference params, ``named_tensors`` gives a tree as
 tensors of the model's shapes (``train_loop.from_jax_train_state`` carries
 the moments so).  Leaves are numpy arrays (``jax.tree.map(np.asarray,
 tree)``).
+
+The xLSTM family's tree stacks each pattern position's blocks ``blk{i}``
+over ``n_rep`` repetitions (layer ``rep * len(pattern) + i``); an sLSTM's
+recurrent ``r [4, H, dh, dh]`` is kept as it is.  The hybrid family's
+stacks its Mamba2 layers ``mamba [n_groups, every]`` (layer ``g * every +
+i``; ``conv_w [K, conv]``, ``conv_b``, ``a_log``, ``d_skip`` and
+``dt_bias`` kept as they are) and its shared blocks ``shared
+[n_shared_attn_blocks]``.  Linear weights are transposed in every family.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import model as model_lib
+from repro_torch.models import transformer, xlstm, zamba
 
 _NORMS = ("ln1", "ln2")
 _POST_NORMS = ("ln1b", "ln2b")
 _EXPERTS = ("router", "w_gate", "w_up", "w_down")    # kept as they are
 
 
+def _at(a, idx):
+    a = np.asarray(a)
+    return a[idx] if idx is not None else a
+
+
+def _linear(out, prefix, lin, idx=None):
+    out[f"{prefix}.weight"] = np.swapaxes(_at(lin["w"], idx), -1, -2)
+    if "b" in lin:
+        out[f"{prefix}.bias"] = _at(lin["b"], idx)
+
+
+def _xlstm_arrays(cfg, tree, out) -> None:
+    pattern = xlstm.pattern_of(cfg)
+    for layer in range(cfg.n_layers):
+        rep, i = divmod(layer, len(pattern))
+        blk, pre = tree[f"blk{i}"], f"blocks.{layer}"
+        for name in ("ln", "hn"):
+            out[f"{pre}.{name}.scale"] = _at(blk[name]["scale"], rep)
+        lins = ("wq", "wk", "wv", "wz", "wg", "wo") if pattern[i] == "m" else ("wx", "wo")
+        for name in lins:
+            _linear(out, f"{pre}.{name}", blk[name], rep)
+        if pattern[i] == "s":
+            out[f"{pre}.r"] = _at(blk["r"], rep)
+
+
+def _zamba_arrays(cfg, tree, out) -> None:
+    _, every = zamba._groups(cfg)
+    for layer in range(cfg.n_layers):
+        idx, mb, pre = divmod(layer, every), tree["mamba"], f"mamba.{layer}"
+        for name in ("ln", "hn"):
+            out[f"{pre}.{name}.scale"] = _at(mb[name]["scale"], idx)
+        for name in ("in_proj", "out_proj"):
+            _linear(out, f"{pre}.{name}", mb[name], idx)
+        for name in ("conv_w", "conv_b", "a_log", "d_skip", "dt_bias"):
+            out[f"{pre}.{name}"] = _at(mb[name], idx)
+    sh = tree["shared"]
+    for j in range(cfg.n_shared_attn_blocks):
+        pre = f"shared.{j}"
+        for name in ("ln1", "ln2"):
+            out[f"{pre}.{name}.scale"] = _at(sh[name]["scale"], j)
+        for name in ("wq", "wk", "wv", "wo"):
+            _linear(out, f"{pre}.attn.{name}", sh["attn"][name], j)
+        for name in ("gate", "up", "down"):
+            _linear(out, f"{pre}.mlp.{name}", sh["mlp"][name], j)
+        _linear(out, f"{pre}.down", sh["down"], j)
+
+
 def named_arrays(cfg, tree) -> dict[str, np.ndarray]:
     """The leaves of ``tree`` (shaped like the reference's params of
     ``cfg``) by the port's parameter names, in the port's layout."""
+    out = {"embed.table": np.asarray(tree["embed"]["table"])}
+    if cfg.family in ("xlstm", "hybrid"):
+        (_xlstm_arrays if cfg.family == "xlstm" else _zamba_arrays)(cfg, tree, out)
+        out["ln_f.scale"] = np.asarray(tree["ln_f"]["scale"])
+        return out
     pattern = transformer.pattern_of(cfg)
 
     def linear(prefix, lin, rep=None):
-        w = lin["w"] if rep is None else lin["w"][rep]
-        out[f"{prefix}.weight"] = np.swapaxes(np.asarray(w), -1, -2)
-        if "b" in lin:
-            out[f"{prefix}.bias"] = np.asarray(lin["b"] if rep is None else lin["b"][rep])
+        _linear(out, prefix, lin, rep)
 
-    out = {"embed.table": np.asarray(tree["embed"]["table"])}
     for layer in range(cfg.n_layers):
         rep, i = divmod(layer, len(pattern))
         blk, pre = tree[f"blk{i}"], f"blocks.{layer}"
@@ -83,9 +140,10 @@ def _same_names(arrays: dict, model: torch.nn.Module) -> None:
 
 
 @torch.no_grad()
-def from_jax_params(cfg, params) -> transformer.Transformer:
-    """The port's model, on the CPU, holding the reference's ``params``."""
-    model = transformer.Transformer(cfg, "cpu")
+def from_jax_params(cfg, params) -> torch.nn.Module:
+    """The port's model of ``cfg``'s family, on the CPU, holding the
+    reference's ``params``."""
+    model = model_lib.MODULES[cfg.family](cfg, "cpu")
     arrays = named_arrays(cfg, params)
     _same_names(arrays, model)
     for name, p in model.named_parameters():

@@ -1,7 +1,8 @@
 """Model registry: family -> (init, apply, init_caches).
 
-The dense, MoE and VLM families (``transformer``) are ported; the others
-raise ``NotImplementedError`` naming their ROADMAP item.  ``init`` takes an
+The dense, MoE and VLM families (``transformer``), ``xlstm`` and
+``hybrid`` (``zamba``) are ported; ``encdec`` raises
+``NotImplementedError`` naming its ROADMAP item.  ``init`` takes an
 explicit ``torch.Generator`` in place of the reference's PRNG key and
 allocates on the generator's device; the entry points default to the card.
 """
@@ -11,12 +12,15 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import transformer, xlstm, zamba
 
-_NOT_PORTED = {
-    "xlstm": "the xLSTM family", "hybrid": "the hybrid (Zamba) family",
-    "encdec": "the encoder-decoder family",
-}
+_NOT_PORTED = {"encdec": "the encoder-decoder family"}
+# family -> the module that builds, applies and caches it
+FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer,
+            "xlstm": xlstm, "hybrid": zamba}
+# family -> the model's nn.Module class
+MODULES = {"dense": transformer.Transformer, "moe": transformer.Transformer,
+           "vlm": transformer.Transformer, "xlstm": xlstm.XLSTM, "hybrid": zamba.Zamba}
 
 
 class Model(NamedTuple):
@@ -46,21 +50,21 @@ def build(cfg) -> Model:
         raise NotImplementedError(
             f"{cfg.name}: {_NOT_PORTED[fam]} is not ported yet "
             "(ROADMAP queue 1, item 17)")
-    if fam not in ("dense", "moe", "vlm"):
+    if fam not in FAMILIES:
         raise ValueError(f"unknown family {fam!r}")
+    family = FAMILIES[fam]
 
     def init(generator=None, device="cuda"):
         device = resolve_device(generator.device if generator is not None else device)
         if generator is None:
             generator = torch.Generator(device).manual_seed(0)
-        return transformer.init(generator, cfg, device)
+        return family.init(generator, cfg, device)
 
     return Model(
         cfg, init,
-        lambda p, b, **kw: transformer.apply(p, b, cfg, **kw),
-        lambda batch, max_len, device="cuda":
-            transformer.init_caches(cfg, batch, max_len,
-                                    device=resolve_device(device)),
+        lambda p, b, **kw: family.apply(p, b, cfg, **kw),
+        lambda batch, max_len=None, device="cuda":
+            family.init_caches(cfg, batch, max_len, device=resolve_device(device)),
     )
 
 

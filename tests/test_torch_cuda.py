@@ -469,6 +469,12 @@ FLASH_CASES = [
     (2, 8, 1, 200, 200, 64, dict(causal=True)),
     (1, 4, 2, 96, 40, 64, dict(causal=False, window=16)),
     (1, 4, 2, 63, 1000, 64, dict(causal=True)),
+    # D 160 (zamba2-2.7b's shared attention): wgmma in bfloat16, ffma in float32
+    (1, 4, 4, 129, 129, 160, dict(causal=True)),
+    (1, 8, 2, 63, 1000, 160, dict(causal=False)),
+    (1, 8, 1, 1000, 129, 160, dict(causal=True)),
+    (1, 4, 2, 700, 700, 160, dict(causal=True, window=300, softcap=50.0)),
+    (1, 4, 2, 96, 40, 160, dict(causal=False, window=16)),
 ]
 
 
@@ -495,6 +501,10 @@ def test_flash_kernel_matches_plain_version(cuda_device, dtype, B, Hq, Hkv, Sq, 
     want = flash_ref.attention_ref(q, k, v, **kw)
     atol, rtol = FLASH_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    if D == 160:    # the wgmma route's third, half-filled box on its own
+        torch.testing.assert_close(got[..., 128:].float(), want[..., 128:].float(),
+                                   atol=atol, rtol=rtol)
+        assert want[..., 128:].float().abs().max() > 0.1
 
 
 # the forward's log-sum-exp against the plain version's: the float32
@@ -669,11 +679,46 @@ def test_flash_bwd_refuses_what_it_does_not_take(cuda_device):
     assert info["dkv"]["key_rows"] == 32 and info["dkv"]["shared_bytes"] <= 232448
 
 
+def test_flash_forward_builds_spill_nothing(cuda_device):
+    """Every tensor-core build of the forward (wgmma at each of its widths,
+    D 160's three boxes among them; tf32x3) and the ffma build at float32 D
+    160 keep their registers (no local bytes) and fit a block's shared
+    memory; D 160 streams 64-key tiles."""
+    builds = [(torch.bfloat16, D) for D in flash_ops.WGMMA_HEAD_DIMS]
+    builds += [(torch.float32, 64), (torch.float32, 160)]
+    for dtype, D in builds:
+        info = flash_ops.kernel_info(dtype, D)
+        assert info["local_bytes"] == 0, (dtype, D, info)
+        assert 0 < info["shared_bytes"] <= 232448
+    assert flash_ops.kernel_info(torch.bfloat16, 160)["key_rows"] == 64
+
+
+def test_flash_bwd_refuses_d160_on_card(cuda_device):
+    """The forward takes D 160; its backward raises (naming the ROADMAP
+    item that brings it) before any backward launch, through autograd and
+    called directly."""
+    g = torch.Generator(cuda_device).manual_seed(160)
+    q = torch.randn(1, 4, 64, 160, generator=g, device=cuda_device).bfloat16()
+    k, v = (torch.randn(1, 2, 64, 160, generator=g, device=cuda_device).bfloat16()
+            for _ in range(2))
+    q.requires_grad_(True)
+    before = flash_ops.attention_bwd.launches, dict(flash_ops.attention_bwd.route_launches)
+    o = flash_ops.attention(q, k, v, causal=True)
+    with pytest.raises(ValueError, match="item 17.6"):
+        o.float().sum().backward()
+    o, lse = flash_ops.attention(q.detach(), k, v, causal=True, return_lse=True)
+    with pytest.raises(ValueError, match="item 17.6"):
+        flash_ops.attention_bwd(q.detach(), k, v, o, o, lse)
+    torch.cuda.synchronize()
+    assert (flash_ops.attention_bwd.launches,
+            flash_ops.attention_bwd.route_launches) == before
+
+
 def test_flash_bwd_wgmma_builds_spill_nothing(cuda_device):
     """Every build of the wgmma backward keeps its registers (no local
     bytes) and fits a block's shared memory; its streamed tiles are 64 rows,
     32 at D = 256."""
-    for D in flash_ops.WGMMA_HEAD_DIMS:
+    for D in flash_ops.BWD_WGMMA_HEAD_DIMS:
         info = flash_ops.bwd_kernel_info(torch.bfloat16, D)
         assert set(info) == {"prepass", "bwd_wgmma"}
         assert all(k["local_bytes"] == 0 for k in info.values()), (D, info)
@@ -746,10 +791,12 @@ def test_train_steps_on_card_match_cpu(cuda_device):
 
 
 @pytest.mark.parametrize("arch", ["tspm-mlho", "gemma2-2b", "deepseek-moe-16b",
-                                  "llama4-maverick-400b-a17b", "pixtral-12b"])
+                                  "llama4-maverick-400b-a17b", "pixtral-12b", "xlstm-125m",
+                                  "zamba2-2.7b"])
 def test_reduced_model_serves_on_card_as_on_cpu(cuda_device, arch):
     """Greedy serving of a reduced model: the card (flash kernel, one
-    launch per layer per wave) gives the CPU's tokens."""
+    launch per attention layer per wave: none for xlstm-125m, one a shared
+    invocation for zamba2-2.7b) gives the CPU's tokens."""
     cfg = get_config(arch, reduced=True)
     mdl = model_lib.build(cfg)
     card = mdl.init(torch.Generator(cuda_device).manual_seed(0))
@@ -765,7 +812,8 @@ def test_reduced_model_serves_on_card_as_on_cpu(cuda_device, arch):
         before = flash_ops.attention.launches
         results.append(eng.run())
         launched = flash_ops.attention.launches - before
-        assert launched == (cfg.n_layers * 2 if dev != "cpu" else 0)
+        per_wave = {"xlstm": 0, "hybrid": cfg.n_layers // max(cfg.shared_attn_every, 1)}
+        assert launched == (per_wave.get(cfg.family, cfg.n_layers) * 2 if dev != "cpu" else 0)
         rng = np.random.default_rng(0)
     for rid in results[0]:
         np.testing.assert_array_equal(results[0][rid], results[1][rid])

@@ -529,17 +529,19 @@ def test_bwd_wrapper_refusals():
 
 def test_bwd_route_follows_dtype_and_head_dim():
     """``ops.bwd_route``: the wgmma backward takes bfloat16 at the wgmma
-    forward's head widths, FFMA the rest (every float32 width, bfloat16 at
-    D 16 and 32); dtypes and widths no backward takes raise."""
+    forward's head widths but 160, FFMA the rest (every float32 width of
+    the backward, bfloat16 at D 16 and 32); dtypes and widths no backward
+    takes raise (D 160 naming the ROADMAP item that brings it)."""
     assert ops.BWD_ROUTES == ("ffma", "wgmma")
-    for D in ops.HEAD_DIMS:
+    for D in ops.BWD_HEAD_DIMS:
         assert ops.bwd_route(torch.float32, D) == "ffma"
-        assert ops.bwd_route(torch.bfloat16, D) == ("wgmma" if D in ops.WGMMA_HEAD_DIMS
+        assert ops.bwd_route(torch.bfloat16, D) == ("wgmma" if D in ops.BWD_WGMMA_HEAD_DIMS
                                                     else "ffma")
-    assert ops.WGMMA_HEAD_DIMS == (64, 128, 256)
+    assert ops.BWD_WGMMA_HEAD_DIMS == (64, 128, 256)
+    assert set(ops.HEAD_DIMS) - set(ops.BWD_HEAD_DIMS) == {160}
     assert set(ops.BWD_KERNELS) == set(ops.BWD_ROUTES) == set(ops.BWD_ENTRIES)
     with pytest.raises(ValueError, match="head dim"):
-        ops.bwd_route(torch.bfloat16, 160)
+        ops.bwd_route(torch.bfloat16, 96)
     with pytest.raises(ValueError, match="dtype"):
         ops.bwd_route(torch.float16, 64)
     # the wgmma route's scratch: log2-unit lse and delta, rows padded to 64
@@ -650,3 +652,67 @@ def test_wgmma_bwd_rounding_against_the_bf16_limit(single):
             assert ratio.max() > 10 and (ratio > 1).sum() > 1000, name
         else:
             assert ratio.max() <= 1, (name, ratio.max().item())
+
+
+# ---- D 160: zamba2-2.7b's shared attention (32 heads x 160)
+
+D160_CASES = [
+    (1, 4, 4, 40, 40, 160, dict(causal=True)),
+    (1, 8, 2, 33, 33, 160, dict(causal=True)),                    # GQA 4
+    (1, 4, 1, 48, 48, 160, dict(causal=True, window=7)),
+    (1, 4, 2, 40, 40, 160, dict(causal=True, softcap=30.0)),
+    (2, 4, 4, 48, 20, 160, dict(causal=False, window=8)),         # rows 27.. see no key
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,kw", D160_CASES)
+def test_plain_version_at_d160_matches_reference(dtype, B, Hq, Hkv, Sq, Skv, D, kw):
+    """``ops.attention`` on CPU tensors at D 160 against the reference's
+    ``attention_ref`` (causal, GQA, window, softcap, rows that see no key),
+    the last 32 columns (the wgmma route's third, half-filled box) also on
+    their own, so that a dropped box cannot pass on an average."""
+    jdt, tdt, tol = DTYPES[dtype]
+    arrays = _inputs(B, Hq, Hkv, Sq, Skv, D, seed=160)
+    got = _f32(ops.attention(*(torch.from_numpy(a).to(tdt) for a in arrays), **kw))
+    want = _f32(j_ref.attention_ref(*(jnp.asarray(a, jdt) for a in arrays), **kw))
+    assert got.shape == (B, Hq, Sq, 160)
+    _close(got, want, tol)
+    _close(got[..., 128:], want[..., 128:], tol)
+    assert np.abs(want[..., 128:]).max() > 0.1
+
+
+def test_route_at_d160():
+    """D 160: bfloat16 takes wgmma (three 64-column boxes, ``TILE_ROWS``
+    128), float32 ffma; ``kernel_route`` reads it from meta tensors."""
+    assert 160 in ops.HEAD_DIMS and 160 in ops.WGMMA_HEAD_DIMS
+    assert 160 not in ops.TF32X3_HEAD_DIMS
+    assert ops.route(torch.bfloat16, 160) == "wgmma"
+    assert ops.route(torch.float32, 160) == "ffma"
+    for dtype, r in ((torch.bfloat16, "wgmma"), (torch.float32, "ffma")):
+        q = torch.empty(2, 32, 4096, 160, dtype=dtype, device="meta")
+        assert ops.kernel_route(q, q, q) == r
+    with pytest.raises(ValueError, match="route 'tf32x3' does not take"):
+        t = torch.empty(1, 2, 8, 160, device="meta")
+        ops._launch(t, t, t, t, causal=True, window=None, softcap=None, force_route="tf32x3")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_refuses_d160_before_any_launch(dtype):
+    """The backward takes no D 160 yet: ``bwd_route`` and
+    ``_Attention.backward`` raise a ``ValueError`` naming the ROADMAP item
+    that brings it, before anything is launched or computed (the saved
+    tensors here are CPU tensors, which ``attention_bwd`` would hand to the
+    plain version)."""
+    import types
+
+    with pytest.raises(ValueError, match="item 17.6"):
+        ops.bwd_route(dtype, 160)
+    q = torch.zeros(1, 2, 8, 160, dtype=dtype)
+    lse = torch.zeros(1, 2, 8)
+    ctx = types.SimpleNamespace(saved_tensors=(q, q, q, q, lse),
+                                mask=dict(causal=True, window=None, softcap=None))
+    before = ops.attention_bwd.launches, dict(ops.attention_bwd.route_launches)
+    with pytest.raises(ValueError, match="hybrid"):
+        ops._Attention.backward(ctx, q)
+    assert (ops.attention_bwd.launches, ops.attention_bwd.route_launches) == before

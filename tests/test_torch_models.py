@@ -14,7 +14,12 @@ post-norms, GeGLU, scaled embeddings), ``deepseek-moe-16b`` (MoE every
 layer, top-2 of 8, 2 shared), ``llama4-maverick-400b-a17b`` (dense and
 MoE layers interleaved, top-1, 1 shared) and ``pixtral-12b`` (8 projected
 patch embeddings before the tokens) run on the CPU, where attention is
-the plain ``blocked_sdpa``.
+the plain ``blocked_sdpa``; so do reduced ``xlstm-125m`` (two mLSTM and
+one sLSTM a repetition, chunk 8) and ``zamba2-2.7b`` (two
+groups of two Mamba2 layers, each followed by a shared attention
+invocation, the two shared blocks alternating), whose logits and
+recurrent states hold the same 2e-5 (largest reading: xlstm-125m's train
+logits, 2.4e-5 off values up to 43, inside 2e-5 + 2e-5 |want|).
 """
 import dataclasses
 
@@ -29,14 +34,14 @@ from repro.models import attention as j_attention
 from repro.models import layers as j_layers
 from repro.models import model as j_model
 from repro_torch.configs import ARCHS, get_config
-from repro_torch.models import attention, convert, layers, transformer
+from repro_torch.models import attention, convert, layers, transformer, xlstm, zamba
 from repro_torch.models import model as model_lib
 
 ARCH_CASES = ["tspm-mlho", "gemma2-2b", "deepseek-moe-16b", "llama4-maverick-400b-a17b",
-              "pixtral-12b"]
+              "pixtral-12b", "xlstm-125m", "zamba2-2.7b"]
 TOL = 2e-5
 MOE_TOL = 2e-4
-UNPORTED = ["xlstm-125m", "zamba2-2.7b", "seamless-m4t-large-v2"]
+UNPORTED = ["seamless-m4t-large-v2"]
 
 
 def _f32(x) -> np.ndarray:
@@ -91,12 +96,46 @@ def test_configs_resolve_the_same_arch_names():
         get_config("no-such-arch")
 
 
+def _converted_recurrent(cfg, params, port):
+    """xLSTM: the last layer's linear weights transposed, an sLSTM's
+    recurrent ``r`` as it is; Zamba2: the last Mamba2 layer's projections
+    transposed and its conv and float32 parameters as they are, each
+    shared block's attention and ``down``."""
+    last = cfg.n_layers - 1
+    if cfg.family == "xlstm":
+        pattern = xlstm.pattern_of(cfg)
+        rep, i = divmod(last, len(pattern))
+        blk, jblk = port.blocks[last], params[f"blk{i}"]
+        assert blk.kind == pattern[i] == "s"
+        np.testing.assert_array_equal(blk.wx.weight.numpy(), np.asarray(jblk["wx"]["w"][rep]).T)
+        np.testing.assert_array_equal(blk.r.numpy(), np.asarray(jblk["r"][rep]))
+        np.testing.assert_array_equal(port.blocks[0].wg.weight.numpy(),
+                                      np.asarray(params["blk0"]["wg"]["w"][0]).T)
+        return
+    g, i = divmod(last, zamba._groups(cfg)[1])
+    blk, jm = port.mamba[last], params["mamba"]
+    np.testing.assert_array_equal(blk.in_proj.weight.numpy(),
+                                  np.asarray(jm["in_proj"]["w"][g, i]).T)
+    for name in ("conv_w", "conv_b", "a_log", "d_skip", "dt_bias"):
+        np.testing.assert_array_equal(getattr(blk, name).numpy(), np.asarray(jm[name][g, i]),
+                                      err_msg=name)
+    assert blk.a_log.dtype == blk.d_skip.dtype == blk.dt_bias.dtype == torch.float32
+    for j in range(cfg.n_shared_attn_blocks):
+        sh, jsh = port.shared[j], params["shared"]
+        np.testing.assert_array_equal(sh.attn.wq.weight.numpy(),
+                                      np.asarray(jsh["attn"]["wq"]["w"][j]).T)
+        np.testing.assert_array_equal(sh.down.weight.numpy(), np.asarray(jsh["down"]["w"][j]).T)
+
+
 @pytest.mark.parametrize("arch", ARCH_CASES)
 def test_param_count_and_converted_values(arch):
     """Linear weights transposed, expert weights and the router as they
     are (``torch.bmm``'s layout is the reference's)."""
     cfg, jm, params, port = _pair(arch)
     assert model_lib.param_count(port) == j_model.param_count(params)
+    if cfg.family in ("xlstm", "hybrid"):
+        _converted_recurrent(cfg, params, port)
+        return
     pattern = transformer.pattern_of(cfg)
     layer = cfg.n_layers - 1
     blk = params[f"blk{layer % len(pattern)}"]
@@ -121,13 +160,14 @@ def test_param_count_and_converted_values(arch):
 @pytest.mark.parametrize("arch", ARCH_CASES)
 @pytest.mark.parametrize("seq", [8, 40])
 def test_train_logits_match_reference(arch, seq):
-    """seq 40 crosses gemma2's reduced window (16) on its local layers; a
-    VLM's logits cover its patches and tokens; ``aux`` is the MoE layers'
-    sum (0 without them)."""
+    """seq 40 crosses gemma2's reduced window (16) on its local layers and
+    is no multiple of the recurrent families' reduced chunk (8: one chunk
+    of 40, as the reference); a VLM's logits cover its patches and
+    tokens; ``aux`` is the MoE layers' sum (0 without them)."""
     cfg, jm, params, port = _pair(arch)
     batch = _batch(cfg, _tokens(cfg, 2, seq))
     want, aux = jm.apply(params, _as(batch, jnp.asarray), mode="train")
-    got, got_aux = transformer.apply(port, _as(batch, torch.from_numpy), cfg, mode="train")
+    got, got_aux = model_lib.build(cfg).apply(port, _as(batch, torch.from_numpy), mode="train")
     assert got.shape == want.shape == (2, cfg.n_patches + seq, cfg.vocab_size)
     _close(got, want, tol=_tol(cfg))
     assert got_aux.dtype == torch.float32 and got_aux.shape == ()
@@ -147,7 +187,38 @@ def _caches_as_reference(cfg, caches):
             for i in range(n)]
 
 
+def _assert_recurrent_caches_match(cfg, got, want, what):
+    """xLSTM: by pattern position, the repetitions' states stacked;
+    Zamba2: the Mamba2 states stacked ``[n_groups, every]`` and the shared
+    attention's caches ``[n_groups]`` (each invocation its own)."""
+    def stack(xs):
+        return np.stack([np.stack(x) if isinstance(x, list) else x for x in xs])
+
+    if cfg.family == "xlstm":
+        for i, (g, w) in enumerate(zip(got, want)):
+            for name in (("C", "n") if isinstance(w, tuple) else ("h", "c", "n", "m")):
+                leaves = [getattr(st, name) if isinstance(w, tuple) else st[name] for st in g]
+                _close(stack([x.numpy() for x in leaves]),
+                       getattr(w, name) if isinstance(w, tuple) else w[name],
+                       what=f"{what} {i}.{name}")
+        return
+    conv, scan = want["mamba"]
+    for name, w in (("conv", conv), ("C", scan.C), ("n", scan.n)):
+        g = [[(st[0] if name == "conv" else getattr(st[1], name)).numpy() for st in grp]
+             for grp in got["mamba"]]
+        _close(np.stack([np.stack(x) for x in g]), w, what=f"{what} mamba {name}")
+    attn = want["attn"]
+    np.testing.assert_array_equal([c["pos"] for c in got["attn"]], np.asarray(attn["pos"]),
+                                  err_msg=what)
+    for name in ("k", "v"):
+        _close(np.stack([c[name].numpy() for c in got["attn"]]), attn[name],
+               what=f"{what} attn {name}")
+
+
 def _assert_caches_match(cfg, got, want, what):
+    if cfg.family in ("xlstm", "hybrid"):
+        _assert_recurrent_caches_match(cfg, got, want, what)
+        return
     for g, w in zip(_caches_as_reference(cfg, got), want):
         np.testing.assert_array_equal(g["pos"], np.asarray(w["pos"]), err_msg=what)
         _close(g["k"], w["k"], tol=_tol(cfg), what=f"{what} k")
@@ -200,6 +271,33 @@ def _assert_decode_equals_train(cfg):
 
 def test_decode_equals_the_last_row_of_train():
     _assert_decode_equals_train(get_config("gemma2-2b", reduced=True))
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-2.7b"])
+def test_decode_equals_train_for_recurrent_families(arch):
+    """``_assert_decode_equals_train`` for the xLSTM and hybrid families
+    (the reference's own check, tests/test_archs_smoke.py): the scans'
+    states carry from prefill into decode (the sLSTM's stabilizer and the
+    Mamba2 conv window among them), and each shared attention invocation
+    keeps its own cache.  The prefill's 20 tokens are no multiple of the
+    reduced chunk (8): one chunk of 20, as the reference takes."""
+    _assert_decode_equals_train(get_config(arch, reduced=True))
+
+
+@pytest.mark.parametrize("arch,count", [("xlstm-125m", 114_220_800),
+                                        ("zamba2-2.7b", 2_786_410_400)])
+def test_param_count_at_full_size(arch, count):
+    """The full-size model on the meta device (nothing allocated) has the
+    reference's parameter count, ``abstract_init``'s."""
+    cfg = get_config(arch)
+    model = model_lib.MODULES[cfg.family](cfg, "meta")
+    structs, _ = j_model.abstract_init(j_model.build(j_get_config(arch)))
+    assert model_lib.param_count(model) == j_model.param_count(structs) == count
+    if cfg.family == "hybrid":
+        shared = zamba._shared_cfg(cfg)
+        assert (shared.d_model, shared.hd, shared.attn_softcap, shared.sliding_window) \
+            == (5120, 160, None, None)
+        assert zamba._groups(cfg) == (9, 6) and len(model.shared) == 2
 
 
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "llama4-maverick-400b-a17b",
@@ -256,7 +354,7 @@ def test_decode_attention_matches_reference(window, softcap):
 @pytest.mark.parametrize("arch", UNPORTED)
 def test_unported_families_and_devices_raise(arch):
     cfg = get_config(arch, reduced=True)
-    assert cfg.family in ("xlstm", "hybrid", "encdec")
+    assert cfg.family == "encdec"
     with pytest.raises(NotImplementedError, match="item 17"):
         model_lib.build(cfg)
     with pytest.raises(NotImplementedError, match="item 17"):

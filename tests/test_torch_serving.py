@@ -80,7 +80,8 @@ def _assert_same_or_near_tie(cfg, jm, params, mdl, port, prompt, got, want, rid)
 
 
 @pytest.mark.parametrize("arch", ["tspm-mlho", "gemma2-2b", "deepseek-moe-16b",
-                                  "llama4-maverick-400b-a17b", "pixtral-12b"])
+                                  "llama4-maverick-400b-a17b", "pixtral-12b", "xlstm-125m",
+                                  "zamba2-2.7b"])
 def test_greedy_engine_matches_reference(arch):
     cfg, jm, params, mdl, port = _pair(arch)
     requests = _requests(cfg)
@@ -188,12 +189,7 @@ def test_launcher_runs_on_the_cpu(capsys):
     assert re.search(served, out).groups() == re.search(served, j_out).groups()
 
 
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "pixtral-12b"])
-def test_launcher_serves_moe_and_vlm_on_the_cpu(capsys, arch):
-    """``--arch deepseek-moe-16b`` / ``pixtral-12b`` at ``--reduced
-    --device cpu``: the launcher's defaults serve them through ``build``
-    (pixtral as text: the engine takes no patch input, as the
-    reference's)."""
+def _launcher_serves(capsys, arch):
     cfg = get_config(arch, reduced=True)
     results = serve.main(["--arch", arch, "--reduced", "--device", "cpu",
                           "--requests", "4", "--max-new", "6"])
@@ -202,6 +198,24 @@ def test_launcher_serves_moe_and_vlm_on_the_cpu(capsys, arch):
                for v in results.values())
     out = capsys.readouterr().out
     assert f"serving {arch} on cpu" in out and "served 4 requests" in out
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "pixtral-12b"])
+def test_launcher_serves_moe_and_vlm_on_the_cpu(capsys, arch):
+    """``--arch deepseek-moe-16b`` / ``pixtral-12b`` at ``--reduced
+    --device cpu``: the launcher's defaults serve them through ``build``
+    (pixtral as text: the engine takes no patch input, as the
+    reference's)."""
+    _launcher_serves(capsys, arch)
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-2.7b"])
+def test_launcher_serves_xlstm_and_hybrid_on_the_cpu(capsys, arch):
+    """``--arch xlstm-125m`` / ``zamba2-2.7b`` at ``--reduced --device
+    cpu``: served through ``build`` with the launcher's defaults (xLSTM's
+    caches take no ``max_len``; Zamba2's shared attention keeps a cache an
+    invocation)."""
+    _launcher_serves(capsys, arch)
 
 
 def test_serve_example_runs_the_reduced_launcher(monkeypatch, capsys):

@@ -306,6 +306,36 @@ def test_remat_gives_the_same_gradients():
         assert torch.equal(g, out["dots"][2][n]), n
 
 
+@pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-2.7b"])
+def test_recurrent_families_carry_train_states_and_remat(arch):
+    """``from_jax_train_state`` carries the xLSTM and hybrid trees
+    (``blk{i}`` stacked by repetition; ``mamba [n_groups, every]`` and
+    ``shared [n_blocks]``): parameters, float32 moments and step.  Train
+    mode under ``remat`` (each repetition or group checkpointed) gives the
+    same loss and gradients bit for bit as without."""
+    cfg, _, jstate = _ref_state(arch)
+    jstate = jstate._replace(opt=jstate.opt._replace(
+        mu=jax.tree.map(lambda a: a + 0.5, jstate.opt.mu),
+        nu=jax.tree.map(lambda a: a + 0.25, jstate.opt.nu)))
+    state = _port_state(cfg, jstate)
+    names = [n for n, _ in state.params.named_parameters()]
+    assert all(p.requires_grad for p in state.params.parameters())
+    for tree, got in ((jstate.params, dict(state.params.named_parameters())),
+                      (jstate.opt.mu, state.opt.mu), (jstate.opt.nu, state.opt.nu)):
+        want = convert.named_arrays(cfg, jax.tree.map(np.asarray, tree))
+        assert sorted(want) == sorted(got) == sorted(names)
+        for n in names:
+            np.testing.assert_array_equal(got[n].detach().float().numpy(), want[n], err_msg=n)
+    assert all(m.dtype == torch.float32 for m in state.opt.mu.values())
+    assert int(state.opt.step) == int(np.asarray(jstate.opt.step))
+    batch = _batch(cfg.vocab_size, s=24)
+    out = {r: _port_loss_and_grads(cfg.replace(remat=r), state.params, batch)
+           for r in ("none", "dots")}
+    assert torch.equal(out["none"][0], out["dots"][0])
+    for n, g in out["none"][2].items():
+        assert torch.equal(g, out["dots"][2][n]), n
+
+
 def test_checkpoint_resume_is_bit_exact(tmp_path):
     cfg, mdl, state = _init()
     step = train_loop.make_train_step(mdl, opt_lib.OptConfig(warmup_steps=0, decay_steps=10))
