@@ -45,17 +45,24 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with
      build's registers, spill and shared memory printed (the tensor-core
      builds and float32 D 160 must spill nothing); then
      ``flash_attention_bwd`` (each build's registers, spill and shared
-     memory printed once) against ``attention_bwd_ref`` in float64 at
+     memory printed once; the wgmma builds and float32 D 160 must spill
+     nothing) against ``attention_bwd_ref`` in float64 at
      S = 1/127/128/129, Sq != Skv causal and not, D = 16/32/64/128/256,
      GQA groups 1/2/3/8, windows 1/16, softcap 50 and rows that see no key,
-     in both dtypes, and at tspm-mlho's (q [8,12,256,64], float32, causal)
-     and gemma2-2b's (q [1,8,2048,256], bfloat16, window 4,096, softcap
-     50) training shapes, each run twice for identical bytes; the limit
+     in both dtypes; at D 160 (wgmma's three boxes in bfloat16, ffma in
+     float32) S = 1/127/128/129, Sq != Skv causal and not, GQA groups
+     1/2/4/8, windows 1/16, softcap 50 and rows that see no key, its last
+     32 columns also held on their own; and at tspm-mlho's (q
+     [8,12,256,64], float32, causal), gemma2-2b's (q [1,8,2048,256],
+     bfloat16, window 4,096, softcap 50), zamba2-2.7b's (q
+     [1,32,4096,160], bfloat16, causal) and seamless-m4t-large-v2's
+     encoder (q [2,16,1024,64], bfloat16, not causal) training shapes, each
+     run twice for identical bytes; the limit
      (``ref.attention_bwd_limit``) is ``BWD_ERR_FACTOR`` times the float32
      plain version's own distance from
      float64 (plus the rounding to bfloat16), printed per case beside a
      planted fault (the first query row's output gradient dropped) that it
-     must catch; and times the backward at both training shapes beside its
+     must catch; and times the backward at those training shapes beside its
      bound, its plain version and ``scaled_dot_product_attention``'s
      backward;
   4. drives the main path — ``MiningSession(...).fit(db)`` then
@@ -72,8 +79,8 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with
      host sort: rows come in patient order) and each fit's peak device
      memory within its ``budget_bytes``; in between (phase 4c) the hash
      session serves its Table 1 frame through ``session.serve()``: the
-     reference's serving mix (24 distinct plans, 2,048 zipf-drawn queries
-     from 32 client threads), each distinct plan's keep mask equal to the
+     reference's serving mix cut to 4 distinct plans (2,048 zipf-drawn
+     queries from 32 client threads), each distinct plan's keep mask equal to the
      frame chain's, the predicate op timed alone, and every byte of device
      memory the server took given back when it goes;
   5. holds the session on the card against the session on the CPU (plain
@@ -109,14 +116,14 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with
      and the corpus-free counting pass alone to peak under 1 GB of device
      memory; it times ``tspm_fused`` there;
   8. drives the streaming path at Table 1 (between phases 6 and 7): the
-     stream fit, a 4-wave replay through ``session.submit``/``run``, the
+     stream fit, a 3-wave replay through ``session.submit``/``run``, the
      same replay of the cohort's first 1,248 patients under a 1 GiB budget
      (eviction, host-tier restores) and the fused screen on the stream
      engine, each with the launch counts zeroed just before and read just
      after (``tspm_delta`` launches = ticks); the sketch table must equal
      the batch engine's and the rows the batch rows as multisets (sorted on
      the card), the evicting replay the plain replay's rows of its patients
-     row for row; then (e) the 4-wave replay through 4 shards
+     row for row; then (e) the 3-wave replay through 4 shards
      (``placement='host'``, hash router, rebalancing every 32 ticks, the 64
      heaviest patients migrated after wave 2): ``tspm_delta`` launches =
      shard ticks, merged table = the batch table, rows = the batch rows as
@@ -213,20 +220,48 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with
      of 2,048 tokens, 32 new each, through ``ServeEngine(batch_size=4,
      max_len=2080)``: no ``flash_attention`` launch; the same readings and
      the same consistency check at 2 x (512 + 128) tokens;
+     then the encoder-decoder family, each model freed before the next:
+     (j) seamless-m4t-large-v2's full widths cut to 2 encoder and 2 decoder
+     layers, in float32, the same weights on the card and the CPU: one
+     prefill of 1 x (256 source frames + 64 target tokens) and 8 decode
+     steps on each, logits within ``ENCDEC_LOGIT_REL`` of the CPU's
+     largest, 6 tf32x3 launches a prefill; prefill + decode against the
+     train-mode forward within 2e-3;
+     (k) seamless-m4t-large-v2 at full size (24 + 24 layers, bf16, nothing
+     cut): 2 x (1,024 seeded source frames + 64 tokens) prefill (72
+     ``flash_attention`` launches, all wgmma at D 64: 24 encoder, 24
+     decoder self- and 24 cross-attentions), then 32 greedy decode steps
+     (no launch: one query row); prefill s, decode ms a step, tokens/s,
+     peak device memory; the kernel timed at the encoder's and the
+     cross-attention's prefill shapes;
  10. trains (last): (a) tspm-mlho at full width cut to 2 layers, batch 8
      x 256 tokens of the launcher's corpus, initialised on the CPU and
      copied to the card: step 1's gradients per parameter within
      ``TRAIN_GRAD_SHARE`` of its max |g|, and 3 train steps' loss, ce and
      grad norm within ``TRAIN_RTOL`` of the CPU's; (b) ``python -m
      repro_torch.launch.train --arch tspm-mlho --batch 8 --seq 256
-     --patients 512 --ckpt-dir D`` in its own process, stopped at step 150
-     (``--steps 150``), then rerun with ``--steps 300``, which must resume
-     at step 150 from a state whose digest equals the saved one's; over
-     the two runs' 300 steps, falling ce and 12 backward launches a step;
+     --patients 512 --ckpt-dir D`` in its own process, stopped at step 50
+     (``--steps 50``), then rerun with ``--steps 100``, which must resume
+     at step 50 from a state whose digest equals the saved one's; over
+     the two runs' 100 steps, falling ce and 12 backward launches a step;
      each run's step time, tokens/s and peak device memory; (c)
      gemma2-2b at full width (every block checkpointed) takes 3 steps on
      one batch of 1 x 2,048 random tokens: finite, falling loss, 26
-     backward launches a step, its step time and peak device memory.
+     backward launches a step, its step time and peak device memory;
+     (d) deepseek-moe-16b (2 layers), pixtral-12b (2 layers; 128 patches
+     + 128 tokens), xlstm-125m (6), zamba2-2.7b (6: its shared attention
+     through the ffma backward at float32 D 160) and seamless-m4t-large-v2
+     (2 + 2) at full widths in float32, the same weights on the card and
+     the CPU: step 1's loss, ce and aux within ``TRAIN_RTOL`` and every
+     gradient within ``TRAIN_GRAD_SHARE`` of its largest |g|, the MoE
+     routing byte-equal; (e) 3 bf16 steps each, the config's remat:
+     zamba2-2.7b at full size on 1 x 4,096 tokens (9 wgmma backward
+     launches a step at D 160), seamless-m4t-large-v2 at full size on 2 x
+     (1,024 + 1,024), xlstm-125m at full size on 2 x 1,024,
+     deepseek-moe-16b (4 x 512) and pixtral-12b (2 x (1,024 patches +
+     64)) at full width cut to 4 layers (peak under 60 GB): finite losses
+     and gradient norms, backward launches by route, step s, tokens/s and
+     peak device memory.
 
 Every failed check raises, so the script exits non-zero.  The last three
 lines of its output are the ``nvidia-smi`` line, the ``kernels`` JSON line
@@ -255,9 +290,10 @@ BUDGET_BYTES = 4 << 30         # budget_bytes of the chunked/files/fused runs
 SMALL_BUDGET_BYTES = 512 << 20  # ... of a second chunked run (many small chunks)
 CHECK_BUDGET_BYTES = 32 << 20  # ... of the card-vs-CPU runs (several chunks)
 CHECK_DISK_BYTES = 16 << 20    # disk_bytes of the card-vs-CPU stream run
-# deltas a patient in the replays of phase 8: 4 (with 8 the smoke read
-# 1,002 s of its 1,200 s limit on a slow host)
-STREAM_WAVES = 4
+# deltas a patient in the replays of phases 5 and 8: 3 (with 8 the smoke
+# read 1,002 s of its 1,200 s limit on a slow host, an H100 80GB HBM3
+# machine; with 4, and phase 10 (d)-(e) added, 1,046 s)
+STREAM_WAVES = 3
 STREAM_CHECKPOINT_WAVE = 2     # (f): waves before its checkpoint
 STREAM_BUDGET_BYTES = 1 << 30  # budget_bytes of phase 8's evicting replay
 # patients of the evicting replay (the cohort's first quarter, 78 ticks a
@@ -1044,10 +1080,11 @@ def check_main_path(torch, db, device) -> tuple[dict, object]:
 
 SERVE_BATCH = 32        # QueryServer batch_size of phases 4c and 5
 SERVE_DISTINCT = 24     # distinct plans of the serving mix (phase 5)
-# phase 4c draws from half as many: each distinct plan's frame-chain oracle
-# takes ~2.8 s at Table 1 on the host (H100 80GB HBM3 machine, 8 cores), and
-# 24 of them pushed the smoke past 900 s
-STATIC_SERVE_DISTINCT = 12
+# phase 4c draws from a sixth as many: each distinct plan's frame-chain
+# oracle takes ~2.8 s at Table 1 on the host (H100 80GB HBM3 machine, 8
+# cores); 24 of them pushed the smoke past 900 s, and 12 left too little
+# room for phase 10 (d)-(e) under the 1,200 s limit on a slow host
+STATIC_SERVE_DISTINCT = 4
 SERVE_QUERIES = 2048    # queries drawn from them with zipf weights (phase 4c)
 SERVE_CLIENTS = 32      # client threads of phase 4c
 SERVE_SEED = 7
@@ -1710,7 +1747,7 @@ def check_stream(torch, db, device) -> tuple[dict, dict]:
 
 
 JOURNAL_COMMIT_EVERY = 16      # journal_commit_every of phase 8 (g)
-JOURNAL_UPTO_TICK = 156        # the partial replay of phase 8 (g): half its 312 ticks
+JOURNAL_UPTO_TICK = 156        # the partial replay of phase 8 (g): 2 of its 3 waves' 234 ticks
 
 
 def journal_readings(jdir: str) -> dict:
@@ -1771,7 +1808,7 @@ def forge_delta(src: str, dst: str, tick_keys: list) -> tuple[int, int]:
 
 
 def check_journaled_replay(torch, db, device, plain, plain_wall: float) -> dict:
-    """Phase 8 (g): (c) again (the first 1,248 patients, 4 waves, 1 GiB)
+    """Phase 8 (g): (c) again (the first 1,248 patients, 3 waves, 1 GiB)
     with ``journal_dir`` set (a commit every 16 ticks).  It must end
     byte-identical to (c) (snapshot and the tier of every key); the
     journal must verify (its replay launching ``tspm_delta`` once a tick),
@@ -2512,6 +2549,11 @@ BWD_MODEL_SHAPES = {   # (B, Hq, Hkv, Sq, Skv, D), dtype, mask: a training step'
     "tspm_mlho": ((8, 12, 4, 256, 256, 64), "float32", dict(causal=True)),
     "gemma2_2b": ((1, 8, 4, 2048, 2048, 256), "bfloat16",
                   dict(causal=True, window=4096, softcap=50.0)),
+    # zamba2-2.7b's shared attention at 1 x 4,096 tokens (phase 10 (e))
+    "zamba2_2_7b": ((1, 32, 32, 4096, 4096, 160), "bfloat16", dict(causal=True)),
+    # seamless-m4t-large-v2's encoder self-attention and its decoder's
+    # cross-attention at 2 x (1,024 + 1,024) (phase 10 (e)): non-causal
+    "seamless_enc": ((2, 16, 16, 1024, 1024, 64), "bfloat16", dict(causal=False)),
 }
 
 
@@ -2524,8 +2566,9 @@ def flash_bwd_edge_cases():
     route's own edges (bfloat16 at D 64/128/256, 128-row resident tiles,
     32- or 64-row streamed tiles): at each width S = 1/63/127/128/129/1,000
     and Sq != Skv causal and not; at D = 256 GQA groups 1, 2, 4 and 8,
-    windows 1 and 300 with softcap 50, and rows that see no key.  Each case
-    runs in float32 (the ffma route) and bfloat16."""
+    windows 1 and 300 with softcap 50, and rows that see no key; then D
+    160's (``flash_bwd_d160_cases``).  Each case runs in float32 (the ffma
+    route) and bfloat16."""
     for S in (1, 127, 128, 129):
         yield 2, 4, 2, S, S, 64, dict(causal=True)
     for Sq, Skv in ((100, 260), (260, 100)):
@@ -2551,6 +2594,25 @@ def flash_bwd_edge_cases():
     for window in (1, 300):
         yield 1, 4, 2, 700, 700, 256, dict(causal=True, window=window, softcap=50.0)
     yield 1, 4, 2, 96, 40, 256, dict(causal=False, window=16)
+    yield from flash_bwd_d160_cases()
+
+
+def flash_bwd_d160_cases():
+    """D 160 (zamba2-2.7b's shared attention; three 64-column boxes on the
+    wgmma route, ffma in float32): S = 1/127/128/129, Sq != Skv causal and
+    not, GQA groups 1, 2, 4 and 8, windows 1 and 16, softcap 50, and rows
+    that see no key."""
+    for S in (1, 127, 128, 129):
+        yield 1, 4, 2, S, S, 160, dict(causal=True)
+    for Sq, Skv in ((63, 1000), (1000, 129)):
+        for causal in (True, False):
+            yield 1, 4, 2, Sq, Skv, 160, dict(causal=causal)
+    for Hkv in (8, 4, 2, 1):
+        yield 1, 8, Hkv, 200, 200, 160, dict(causal=True)
+    for window in (1, 16):
+        yield 1, 4, 2, 300, 300, 160, dict(causal=True, window=window)
+    yield 1, 4, 2, 200, 200, 160, dict(causal=True, softcap=50.0)
+    yield 1, 4, 2, 96, 40, 160, dict(causal=False, window=16)
 
 
 def bwd_inputs(torch, dev, shape, dtype: str, seed: int):
@@ -2569,7 +2631,9 @@ def bwd_reading(torch, got, q, k, v, o, do, kw) -> dict:
     its limit (``ratio``, must be <= 1), the fault's (``fault_ratio``; one
     of the three must exceed 1), the float32 plain version's own error
     ``e32`` and |got - plain| (``max_abs_err``, plain = the float32 plain
-    version rounded to the inputs' dtype, as on the CPU)."""
+    version rounded to the inputs' dtype, as on the CPU); at D 160 the last
+    32 columns' ratio on their own (``tail_ratio``, the wgmma route's
+    third, half-filled box)."""
     from repro_torch.kernels.flash_attention import ref as flash_ref
 
     want64, want32, e32s, limits = flash_ref.attention_bwd_limit(q, k, v, o, do, **kw)
@@ -2584,11 +2648,13 @@ def bwd_reading(torch, got, q, k, v, o, do, kw) -> dict:
         limit = torch.where(limit > 0, limit, torch.full_like(limit, 1e-300))
         diff = (g.double() - w64).abs()
         out[name] = {"ratio": (diff / limit).max().item(),
+                     "tail_ratio": (diff[..., 128:] / limit[..., 128:]).max().item()
+                     if g.shape[3] == 160 else None,
                      "fault_ratio": ((f - w64).abs() / limit).max().item(),
                      "e32": e32, "max_want": w64.abs().max().item(),
                      "max_diff64": diff.max().item(),
                      "max_abs_err": (g.float() - w32.to(g.dtype).float()).abs().max().item()}
-        require(out[name]["ratio"] <= 1.0,
+        require(out[name]["ratio"] <= 1.0 and (out[name]["tail_ratio"] or 0.0) <= 1.0,
                 f"flash_attention_bwd {name} beyond its limit: {json.dumps(out[name])}")
     require(max(r["fault_ratio"] for r in out.values()) > 1.0,
             f"the backward's limit passes a dropped query row: {json.dumps(out)}")
@@ -2597,9 +2663,10 @@ def bwd_reading(torch, got, q, k, v, o, do, kw) -> dict:
 
 def check_flash_bwd_kernel(torch, dev) -> dict:
     """Phase 3b for ``flash_attention_bwd``: each build's registers, spill
-    and shared memory (once; every kernel of the wgmma route must spill
-    nothing), the kernel against the plain version at every edge case in
-    both dtypes and at tspm-mlho's and gemma2-2b's training shapes, each
+    and shared memory (once; every kernel of the wgmma route, and the ffma
+    route's at float32 D 160, must spill nothing), the kernel against the
+    plain version at every edge case in both dtypes and at tspm-mlho's,
+    gemma2-2b's, zamba2-2.7b's and seamless-m4t-large-v2's training shapes, each
     call through the route ``ops.bwd_route`` names (one count a call) with
     the log-sum-exp the forward wrote, each run twice: identical bytes."""
     from repro_torch.kernels.flash_attention import ops as flash_ops, ref as flash_ref
@@ -2608,9 +2675,9 @@ def check_flash_bwd_kernel(torch, dev) -> dict:
             for dt in ("float32", "bfloat16") for D in flash_ops.BWD_HEAD_DIMS}
     print(f"phase 3b flash_attention_bwd builds: {json.dumps(info)}", flush=True)
     for build, kernels in info.items():
-        if "bwd_wgmma" in kernels:
+        if "bwd_wgmma" in kernels or build.endswith("D=160"):
             require(all(k["local_bytes"] == 0 for k in kernels.values()),
-                    f"flash_attention_bwd's wgmma route spills at {build}: {kernels}")
+                    f"flash_attention_bwd spills at {build}: {kernels}")
     cases, worst, routes = [], {}, {}
 
     def check(shape, dtype, kw, seed):
@@ -2639,6 +2706,8 @@ def check_flash_bwd_kernel(torch, dev) -> dict:
             cases.append({"case": [B, Hq, Hkv, Sq, Skv, D], "kw": kw, "dtype": dtype,
                           "route": route, **{n: [round(x["ratio"], 4), round(x["fault_ratio"], 2)]
                                              for n, x in r.items()}})
+            if D == 160:
+                cases[-1]["tail"] = [round(x["tail_ratio"], 4) for x in r.values()]
     print(f"phase 3b flash_attention_bwd cases ([ratio to limit, fault's ratio] per "
           f"tensor): {json.dumps(cases)}", flush=True)
     models = {}
@@ -2688,7 +2757,7 @@ def time_flash_bwd(torch, dev, name: str) -> dict:
                  for n in flash_ops.BWD_KERNELS[route]}
     plain = cuda_ms(torch, lambda: flash_ref.attention_bwd_ref(q, k, v, o, do, lse, **kw), 2)
     qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
-    so = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True, enable_gqa=True)
+    so = F.scaled_dot_product_attention(qr, kr, vr, is_causal=kw["causal"], enable_gqa=True)
     lib = cuda_ms(torch, lambda: torch.autograd.grad(so, (qr, kr, vr), do,
                                                      retain_graph=True), 10)
     pairs = B * Hq * visible_pairs(Sq, Skv, kw["causal"], kw.get("window"))
@@ -3714,10 +3783,228 @@ def check_recurrent(torch, dev) -> tuple[dict, dict]:
     return out, timing
 
 
+# ---- phase 9 (j)-(k): the encoder-decoder family (seamless-m4t-large-v2) -------
+
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+# (j): full widths cut to 2 encoder + 2 decoder layers, float32: 1 request
+# of 256 source frames and a 64-token target prompt, 8 decode steps
+ENCDEC_CHECK_LAYERS, ENCDEC_CHECK = 2, (1, 256, 64, 8)
+ENCDEC_LOGIT_REL = 1e-4        # (j): as (g)'s RECUR_LOGIT_REL
+# (k): full size, bfloat16: 2 x (1,024 source frames + 64 target tokens), 32 new
+ENCDEC_BATCH, ENCDEC_SRC, ENCDEC_PROMPT, ENCDEC_NEW = 2, 1024, 64, 32
+
+
+def encdec_inputs(torch, cfg, dev, B: int, S_src: int, S_tgt: int, seed: int):
+    """Seeded source frames ``[B, S_src, d_model]`` (normal x 0.1, as the
+    reference's ``specs.train_batch``) in the model's dtype and target
+    tokens ``[B, S_tgt]``, both on ``dev``."""
+    from repro_torch.models import layers
+
+    g = torch.Generator(dev).manual_seed(seed)
+    src = (torch.randn(B, S_src, cfg.d_model, generator=g, device=dev) * 0.1).to(
+        layers.dt(cfg))
+    tokens = torch.randint(4, cfg.vocab_size, (B, S_tgt), generator=g, device=dev)
+    return src, tokens
+
+
+def encdec_prefill_decode(torch, mdl, params, src, tokens, n_prompt: int, n_decode: int,
+                          device, greedy: bool = False) -> dict:
+    """A prefill of ``src`` and ``tokens[:, :n_prompt]``, then ``n_decode``
+    decode steps fed ``tokens[:, n_prompt + j]`` (``greedy``: the last
+    step's argmax): next-token logits ``[B, 1 + n_decode, V]`` (float32),
+    the prefill's seconds and launches (counts zeroed just before it), each
+    decode step's ms and launches (host clocks ended by a synchronize on
+    the card), and the tokens fed."""
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+    B = tokens.shape[0]
+    caches = mdl.init_caches(B, n_prompt + n_decode, src_len=src.shape[1], device=device)
+    sync()
+    zero_launches()
+    t0 = time.perf_counter()
+    logits, caches = mdl.apply(params, {"src_embeds": src, "tokens": tokens[:, :n_prompt]},
+                               mode="prefill", caches=caches)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    launches = read_launches()
+    out, decode_ms, fed = [logits[:, -1].float()], [], []
+    zero_launches()
+    for j in range(n_decode):
+        nxt = (logits[:, -1:].argmax(-1) if greedy
+               else tokens[:, n_prompt + j:n_prompt + j + 1])
+        fed.append(nxt)
+        t0 = time.perf_counter()
+        logits, caches = mdl.apply(params, {"tokens": nxt}, mode="decode", caches=caches)
+        sync()
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(logits[:, 0].float())
+    decode_launches = read_launches()
+    del caches
+    return {"logits": torch.stack(out, 1), "prefill_s": prefill_s,
+            "prefill_launches": launches, "decode_ms": decode_ms,
+            "decode_launches": decode_launches,
+            "fed": torch.cat(fed, 1) if fed else tokens[:, :0]}
+
+
+def check_encdec_card_vs_cpu(torch, dev) -> dict:
+    """Phase 9 (j): seamless-m4t-large-v2's full widths (d 1,024, 16 heads
+    of 64, d_ff 8,192, vocab 256,206, tied) cut to 2 encoder and 2 decoder
+    layers, in float32, initialised on the card and copied to the CPU: one
+    prefill of 1 x (256 source frames + 64 target tokens) and 8 decode
+    steps on each device, logits within ``ENCDEC_LOGIT_REL`` of the CPU's
+    largest; the prefill launches the encoder's and the decoder's self-
+    and cross-attention once a layer each (tf32x3 in float32 at D 64).
+    Then, on the card, prefill + decode logits against the train-mode
+    forward at the same positions (the reference's
+    test_prefill_decode_consistency) within ``CONSIST_TOL``, a limit the
+    off-by-one rows must break."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+
+    n = ENCDEC_CHECK_LAYERS
+    cfg = get_config(ENCDEC_ARCH).replace(n_layers=2 * n, n_enc_layers=n, n_dec_layers=n,
+                                          dtype="float32")
+    mdl = model_lib.build(cfg)
+    params = mdl.init(torch.Generator(dev).manual_seed(SEED))
+    cpu_params = copy.deepcopy(params).to("cpu")
+    B, S_src, P, T = ENCDEC_CHECK
+    src, tokens = encdec_inputs(torch, cfg, dev, B, S_src, P + T, SEED + 5)
+    runs = {}
+    for name, p, device in (("card", params, dev), ("cpu", cpu_params, "cpu")):
+        t0 = time.perf_counter()
+        runs[name] = encdec_prefill_decode(torch, mdl, p, src.to(device), tokens.to(device),
+                                           P, T, device)
+        runs[name]["s"] = time.perf_counter() - t0
+    launches = runs["card"]["prefill_launches"]
+    g, w = runs["card"]["logits"].cpu(), runs["cpu"]["logits"]
+    diff, top = (g - w).abs().max().item(), w.abs().max().item()
+    with torch.no_grad():
+        full, _ = mdl.apply(params, {"src_embeds": src, "tokens": tokens}, mode="train")
+    want = full[:, P - 1:P + T].float()
+    later = full[:, P:P + T].float()
+    del full
+    got = runs["card"]["logits"]
+
+    def rel(a, b):
+        return ((a - b).norm(dim=-1) / b.norm(dim=-1)).max().item()
+
+    out = {"layers": f"{n} + {n}", "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "params": model_lib.param_count(params), "batch": B, "source": S_src,
+           "prompt": P, "decode_steps": T,
+           "launches": {k: launches[k] for k in ("flash_attention", "flash_attention.tf32x3")},
+           "decode_launches": runs["card"]["decode_launches"]["flash_attention"],
+           "logits_max_diff": diff, "max_abs_logit": top, "rel": diff / top,
+           "limit_rel": ENCDEC_LOGIT_REL, "card_s": runs["card"]["s"], "cpu_s": runs["cpu"]["s"],
+           "consistency": {"rel_rms": rel(got, want),
+                           "max_abs_diff": (got - want).abs().max().item(),
+                           "off_by_one_rel_rms": rel(got[:, :-1], later), "limit": CONSIST_TOL,
+                           "beyond_limit": int(((got - want).abs()
+                                                > CONSIST_TOL + CONSIST_TOL * want.abs()).sum())}}
+    print(f"phase 9 (j, {ENCDEC_ARCH} widths at {n} + {n} layers, card vs CPU): "
+          f"{json.dumps(out)}", flush=True)
+    require(launches["flash_attention"] == attention_calls(cfg)
+            == launches["flash_attention.tf32x3"]
+            and out["decode_launches"] == 0, f"(j): {launches}, decode {out['decode_launches']}")
+    require(diff <= ENCDEC_LOGIT_REL * top, f"(j): the logits differ by {diff}")
+    c = out["consistency"]
+    require(c["beyond_limit"] == 0 and c["off_by_one_rel_rms"] > BF16_CONSIST_REL,
+            f"(j): prefill + decode logits differ from the train-mode forward's: {c}")
+    del params, cpu_params, runs
+    return out
+
+
+def check_encdec_serving(torch, dev) -> tuple[dict, dict]:
+    """Phase 9 (k): seamless-m4t-large-v2 at full size (24 encoder and 24
+    decoder layers, bf16, seeded init on the card, nothing cut): 2 requests
+    of 1,024 seeded source frames and 64 target tokens through
+    ``model.apply`` prefill (72 ``flash_attention`` launches, all wgmma at D
+    64: 24 encoder self-attentions, 24 causal decoder self-attentions and
+    24 cross-attentions of 64 queries over 1,024 keys), then 32 greedy
+    decode steps (each recomputes every layer's cross-attention keys and
+    values from the memory, as the reference; its one query row takes
+    ``blocked_sdpa``: no launch); prefill s, decode ms a step, tokens/s and
+    peak device memory; then the kernel timed at the encoder's and the
+    cross-attention's prefill shapes beside its bound, its plain version and
+    ``scaled_dot_product_attention``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+
+    cfg = get_config(ENCDEC_ARCH)
+    mdl = model_lib.build(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = mdl.init(torch.Generator(dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    B, S, P, T = ENCDEC_BATCH, ENCDEC_SRC, ENCDEC_PROMPT, ENCDEC_NEW
+    src, tokens = encdec_inputs(torch, cfg, dev, B, S, P, SEED + 6)
+    with WidthLog() as widths:
+        r = encdec_prefill_decode(torch, mdl, params, src, tokens, P, T, dev, greedy=True)
+    launches = r["prefill_launches"]
+    decode_s = sum(r["decode_ms"]) / 1e3
+    out = {"params": model_lib.param_count(params), "init_s": init_s, "batch": B, "source": S,
+           "prompt": P, "new_tokens": T, "prefill_s": r["prefill_s"],
+           "decode_ms_per_step": sum(r["decode_ms"]) / T,
+           "decode_ms": r["decode_ms"], "tokens_per_s": B * T / decode_s,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "launches": {k: launches[k] for k in ("flash_attention", "flash_attention.wgmma",
+                                                 "flash_attention_bwd")},
+           "decode_launches": r["decode_launches"]["flash_attention"],
+           "widths": sorted(set(widths.widths)), "width_launches": len(widths.widths),
+           "finite": bool(torch.isfinite(r["logits"]).all()),
+           "first_tokens": r["fed"][0, :8].tolist()}
+    print(f"phase 9 (k, {ENCDEC_ARCH}): {json.dumps(out)}", flush=True)
+    require(launches["flash_attention"] == attention_calls(cfg)
+            == launches["flash_attention.wgmma"]
+            and out["decode_launches"] == 0 and out["widths"] == [64]
+            and launches["flash_attention_bwd"] == 0,
+            f"(k): prefill {launches}, decode {out['decode_launches']}, widths {out['widths']}")
+    require(out["finite"], "(k): the logits are not finite")
+    del params, r
+    torch.cuda.empty_cache()
+    gen = torch.Generator(dev).manual_seed(SEED + 7)
+    q, k, v = (torch.randn(B, cfg.n_heads, S, cfg.hd, generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    timing = {"seamless_enc": time_flash(torch, q, k, v, causal=False, window=None,
+                                         softcap=None, sdpa=True)}
+    print(f"phase 9 ({ENCDEC_ARCH} encoder attention): {json.dumps(timing['seamless_enc'])}",
+          flush=True)
+    timing["seamless_cross"] = time_flash(torch, q[:, :, :P], k, v, causal=False, window=None,
+                                          softcap=None, sdpa=True)
+    print(f"phase 9 ({ENCDEC_ARCH} cross-attention): "
+          f"{json.dumps(timing['seamless_cross'])}", flush=True)
+    return out, timing
+
+
+def check_encdec(torch, dev) -> tuple[dict, dict]:
+    """Phase 9 (j), (k), each model freed before the next; allocated
+    device memory after them within ``PHASE9_MEMORY_SLACK`` of before."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = {"j_card_vs_cpu": check_encdec_card_vs_cpu(torch, dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["k_serving"], timing = check_encdec_serving(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated()
+    out.update(allocated_before_bytes=before, allocated_after_bytes=after,
+               phase_s=time.perf_counter() - t0)
+    require(after - before <= PHASE9_MEMORY_SLACK, f"(j)-(k) left {after - before} B allocated")
+    return out, timing
+
+
 # ---- phase 10: training -----------------------------------------------------
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_PATIENTS = 8, 256, 512   # examples/train_lm_torch.py --full
-TRAIN_STEPS, TRAIN_STOP = 300, 150
+# (b): 50 + 50 steps (150 + 150 until phase 10 (d)-(e) needed the room)
+TRAIN_STEPS, TRAIN_STOP = 100, 50
 TRAIN_CHECK_LAYERS, TRAIN_CHECK_STEPS = 2, 3           # (a): tspm-mlho cut to 2 layers
 # (a)'s limits, card against CPU: each step's loss, ce and grad norm within
 # TRAIN_RTOL relative, and step 1's gradient of each parameter within
@@ -3726,7 +4013,7 @@ TRAIN_CHECK_LAYERS, TRAIN_CHECK_STEPS = 2, 3           # (a): tspm-mlho cut to 2
 # so each limit is ~100x its reading (another host CPU rounds its own way)
 TRAIN_RTOL = 1e-5
 TRAIN_GRAD_SHARE = 1e-4
-TRAIN_CKPT_EVERY = 100     # (b)'s stop/resume runs: one periodic save each
+TRAIN_CKPT_EVERY = 25      # (b)'s stop/resume runs: one periodic save each
 GEMMA_TRAIN_SEQ, GEMMA_TRAIN_STEPS, GEMMA_TRAIN_LR = 2048, 3, 1e-4
 
 
@@ -3842,9 +4129,9 @@ def run_train_launcher(extra: list, timeout: int = 400) -> dict:
 
 def check_train_launcher(tmp_root: str) -> dict:
     """Phase 10 (b): the launcher trains full-width tspm-mlho with
-    ``--ckpt-dir``, stopping at step 150; a rerun resumes at step 150 from
-    a state whose digest equals the one saved and trains to step 300.  The
-    two runs' 300 steps log falling ce and launch the backward 12 times a
+    ``--ckpt-dir``, stopping at step 50; a rerun resumes at step 50 from
+    a state whose digest equals the one saved and trains to step 100.  The
+    two runs' 100 steps log falling ce and launch the backward 12 times a
     step."""
     n_layers = 12
     ckpt = os.path.join(tmp_root, "train_ckpt")
@@ -3917,6 +4204,208 @@ def check_gemma_training(torch, dev) -> dict:
     return out
 
 
+# ---- phase 10 (d)-(e): training the MoE, VLM, xLSTM, hybrid and encdec families --
+
+# (d): each family's full widths cut to its smallest whole unit of depth,
+# float32, remat off (it recomputes the same values; (e) runs it): arch ->
+# (config changes, batch, tokens (a VLM: patches + text, an encoder-
+# decoder: source frames + target tokens))
+FAMILY_CHECK = {
+    "deepseek-moe-16b": ({"n_layers": 2}, 1, 256),
+    "pixtral-12b": ({"n_layers": 2}, 1, (128, 128)),
+    "xlstm-125m": ({"n_layers": 6}, 1, 256),          # 5 mLSTM + 1 sLSTM
+    "zamba2-2.7b": ({"n_layers": 6}, 1, 256),         # one group: 6 Mamba2 + 1 shared
+    ENCDEC_ARCH: ({"n_layers": 4, "n_enc_layers": 2, "n_dec_layers": 2}, 1, (128, 128)),
+}
+# (e): 3 steps each in bf16 with the config's remat: arch -> (config
+# changes, batch, tokens); deepseek-moe-16b and pixtral-12b keep their
+# widths and cut their depth to 4 layers, so that the step (parameters,
+# gradients and float32 moments of ~2.4-2.8 B parameters) peaks under
+# FAMILY_PEAK_LIMIT; the others run at full size
+FAMILY_TRAIN = {
+    "zamba2-2.7b": ({}, 1, 4096),
+    ENCDEC_ARCH: ({}, 2, (1024, 1024)),
+    "xlstm-125m": ({}, 2, 1024),
+    "deepseek-moe-16b": ({"n_layers": 4}, 4, 512),
+    "pixtral-12b": ({"n_layers": 4}, 2, (1024, 64)),
+}
+FAMILY_TRAIN_STEPS, FAMILY_TRAIN_LR = 3, 1e-4
+FAMILY_PEAK_LIMIT = 60e9
+
+
+def attention_calls(cfg) -> int:
+    """``flash_attention`` calls in a full-sequence forward of ``cfg``: one
+    a layer; a hybrid's one a shared invocation, an xLSTM's none, an
+    encoder-decoder's one an encoder layer and two a decoder layer (self-
+    and cross-attention)."""
+    return {"hybrid": cfg.n_layers // max(cfg.shared_attn_every, 1), "xlstm": 0,
+            "encdec": cfg.n_enc_layers + 2 * cfg.n_dec_layers}.get(cfg.family, cfg.n_layers)
+
+
+def family_batch(torch, cfg, dev, B: int, seq, seed: int) -> dict:
+    """A seeded training batch for ``cfg``'s family on ``dev``, shaped as
+    the reference's ``launch/specs.train_batch`` shapes it: tokens,
+    next-token labels and a full mask; a VLM's ``seq = (patches, text)``
+    puts projected patches before the text, its labels covering both; an
+    encoder-decoder's ``seq = (source, target)`` gives source frames and
+    target tokens."""
+    from repro_torch.models import layers
+
+    g = torch.Generator(dev).manual_seed(seed)
+    pre, text = seq if isinstance(seq, tuple) else (0, seq)
+    toks = torch.randint(4, cfg.vocab_size, (B, text + 1), generator=g, device=dev)
+    n_labels = text + (pre if cfg.family == "vlm" else 0)
+    batch = {"tokens": toks[:, :-1],
+             "labels": torch.randint(4, cfg.vocab_size, (B, n_labels), generator=g, device=dev)
+             if cfg.family == "vlm" else toks[:, 1:],
+             "loss_mask": torch.ones(B, n_labels, dtype=torch.bool, device=dev)}
+    width = {"vlm": cfg.frontend_dim, "encdec": cfg.d_model}.get(cfg.family)
+    if width:
+        key = "patch_embeds" if cfg.family == "vlm" else "src_embeds"
+        batch[key] = (torch.randn(B, pre, width, generator=g, device=dev) * 0.1).to(
+            layers.dt(cfg))
+    return batch
+
+
+def check_family_train_card_vs_cpu(torch, dev) -> dict:
+    """Phase 10 (d): for each family of ``FAMILY_CHECK`` at full widths cut
+    in depth, float32, initialised on the card and copied to the CPU, step
+    1's loss, ce and aux within ``TRAIN_RTOL`` and every parameter's
+    gradient within ``TRAIN_GRAD_SHARE`` of its largest |g| on the CPU
+    (phase 10 (a)'s bar); deepseek-moe-16b's routing byte-equal on both
+    devices; the card's attention launches counted (zamba2-2.7b's shared
+    attention takes the ffma backward at float32 D 160)."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.training import train_loop
+
+    out = {}
+    for arch, (change, B, seq) in FAMILY_CHECK.items():
+        cfg = get_config(arch).replace(dtype="float32", remat="none", **change)
+        mdl = model_lib.build(cfg)
+        loss_fn = train_loop.make_loss_fn(mdl)
+        card = train_loop.trainable(mdl.init(torch.Generator(dev).manual_seed(SEED)))
+        cpu = copy.deepcopy(card).to("cpu")
+        batch = family_batch(torch, cfg, dev, B, seq, SEED + 8)
+        runs = {}
+        zero_launches()
+        for name, model, device in (("card", card, dev), ("cpu", cpu, "cpu")):
+            t0 = time.perf_counter()
+            with RouteLog() as routes:
+                loss, metrics = loss_fn(model, {k: v.to(device) for k, v in batch.items()})
+                names, ps = zip(*model.named_parameters())
+                grads = torch.autograd.grad(loss, ps, materialize_grads=True)
+            runs[name] = {"loss": float(loss.detach()), "ce": float(metrics["ce"]),
+                          "aux": float(metrics["aux"]), "grads": dict(zip(names, grads)),
+                          "eid": [r.eid.cpu() for r in routes.calls],
+                          "s": time.perf_counter() - t0}
+            if name == "card":
+                torch.cuda.synchronize()
+                launches = read_launches()
+        c, p = runs["card"], runs["cpu"]
+        share = {n: ((g.cpu() - p["grads"][n]).abs().max()
+                     / p["grads"][n].abs().max().clamp_min(1e-30)).item()
+                 for n, g in c["grads"].items()}
+        rel = {k: abs(c[k] - p[k]) / max(abs(p[k]), 1e-30) for k in ("loss", "ce", "aux")}
+        out[arch] = {"config": change, "batch": B, "seq": seq,
+                     "params": model_lib.param_count(card),
+                     "loss": {"card": c["loss"], "cpu": p["loss"]}, "rel": rel,
+                     "grad_share_max": max(share.values()),
+                     "grad_share_worst": max(share, key=share.get),
+                     "routing_equal": len(c["eid"]) == len(p["eid"]) and all(
+                         torch.equal(a, b) for a, b in zip(c["eid"], p["eid"])),
+                     "routed_layers": len(c["eid"]), "card_s": c["s"], "cpu_s": p["s"],
+                     "launches": {k: n for k, n in launches.items()
+                                  if k.startswith("flash_attention") and n}}
+        print(f"phase 10 (d, {arch} card vs CPU): {json.dumps(out[arch])}", flush=True)
+        require(all(r <= TRAIN_RTOL for k, r in rel.items() if p[k] != 0 or c[k] != 0),
+                f"phase 10 (d) {arch}: loss, ce or aux differ: {rel}")
+        require(out[arch]["grad_share_max"] <= TRAIN_GRAD_SHARE,
+                f"phase 10 (d) {arch}: the gradient of {out[arch]['grad_share_worst']} differs")
+        require(out[arch]["routing_equal"] and (len(c["eid"]) > 0) == bool(cfg.n_experts),
+                f"phase 10 (d) {arch}: the routing differs between the devices")
+        n_attn = attention_calls(cfg)
+        require(launches["flash_attention"] == launches["flash_attention_bwd"] == n_attn
+                == launches["flash_attention_bwd.ffma"],
+                f"phase 10 (d) {arch}: {launches}")
+        del card, cpu, runs, c, p, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_family_training(torch, dev) -> dict:
+    """Phase 10 (e): each model of ``FAMILY_TRAIN`` (bf16 parameters,
+    float32 moments, the config's remat) takes ``FAMILY_TRAIN_STEPS``
+    steps on one seeded batch, the launch counts zeroed just before the
+    first step and read after the last: each step's loss finite, its
+    gradient norm finite and above 0, the backward launched once a
+    attention a step on the route ``ops.bwd_route`` names (zamba2-2.7b: 9
+    shared invocations at D 160 on wgmma; seamless-m4t-large-v2: 72 at D
+    64; xlstm-125m: none); step s, tokens/s (the steps after the first)
+    and peak device memory (under ``FAMILY_PEAK_LIMIT`` where the depth
+    was cut)."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import model as model_lib
+    from repro_torch.training import optimizer as opt_lib, train_loop
+
+    out = {}
+    for arch, (change, B, seq) in FAMILY_TRAIN.items():
+        cfg = get_config(arch).replace(**change)
+        mdl = model_lib.build(cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = train_loop.init_state(mdl, torch.Generator(dev).manual_seed(SEED))
+        batch = family_batch(torch, cfg, dev, B, seq, SEED + 9)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        step = train_loop.make_train_step(mdl, opt_lib.OptConfig(
+            peak_lr=FAMILY_TRAIN_LR, warmup_steps=0, decay_steps=100))
+        zero_launches()
+        losses, norms, times = [], [], []
+        for _ in range(FAMILY_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+        launches = read_launches()
+        tokens = B * sum(seq) if isinstance(seq, tuple) else B * seq
+        n_attn = attention_calls(cfg)
+        hd = 2 * cfg.d_model // cfg.n_heads if cfg.family == "hybrid" else cfg.hd
+        route = flash_ops.bwd_route(torch.bfloat16, hd) if n_attn else None
+        out[arch] = {"config": change, "layers": cfg.n_layers, "batch": B, "seq": seq,
+                     "params": model_lib.param_count(state.params), "remat": cfg.remat,
+                     "init_s": init_s, "step_s": times,
+                     "tokens_per_s": tokens / (sum(times[1:]) / (len(times) - 1)),
+                     "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                     "losses": losses, "grad_norms": norms, "head_dim": hd,
+                     "bwd_route": route,
+                     "launches": {k: n for k, n in launches.items()
+                                  if k.startswith("flash_attention") and n}}
+        print(f"phase 10 (e, {arch}): {json.dumps(out[arch])}", flush=True)
+        require(all(np.isfinite(losses)) and all(np.isfinite(norms)) and min(norms) > 0,
+                f"phase 10 (e) {arch}: losses {losses}, gradient norms {norms}")
+        bwd = n_attn * FAMILY_TRAIN_STEPS
+        require(launches["flash_attention_bwd"] == bwd
+                and (not bwd or launches[f"flash_attention_bwd.{route}"] == bwd),
+                f"phase 10 (e) {arch}: {launches}, want {bwd} backward launches on {route}")
+        require(not change or out[arch]["peak_device_bytes"] < FAMILY_PEAK_LIMIT,
+                f"phase 10 (e) {arch}: peak {out[arch]['peak_device_bytes']} B")
+        del state, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def flash_rows(routes: dict, lm: dict, timing: dict) -> list:
     """The ``kernels`` line's rows of ``flash_attention``'s three routes:
     tf32x3 at tspm-mlho's shape (float32) and ffma timed in turns with it
@@ -3934,7 +4423,8 @@ def flash_rows(routes: dict, lm: dict, timing: dict) -> list:
             "D 160 prefill launch it); timed in turns with tf32x3 at tspm-mlho's shape, "
             "and alone at D 160 (float32_d160)"}
     tf32x3 = {**t, "ms_turns_ffma": t["beside"]["ms_turns"]}
-    beside = {"wgmma": ("deepseek", "pixtral", "zamba2"), "ffma": ("zamba2_f32",)}
+    beside = {"wgmma": ("deepseek", "pixtral", "zamba2", "seamless_enc", "seamless_cross"),
+              "ffma": ("zamba2_f32",)}
     rows = []
     for route, t, extra in (
             ("tf32x3", tf32x3, {k: tf32x3.get(k) for k in (
@@ -3946,7 +4436,8 @@ def flash_rows(routes: dict, lm: dict, timing: dict) -> list:
              {"library": "flex_attention: card_probe.py flex (a compiled yardstick, "
                          "kept out of this script)",
               **{n: timing[n] for n in ("gemma2_local", "gemma2_global", "deepseek",
-                                        "pixtral", "zamba2")}})):
+                                        "pixtral", "zamba2", "seamless_enc",
+                                        "seamless_cross")}})):
         rows.append({"name": f"flash_attention_{route}", "route": "cuda",
                      "source": "src/repro_torch/csrc/flash_attention.cu",
                      "replaces": "src/repro/kernels/flash_attention/flash.py:24",
@@ -3963,14 +4454,22 @@ def flash_rows(routes: dict, lm: dict, timing: dict) -> list:
 def flash_bwd_rows(bwd: dict, timing: dict, train: dict) -> list:
     """The ``kernels`` line's rows of ``flash_attention_bwd``, one a route:
     ffma timed at tspm-mlho's training shape with launches from the
-    launcher's 300 tspm-mlho steps (phase 10 (b)'s two runs), wgmma at
-    gemma2-2b's with launches from phase 10 (c)'s three steps; max_abs_err
-    over phase 3b's comparisons on the route against the plain version."""
+    launcher's 100 tspm-mlho steps (phase 10 (b)'s two runs) and phase 10
+    (d)'s float32 families (zamba2-2.7b's at D 160 among them), wgmma at
+    gemma2-2b's, with zamba2-2.7b's (D 160) and seamless-m4t-large-v2's
+    encoder (D 64, non-causal) beside it, launches from phase 10 (c)'s and
+    (e)'s steps; max_abs_err over phase 3b's comparisons on the route
+    against the plain version."""
+    def family(phase, key):
+        return sum(r["launches"].get(key, 0) for r in train[phase].values())
+
     rows = []
     for route, name, launches in (
-            ("ffma", "tspm_mlho", train["b_launcher"]["launches"]["flash_attention_bwd"]),
+            ("ffma", "tspm_mlho", train["b_launcher"]["launches"]["flash_attention_bwd"]
+             + family("d_card_vs_cpu", "flash_attention_bwd.ffma")),
             ("wgmma", "gemma2_2b",
-             train["c_gemma2_2b"]["launches"]["flash_attention_bwd.wgmma"])):
+             train["c_gemma2_2b"]["launches"]["flash_attention_bwd.wgmma"]
+             + family("e_families", "flash_attention_bwd.wgmma"))):
         t = timing[name]
         require(t["kernel_route"] == route, f"{name}'s backward took {t['kernel_route']}")
         rows.append({"name": f"flash_attention_bwd_{route}", "route": "cuda",
@@ -3985,7 +4484,9 @@ def flash_bwd_rows(bwd: dict, timing: dict, train: dict) -> list:
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                      "library_same_function": t["library_same_function"],
                      "bound_ffma_ms": t["bound_ffma_ms"], "device_ms": t["device_ms"],
-                     "device_share": t["device_share"], "shape": t["shape"]})
+                     "device_share": t["device_share"], "shape": t["shape"],
+                     **({n: timing[n] for n in ("zamba2_2_7b", "seamless_enc")}
+                        if route == "wgmma" else {})})
     return rows
 
 
@@ -4116,6 +4617,13 @@ def main() -> int:
     lm["flash_launches"]["ffma"] += lm["recurrent"]["g_card_vs_cpu"]["zamba2-2.7b"][
         "launches"]["flash_attention.ffma"]
     lap("9ghi_recurrent")
+    lm["encdec"], encdec_t = check_encdec(torch, dev)
+    flash_t.update(encdec_t)
+    lm["flash_launches"]["wgmma"] += lm["encdec"]["k_serving"]["launches"][
+        "flash_attention.wgmma"]
+    lm["flash_launches"]["tf32x3"] += lm["encdec"]["j_card_vs_cpu"]["launches"][
+        "flash_attention.tf32x3"]
+    lap("9jk_encdec")
     gc.collect()
     torch.cuda.empty_cache()
     train = {"a_card_vs_cpu": check_train_card_vs_cpu(torch, dev)}
@@ -4125,6 +4633,10 @@ def main() -> int:
     lap("10b_train_launcher")
     train["c_gemma2_2b"] = check_gemma_training(torch, dev)
     lap("10c_train_gemma2_2b")
+    train["d_card_vs_cpu"] = check_family_train_card_vs_cpu(torch, dev)
+    lap("10d_families_card_vs_cpu")
+    train["e_families"] = check_family_training(torch, dev)
+    lap("10e_train_families")
     kernels.append(kernel_row(
         "tspm_fused", "src/repro/kernels/tspm_fused/fused.py:134", fused_launches,
         err, fused_t2["ms"], fused_t2["plain_ms"], fused_t2["bound"], None,

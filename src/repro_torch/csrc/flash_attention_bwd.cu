@@ -53,10 +53,12 @@
 // banks (as flash_attention.cu's ffma route).  BK = 64 keys, 32 at D = 256
 // (in float32 the dq kernel's Q, dO, K and V tiles of 64 keys would need
 // 263 KB of shared memory; the dkv kernel's dK and dV would take 2 x 64
-// registers a thread).  Largest shared memory: the dkv kernel at float32
+// registers a thread).  At float32 D = 160 BK stays 64: the dq kernel's
+// tiles take 181,504 bytes, the dkv kernel's 198,656, and dK and dV 2 x 40
+// registers a thread.  Largest shared memory: the dkv kernel at float32
 // D = 256, 214,528 bytes.
 //
-// ---- Route "wgmma" (flash_attention_bwd_wgmma): bfloat16 at D 64, 128, 256
+// ---- Route "wgmma" (flash_attention_bwd_wgmma): bfloat16 at D 64, 128, 160, 256
 //
 // Its bound is the bf16 tensor-core rate (989 TFLOP/s dense on an H100
 // SXM).  The forward's skeleton (flash_attention.cu, run_cta) with other
@@ -105,6 +107,12 @@
 //  4. Shared memory.  At D = 256 the resident tiles take 128 KB, so the
 //     stream tile is BN = 32 rows (3 stages of 32 KB: 231,248 bytes with
 //     the scalars, barriers and alignment slack); BN = 64 at D <= 128.
+//     At D = 160 (hazard 7) rows are 192 columns in shared memory: the
+//     resident tiles take 96 KB, and BN = 64 at 3 stages (144 KB more)
+//     would not fit.  BN = 32 at 3 stages (72 KB; 173,904 bytes in all)
+//     is D = 256's ring, the one proven at the widest rows; BN = 64 at 2
+//     stages (~197 KB) would leave the producer one tile ahead and put X,
+//     Y and F's fragments (32 registers each) beside the accumulator's 96.
 //     Resident tiles are loaded as 128/BN boxes of BN rows (one map a
 //     tensor, box BN rows x 128 B); with 1024-aligned boxes the swizzle is
 //     that of one 128-row box.
@@ -114,6 +122,17 @@
 //     consumers to the entry's 168 registers and spill), barrier waits do
 //     not time out, tanhf (not tanh.approx) for the softcap and its
 //     derivative, ex2.approx for the exponent.
+//  7. D = 160 (zamba2-2.7b's shared attention), as the forward's hazard 7:
+//     D / 64 = 2 boxes would drop columns 128-159, so a row takes three
+//     64-column boxes (BwdLayout::kPadD = 192), the third copied from
+//     column 128 with the map's OOB fill zeroing columns 160-191 (a box's
+//     transaction bytes count the fill, so kResBytes and kTileBytes are
+//     whole boxes).  X and Y run D/16 = 10 k-steps and never read the
+//     zeros.  acc += F T runs at N = 192 (m64n192k16, T MN-major across
+//     three whole boxes, LBO one box, as at D = 128 and 256): the
+//     accumulator is 96 floats a consumer thread, beside X, Y and F's
+//     fragments of 16 each at BN = 32; its columns 160-191 are products
+//     with zeros and are never stored.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -274,8 +293,15 @@ constexpr size_t dq_smem() {
          static_cast<size_t>(kBQ) * (BK + 1) * 4;
 }
 
+// blocks an SM the dq kernel's registers are sized for: two (128
+// registers a thread, what ptxas chose unasked) up to D 128; one from D
+// 160, where 128 registers spilled 16 bytes (float32 D 160 and 256) and
+// the tiles' shared memory leaves room for one block anyway
+template <int D>
+constexpr int kDqMinBlocks = D >= 160 ? 1 : 2;
+
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kDqMinBlocks<D>)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           const T* __restrict__ dout, const float* __restrict__ lse,
           const float* __restrict__ delta, T* __restrict__ dq, int BH, int Hq, int Hkv, Mask mk) {
@@ -502,17 +528,18 @@ constexpr int kLseRows = 64;     // the scratch's rows are padded to a multiple 
 // the three passes of the grid, in launch order (heaviest first)
 enum Pass : int { kDK = 0, kDV = 1, kDQ = 2 };
 
-// Shared memory of a CTA, from a 1024-byte aligned base: R1 and R2 (D/64
-// boxes of 128 rows x 128 B each), then STAGES x (T1, T2) (D/64 boxes of BN
+// Shared memory of a CTA, from a 1024-byte aligned base: R1 and R2 (kBoxes
+// boxes of 128 rows x 128 B each), then STAGES x (T1, T2) (kBoxes boxes of BN
 // rows x 128 B each), then STAGES x (lse2, delta) of BN floats each, then
 // the barriers.
 template <int D>
 struct BwdLayout {
-  static constexpr int BN = D == 256 ? 32 : 64;  // rows of a streamed tile (hazard 4)
+  static constexpr int BN = D > 128 ? 32 : 64;  // rows of a streamed tile (hazard 4)
   static constexpr int STAGES = 3;
-  static constexpr int kBoxes = D / 64;
-  static constexpr uint32_t kResBytes = kWgRows * D * 2;
-  static constexpr uint32_t kTileBytes = BN * D * 2;
+  static constexpr int kPadD = (D + 63) / 64 * 64;  // D in whole 64-column boxes (hazard 7)
+  static constexpr int kBoxes = kPadD / 64;
+  static constexpr uint32_t kResBytes = kWgRows * kPadD * 2;
+  static constexpr uint32_t kTileBytes = BN * kPadD * 2;
   static constexpr uint32_t kScalBytes = 2 * BN * 4;
   static constexpr uint32_t kR1 = 0;
   static constexpr uint32_t kR2 = kResBytes;
@@ -660,9 +687,10 @@ __device__ __forceinline__ void run_bwd(const CUtensorMap* map_q, const CUtensor
   const uint32_t r1_tile = base + L::kR1 + cw * 64 * 128;  // this warpgroup's 64 rows
   const uint32_t r2_tile = base + L::kR2 + cw * 64 * 128;
 
-  float acc[D / 2];
+  constexpr int DA = L::kPadD;  // the accumulator's columns: D in whole boxes
+  float acc[DA / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DA / 2; ++i) acc[i] = 0.f;
 
   if (n_tiles > 0) mbar_wait(ring.q, 0);
   for (int t = 0; t < n_tiles; ++t) {
@@ -752,10 +780,10 @@ __device__ __forceinline__ void run_bwd(const CUtensorMap* map_q, const CUtensor
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk)
-        wgmma_rs<D>(acc, f_hi[kk], desc_sw128(bt + kk * 16 * 128, BN * 128, 1024));
+        wgmma_rs<DA>(acc, f_hi[kk], desc_sw128(bt + kk * 16 * 128, BN * 128, 1024));
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk)
-        wgmma_rs<D>(acc, f_lo[kk], desc_sw128(bt + kk * 16 * 128, BN * 128, 1024));
+        wgmma_rs<DA>(acc, f_lo[kk], desc_sw128(bt + kk * 16 * 128, BN * 128, 1024));
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(acc);
@@ -766,7 +794,8 @@ __device__ __forceinline__ void run_bwd(const CUtensorMap* map_q, const CUtensor
     if (lane == 0) mbar_arrive(ring.empty(s));
   }
 
-  // dQ and dK take the scale; rows past the matrix's end are not stored
+  // dQ and dK take the scale; rows past the matrix's end and columns past
+  // D (hazard 7) are not stored
   const float f = PASS == kDV ? 1.f : mk.scale;
   __nv_bfloat16* out =
       (PASS == kDQ ? a.dq : PASS == kDK ? a.dk : a.dv) + static_cast<size_t>(res_plane) * n_res * D;
@@ -855,6 +884,7 @@ cudaError_t ffma_dims(int D, F&& f) {
     switch (D) {
       case 64: return f(T{}, std::integral_constant<int, 64>{});
       case 128: return f(T{}, std::integral_constant<int, 128>{});
+      case 160: return f(T{}, std::integral_constant<int, 160>{});
       case 256: return f(T{}, std::integral_constant<int, 256>{});
     }
   }
@@ -874,6 +904,7 @@ cudaError_t wgmma_dims(int D, F&& f) {
   switch (D) {
     case 64: return f(std::integral_constant<int, 64>{});
     case 128: return f(std::integral_constant<int, 128>{});
+    case 160: return f(std::integral_constant<int, 160>{});
     case 256: return f(std::integral_constant<int, 256>{});
   }
   return cudaErrorInvalidValue;
@@ -888,7 +919,7 @@ void fill_info(const cudaFuncAttributes& attr, size_t smem, int rows, int* out) 
 
 }  // namespace
 
-// The ffma route.  dtype: 0 = float32 (D in {16, 32, 64, 128, 256}), 1 =
+// The ffma route.  dtype: 0 = float32 (D in {16, 32, 64, 128, 160, 256}), 1 =
 // bfloat16 (D in {16, 32}), q, k, v, o, do, dq, dk, dv alike; lse is the
 // forward's float32 [B, Hq, Sq]; `scratch` holds B*Hq*Sq floats (delta) on
 // the device.  The caller guarantees B*Hq*Sq >= 1, Skv >= 1, Hq a multiple
@@ -911,7 +942,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
 }
 
 // The wgmma route: bfloat16 q, k, v, o, do, dq, dk, dv at D in {64, 128,
-// 256}; lse is the forward's float32 [B, Hq, Sq]; `scratch` holds 2*B*Hq*ld
+// 160, 256}; lse is the forward's float32 [B, Hq, Sq]; `scratch` holds 2*B*Hq*ld
 // floats on the device, ld = Sq rounded up to 64 (lse in log2 units, then
 // delta).  The caller guarantees B*Hq*Sq >= 1, Skv >= 1, Hq a multiple of
 // Hkv, B*Hq*ceil(Sq/128) + 2*B*Hkv*ceil(Skv/128) below 2^31, contiguous

@@ -34,10 +34,12 @@ that log-sum-exp and never recomputes it.  The backward's route follows
 at D in ``BWD_WGMMA_HEAD_DIMS`` (a delta pre-pass, then one launch of
 tensor-core CTAs for dq, dk and dv, P and dS as bfloat16 hi + lo),
 ``"ffma"`` for the rest (a delta pre-pass, a dq and a dk/dv kernel on
-FFMA); none uses atomics.  The backward takes D in ``BWD_HEAD_DIMS``: D
-160 is refused (``ValueError``) before any launch until the hybrid family
-trains on the card.  Without a gradient to take the path and its
-launches are the same, so serving does not change.  On a CPU tensor
+FFMA); none uses atomics.  The backward takes D in ``BWD_HEAD_DIMS``, the
+forward's widths: at D 160 (zamba2-2.7b's shared attention) the wgmma
+route pads its rows to three 64-column boxes as the forward does
+(``csrc/flash_attention_bwd.cu``'s hazard 7), and float32 runs ffma.
+Without a gradient to take the path and its launches are the same, so
+serving does not change.  On a CPU tensor
 autograd differentiates the plain version.  ``attention_bwd.launches``
 counts backward calls that launch (all their kernels, one count) and
 ``attention_bwd.route_launches`` the same by route.
@@ -91,12 +93,9 @@ ENTRIES = {
 
 _BWD_NAME = "flash_attention_bwd"
 BWD_ROUTES = ("ffma", "wgmma")
-# the backward's head widths: the forward's but 160, whose backward comes
-# with the hybrid family's training (BWD_PENDING names where)
-BWD_HEAD_DIMS = (16, 32, 64, 128, 256)
-BWD_WGMMA_HEAD_DIMS = (64, 128, 256)
-BWD_PENDING = ("the training of the MoE, VLM, xLSTM and hybrid families "
-               "(ROADMAP queue 1, item 17.6)")
+# the backward's head widths: the forward's
+BWD_HEAD_DIMS = HEAD_DIMS
+BWD_WGMMA_HEAD_DIMS = WGMMA_HEAD_DIMS
 # q, k, v, o, do, lse, dq, dk, dv, scratch, B..D; the ffma entry takes the dtype code
 _BWD_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
 BWD_ENTRIES = {
@@ -112,13 +111,11 @@ BWD_LSE_ROWS = 64         # the wgmma route's log-sum-exp and delta rows are pad
 def bwd_route(dtype: torch.dtype, D: int) -> str:
     """The kernel that computes attention's gradient for ``dtype`` at head
     width ``D``: ``"wgmma"`` for bfloat16 at D in ``BWD_WGMMA_HEAD_DIMS``,
-    else ``"ffma"``; raises for a dtype or width no backward takes (D 160,
-    which the forward takes, names ``BWD_PENDING``)."""
+    else ``"ffma"``; raises for a dtype or width no backward takes."""
     if dtype not in DTYPES:
         raise ValueError(f"dtype {dtype}: the backward takes one of {DTYPES}")
     if D not in BWD_HEAD_DIMS:
-        pending = f"; its backward waits for {BWD_PENDING}" if D in HEAD_DIMS else ""
-        raise ValueError(f"head dim {D} not in the backward's {BWD_HEAD_DIMS}{pending}")
+        raise ValueError(f"head dim {D} not in the backward's {BWD_HEAD_DIMS}")
     return "wgmma" if dtype == torch.bfloat16 and D in BWD_WGMMA_HEAD_DIMS else "ffma"
 
 
@@ -235,7 +232,6 @@ class _Attention(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        bwd_route(q.dtype, q.shape[3])       # refuses D 160 before anything runs
         dq, dk, dv = attention_bwd(q, k, v, o, do.contiguous(), lse, **ctx.mask)
         return dq, dk, dv, None, None, None
 

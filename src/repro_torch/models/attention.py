@@ -1,4 +1,6 @@
-"""GQA attention: prefill (the flash kernel on the card) + KV-cache decode.
+"""GQA attention: prefill (the flash kernel on the card) + KV-cache decode;
+self-attention, causal or not, and cross-attention over an encoder's
+output (``apply``'s ``memory``).
 
 Two implementations of full-sequence attention, chosen by the tensor's
 device under ``impl="auto"`` (the config's ``attn_impl``):
@@ -141,21 +143,27 @@ def _cache_write(buf, x, pos):
     buf[:, start:start + x.shape[1]] = x.to(buf.dtype)
 
 
-def apply(p: Attention, x, cfg, *, positions, window=None, cache=None):
-    """Causal self-attention of ``x [B, S, D]``.
+def apply(p: Attention, x, cfg, *, positions, causal=True, window=None, cache=None,
+          memory=None):
+    """Self- or cross-attention of ``x [B, S, D]``.
 
     cache: None (full sequence) or ``{k, v, pos}``; with ``S == 1`` one
     decode step, else a prefill that fills the cache from ``pos``.
+    memory: the encoder's output ``[B, Ss, D]`` for cross-attention: keys
+    and values come from it, without RoPE (``causal=False`` takes the
+    causal mask away, as the reference's callers pass it).
     Returns ``(out, new_cache)``, ``new_cache`` None without a cache.
     """
     hk, hd = cfg.n_kv_heads, cfg.hd
     q = _split_heads(linear(p.wq, x), cfg.n_heads)
-    k = _split_heads(linear(p.wk, x), hk)
-    v = _split_heads(linear(p.wv, x), hk)
-    cos, sin = layers.rope_angles(positions, hd, cfg.rope_fraction,
-                                  cfg.rope_theta)
-    q = layers.apply_rope(q, cos, sin, cfg.rope_fraction)
-    k = layers.apply_rope(k, cos, sin, cfg.rope_fraction)
+    src = memory if memory is not None else x
+    k = _split_heads(linear(p.wk, src), hk)
+    v = _split_heads(linear(p.wv, src), hk)
+    if memory is None:  # RoPE for self-attention only
+        cos, sin = layers.rope_angles(positions, hd, cfg.rope_fraction,
+                                      cfg.rope_theta)
+        q = layers.apply_rope(q, cos, sin, cfg.rope_fraction)
+        k = layers.apply_rope(k, cos, sin, cfg.rope_fraction)
 
     if cache is not None:
         pos = cache["pos"]
@@ -165,11 +173,11 @@ def apply(p: Attention, x, cfg, *, positions, window=None, cache=None):
         if x.shape[1] == 1:  # one-step decode
             o = decode_attention(q, cache["k"], cache["v"], cfg, pos=pos,
                                  window=window)
-        else:                # prefill: bulk-fill cache, full causal attention
-            o = full_attention(q, k, v, cfg, causal=True, window=window)
+        else:                # prefill: bulk-fill cache, full attention
+            o = full_attention(q, k, v, cfg, causal=causal, window=window)
         return linear(p.wo, o.reshape(*x.shape[:2], -1)), new_cache
 
-    o = full_attention(q, k, v, cfg, causal=True, window=window)
+    o = full_attention(q, k, v, cfg, causal=causal, window=window)
     return linear(p.wo, o.reshape(*x.shape[:2], -1)), None
 
 

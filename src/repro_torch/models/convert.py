@@ -23,7 +23,11 @@ recurrent ``r [4, H, dh, dh]`` is kept as it is.  The hybrid family's
 stacks its Mamba2 layers ``mamba [n_groups, every]`` (layer ``g * every +
 i``; ``conv_w [K, conv]``, ``conv_b``, ``a_log``, ``d_skip`` and
 ``dt_bias`` kept as they are) and its shared blocks ``shared
-[n_shared_attn_blocks]``.  Linear weights are transposed in every family.
+[n_shared_attn_blocks]``.  The encoder-decoder family's stacks ``enc
+[n_enc_layers]`` and ``dec [n_dec_layers]`` (a decoder layer adds
+``ln_x`` and ``xattn``) become ``enc.{i}`` and ``dec.{i}``, beside
+``ln_enc``, ``ln_f`` and the tied ``embed``, carried once.  Linear weights
+are transposed in every family.
 """
 from __future__ import annotations
 
@@ -85,12 +89,32 @@ def _zamba_arrays(cfg, tree, out) -> None:
         _linear(out, f"{pre}.down", sh["down"], j)
 
 
+def _encdec_arrays(cfg, tree, out) -> None:
+    for side, n in (("enc", cfg.n_enc_layers), ("dec", cfg.n_dec_layers)):
+        st = tree[side]
+        norms, attns = (("ln1", "ln2", "ln_x"), ("attn", "xattn")) if side == "dec" \
+            else (("ln1", "ln2"), ("attn",))
+        for i in range(n):
+            pre = f"{side}.{i}"
+            for name in norms:
+                out[f"{pre}.{name}.scale"] = _at(st[name]["scale"], i)
+            for a in attns:
+                for name in ("wq", "wk", "wv", "wo"):
+                    _linear(out, f"{pre}.{a}.{name}", st[a][name], i)
+            for name in ("gate", "up", "down"):
+                _linear(out, f"{pre}.mlp.{name}", st["mlp"][name], i)
+    out["ln_enc.scale"] = np.asarray(tree["ln_enc"]["scale"])
+
+
+_FAMILY_ARRAYS = {"xlstm": _xlstm_arrays, "hybrid": _zamba_arrays, "encdec": _encdec_arrays}
+
+
 def named_arrays(cfg, tree) -> dict[str, np.ndarray]:
     """The leaves of ``tree`` (shaped like the reference's params of
     ``cfg``) by the port's parameter names, in the port's layout."""
     out = {"embed.table": np.asarray(tree["embed"]["table"])}
-    if cfg.family in ("xlstm", "hybrid"):
-        (_xlstm_arrays if cfg.family == "xlstm" else _zamba_arrays)(cfg, tree, out)
+    if cfg.family in _FAMILY_ARRAYS:
+        _FAMILY_ARRAYS[cfg.family](cfg, tree, out)
         out["ln_f.scale"] = np.asarray(tree["ln_f"]["scale"])
         return out
     pattern = transformer.pattern_of(cfg)

@@ -1,10 +1,12 @@
 """Model registry: family -> (init, apply, init_caches).
 
-The dense, MoE and VLM families (``transformer``), ``xlstm`` and
-``hybrid`` (``zamba``) are ported; ``encdec`` raises
-``NotImplementedError`` naming its ROADMAP item.  ``init`` takes an
-explicit ``torch.Generator`` in place of the reference's PRNG key and
-allocates on the generator's device; the entry points default to the card.
+Every family of the reference is ported: the dense, MoE and VLM families
+(``transformer``), ``xlstm``, ``hybrid`` (``zamba``) and ``encdec``.
+``init`` takes an explicit ``torch.Generator`` in place of the
+reference's PRNG key and allocates on the generator's device;
+``init_caches`` takes the reference's ``src_len`` (the encoder's length,
+default ``max_len``), which only ``encdec`` reads.  The entry points
+default to the card.
 """
 from __future__ import annotations
 
@@ -12,22 +14,22 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from repro_torch.models import transformer, xlstm, zamba
+from repro_torch.models import encdec, transformer, xlstm, zamba
 
-_NOT_PORTED = {"encdec": "the encoder-decoder family"}
 # family -> the module that builds, applies and caches it
 FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer,
-            "xlstm": xlstm, "hybrid": zamba}
+            "xlstm": xlstm, "hybrid": zamba, "encdec": encdec}
 # family -> the model's nn.Module class
 MODULES = {"dense": transformer.Transformer, "moe": transformer.Transformer,
-           "vlm": transformer.Transformer, "xlstm": xlstm.XLSTM, "hybrid": zamba.Zamba}
+           "vlm": transformer.Transformer, "xlstm": xlstm.XLSTM, "hybrid": zamba.Zamba,
+           "encdec": encdec.EncDec}
 
 
 class Model(NamedTuple):
     cfg: Any
     init: Callable            # (generator=None, device="cuda") -> params
     apply: Callable            # (params, batch, mode=..., caches=...) -> ...
-    init_caches: Callable      # (batch, max_len, device="cuda") -> caches
+    init_caches: Callable      # (batch, max_len, src_len=None, device="cuda") -> caches
 
 
 def resolve_device(device) -> torch.device:
@@ -46,10 +48,6 @@ def resolve_device(device) -> torch.device:
 
 def build(cfg) -> Model:
     fam = cfg.family
-    if fam in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: {_NOT_PORTED[fam]} is not ported yet "
-            "(ROADMAP queue 1, item 17)")
     if fam not in FAMILIES:
         raise ValueError(f"unknown family {fam!r}")
     family = FAMILIES[fam]
@@ -60,12 +58,13 @@ def build(cfg) -> Model:
             generator = torch.Generator(device).manual_seed(0)
         return family.init(generator, cfg, device)
 
-    return Model(
-        cfg, init,
-        lambda p, b, **kw: family.apply(p, b, cfg, **kw),
-        lambda batch, max_len=None, device="cuda":
-            family.init_caches(cfg, batch, max_len, device=resolve_device(device)),
-    )
+    def init_caches(batch, max_len=None, src_len=None, device="cuda"):
+        device = resolve_device(device)
+        if fam == "encdec":
+            return encdec.init_caches(cfg, batch, max_len, src_len or max_len, device=device)
+        return family.init_caches(cfg, batch, max_len, device=device)
+
+    return Model(cfg, init, lambda p, b, **kw: family.apply(p, b, cfg, **kw), init_caches)
 
 
 def param_count(params) -> int:

@@ -22,6 +22,15 @@ multiple of the chunk at full size) avoid.
 
 No TPU kernel computes any of this (the reference leaves it to XLA), so
 the port keeps it as plain PyTorch on both devices.
+
+One difference from the reference, in gradients only: the reference
+takes ``where(tri, exp(A_t - A_s), 0)``, whose gradient is NaN once a
+chunk's cumulative log-decay passes ~88 (``exp`` overflows above the
+diagonal, and the masked entries' zero cotangent times inf is NaN), as
+at zamba2-2.7b's full widths.  The port masks the exponent before the
+``exp``: the same values bit for bit, the same gradients where the
+reference's are finite, and finite gradients where the reference's are
+NaN (tests/test_torch_ssm.py).
 """
 from __future__ import annotations
 
@@ -71,8 +80,11 @@ def chunked_scan(q, k, v, log_f, *, chunk: int = 64, state: ScanState | None = N
     for i in range(nc):
         qi, ki, vi, fi = qc[i], kc[i], vc[i], fc[i]
         A = torch.cumsum(fi, dim=-1)                          # [B,H,c]
-        w = torch.exp(A[..., :, None] - A[..., None, :])     # [B,H,c,c] (<= 1 on tril)
-        w = torch.where(tri, w, 0.0)
+        # the exponent masked before the exp (<= 0 on tril): above the
+        # diagonal A_t - A_s > 0 overflows float32 once a chunk's decay
+        # passes ~88, and exp's gradient there (inf x 0) would be NaN
+        w = torch.exp(torch.where(tri, A[..., :, None] - A[..., None, :],
+                                  float("-inf")))            # [B,H,c,c]
         scores = torch.einsum("bhtd,bhsd->bhts", qi, ki) * w
         y = torch.einsum("bhts,bhsv->bhtv", scores, vi)
         decay_in = torch.exp(A)[..., None]                   # [B,H,c,1]

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.models import convert
+from repro_torch.models import convert, layers
 from repro_torch.training import optimizer as opt_lib
 
 
@@ -53,8 +53,15 @@ def trainable(model: nn.Module) -> nn.Module:
     return model
 
 
-def _on_device(batch: dict, device) -> dict:
-    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+def _on_device(batch: dict, device, dtype: torch.dtype) -> dict:
+    """The batch on ``device``, its floating inputs (a VLM's
+    ``patch_embeds``, an encoder-decoder's ``src_embeds``) in the model's
+    ``dtype``, as the model casts them anyway."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v)
+        out[k] = t.to(device, dtype) if t.is_floating_point() else t.to(device)
+    return out
 
 
 def make_train_step(mdl, opt_cfg: opt_lib.OptConfig, microbatches: int = 1,
@@ -64,14 +71,16 @@ def make_train_step(mdl, opt_cfg: opt_lib.OptConfig, microbatches: int = 1,
     def grads_of(model, batch):
         names, params = zip(*model.named_parameters())
         loss, metrics = loss_fn(model, batch)
-        grads = torch.autograd.grad(loss, params)
+        # a parameter the batch does not reach (a VLM's patch_proj under a
+        # batch of tokens only) gets a zero gradient, as jax.grad gives it
+        grads = torch.autograd.grad(loss, params, materialize_grads=True)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
             dict(zip(names, grads))
 
     def train_step(state: TrainState, batch):
         model = state.params
         device = next(model.parameters()).device
-        batch = _on_device(batch, device)
+        batch = _on_device(batch, device, layers.dt(mdl.cfg))
         if microbatches > 1:
             b = next(iter(batch.values())).shape[0]
             assert b % microbatches == 0

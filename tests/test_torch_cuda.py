@@ -693,37 +693,58 @@ def test_flash_forward_builds_spill_nothing(cuda_device):
     assert flash_ops.kernel_info(torch.bfloat16, 160)["key_rows"] == 64
 
 
-def test_flash_bwd_refuses_d160_on_card(cuda_device):
-    """The forward takes D 160; its backward raises (naming the ROADMAP
-    item that brings it) before any backward launch, through autograd and
-    called directly."""
-    g = torch.Generator(cuda_device).manual_seed(160)
-    q = torch.randn(1, 4, 64, 160, generator=g, device=cuda_device).bfloat16()
-    k, v = (torch.randn(1, 2, 64, 160, generator=g, device=cuda_device).bfloat16()
-            for _ in range(2))
-    q.requires_grad_(True)
-    before = flash_ops.attention_bwd.launches, dict(flash_ops.attention_bwd.route_launches)
-    o = flash_ops.attention(q, k, v, causal=True)
-    with pytest.raises(ValueError, match="item 17.6"):
-        o.float().sum().backward()
-    o, lse = flash_ops.attention(q.detach(), k, v, causal=True, return_lse=True)
-    with pytest.raises(ValueError, match="item 17.6"):
-        flash_ops.attention_bwd(q.detach(), k, v, o, o, lse)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,kw", [
+    (1, 4, 2, 129, 129, dict(causal=True)),
+    (1, 4, 2, 63, 1000, dict(causal=True)),
+    (1, 4, 2, 1000, 129, dict(causal=False)),
+    (1, 8, 1, 200, 200, dict(causal=True)),
+    (1, 4, 2, 300, 300, dict(causal=True, window=16, softcap=50.0)),
+    (1, 4, 2, 96, 40, dict(causal=False, window=16)),
+])
+def test_flash_bwd_at_d160_matches_plain_version(cuda_device, dtype, B, Hq, Hkv, Sq, Skv,
+                                                 kw):
+    """The backward at D 160 (zamba2-2.7b's shared attention): wgmma in
+    bfloat16 (three 64-column boxes), ffma in float32, through autograd
+    (``_Attention``) as training calls it: one count on that route, dq,
+    dk and dv within ``ref.attention_bwd_limit`` of the float64 plain
+    version, the last 32 columns on their own too, and a second run
+    byte-equal."""
+    D = 160
+    q, k, v, do = _bwd_inputs(cuda_device, B, Hq, Hkv, Sq, Skv, D, dtype, Sq + 7)
+    route = flash_ops.bwd_route(dtype, D)
+    assert route == ("wgmma" if dtype == torch.bfloat16 else "ffma")
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = flash_ops.attention(*leaves, **kw)
+    before = flash_ops.attention_bwd.route_launches[route]
+    got = torch.autograd.grad(o, leaves, do)
     torch.cuda.synchronize()
-    assert (flash_ops.attention_bwd.launches,
-            flash_ops.attention_bwd.route_launches) == before
+    assert flash_ops.attention_bwd.route_launches[route] == before + 1
+    o, lse = flash_ops.attention(q, k, v, return_lse=True, **kw)
+    _assert_bwd_within_limit(got, q, k, v, o, do, kw)
+    want64, _, _, limits = flash_ref.attention_bwd_limit(q, k, v, o, do, **kw)
+    for g, w64, limit in zip(got, want64, limits):
+        tail = (g[..., 128:].double() - w64[..., 128:]).abs()
+        assert (tail <= limit[..., 128:]).all() and w64[..., 128:].abs().max() > 0
+    again = flash_ops.attention_bwd(q, k, v, o, do, lse, **kw)
+    for x, y in zip(flash_ops.attention_bwd(q, k, v, o, do, lse, **kw), again):
+        assert_same(x, y)
 
 
 def test_flash_bwd_wgmma_builds_spill_nothing(cuda_device):
     """Every build of the wgmma backward keeps its registers (no local
     bytes) and fits a block's shared memory; its streamed tiles are 64 rows,
-    32 at D = 256."""
+    32 at D 160 and 256.  The ffma build at float32 D 160 spills nothing
+    either."""
     for D in flash_ops.BWD_WGMMA_HEAD_DIMS:
         info = flash_ops.bwd_kernel_info(torch.bfloat16, D)
         assert set(info) == {"prepass", "bwd_wgmma"}
         assert all(k["local_bytes"] == 0 for k in info.values()), (D, info)
         assert info["bwd_wgmma"]["shared_bytes"] <= 232448
-        assert info["bwd_wgmma"]["key_rows"] == (32 if D == 256 else 64)
+        assert info["bwd_wgmma"]["key_rows"] == (32 if D > 128 else 64)
+    info = flash_ops.bwd_kernel_info(torch.float32, 160)
+    assert all(k["local_bytes"] == 0 for k in info.values()), info
+    assert info["dkv"]["key_rows"] == 64 and info["dkv"]["shared_bytes"] <= 232448
 
 
 def test_attention_gradient_on_card_goes_through_the_kernel(cuda_device, monkeypatch):
@@ -788,6 +809,80 @@ def test_train_steps_on_card_match_cpu(cuda_device):
             assert float(mc[k]) == pytest.approx(float(ms[k]), rel=1e-4), (i, k)
     assert flash_ops.attention_bwd.launches - before == 3 * cfg.n_layers
     assert int(card.opt.step) == 3 and card.opt.mu["embed.table"].device.type == "cuda"
+
+
+def test_zamba2_train_step_takes_the_wgmma_backward_at_d160(cuda_device):
+    """A train step of zamba2-2.7b's full widths cut to one group (6 Mamba2
+    layers and one shared attention invocation of 32 heads x 160) in
+    bfloat16 launches the backward once, on the wgmma route, and its loss
+    and gradient norm are finite; the same step in float32 takes ffma and
+    matches the CPU's loss and gradient norm within 1e-4 relative."""
+    from repro_torch.training import optimizer as opt_lib, train_loop
+
+    base = get_config("zamba2-2.7b").replace(n_layers=6, remat="none")
+    rng = np.random.default_rng(2)
+    toks = rng.integers(4, base.vocab_size, (1, 257)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "loss_mask": np.ones((1, 256), bool)}
+    opt_cfg = opt_lib.OptConfig(peak_lr=1e-4, warmup_steps=0, decay_steps=10)
+    for dtype, route in (("bfloat16", "wgmma"), ("float32", "ffma")):
+        cfg = base.replace(dtype=dtype)
+        mdl = model_lib.build(cfg)
+        state = train_loop.init_state(mdl, torch.Generator(cuda_device).manual_seed(0))
+        cpu = None
+        if dtype == "float32":
+            params = copy.deepcopy(state.params).to("cpu")
+            cpu = train_loop.TrainState(params, opt_lib.init(dict(params.named_parameters())))
+        before = dict(flash_ops.attention_bwd.route_launches)
+        step = train_loop.make_train_step(mdl, opt_cfg)
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        after = flash_ops.attention_bwd.route_launches
+        assert after[route] == before[route] + 1 and sum(after.values()) == sum(
+            before.values()) + 1, (dtype, after)
+        assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
+        if cpu is not None:
+            cpu, mc = step(cpu, batch)
+            for k in ("loss", "ce", "grad_norm"):
+                assert float(m[k]) == pytest.approx(float(mc[k]), rel=1e-4), k
+        del state, cpu
+        torch.cuda.empty_cache()
+
+
+def test_reduced_encdec_on_card_matches_cpu(cuda_device):
+    """Reduced seamless-m4t-large-v2 on the card (the flash kernel on the
+    encoder's non-causal self-attention and the decoder's cross-attention,
+    Sq != Skv) against the CPU on the same weights: train logits, and
+    prefill + 6 decode steps, within 2e-4; the prefill launches three
+    kernels a layer pair, a decode step none."""
+    cfg = get_config("seamless-m4t-large-v2", reduced=True)
+    mdl = model_lib.build(cfg)
+    card = mdl.init(torch.Generator(cuda_device).manual_seed(0))
+    cpu = copy.deepcopy(card).to("cpu")
+    rng = np.random.default_rng(3)
+    src = rng.standard_normal((2, 40, cfg.d_model)).astype(np.float32)
+    toks = rng.integers(4, cfg.vocab_size, (2, 30)).astype(np.int32)
+    out = []
+    for params, dev in ((card, cuda_device), (cpu, "cpu")):
+        batch = {"src_embeds": torch.from_numpy(src).to(dev),
+                 "tokens": torch.from_numpy(toks).to(dev)}
+        with torch.no_grad():
+            full, _ = mdl.apply(params, batch, mode="train")
+        caches = mdl.init_caches(2, 30, src_len=40, device=dev)
+        before = flash_ops.attention.launches
+        got, caches = mdl.apply(params, dict(batch, tokens=batch["tokens"][:, :24]),
+                                mode="prefill", caches=caches)
+        prefill = flash_ops.attention.launches - before
+        steps = [got[:, 0]]
+        for t in range(24, 30):
+            got, caches = mdl.apply(params, {"tokens": batch["tokens"][:, t:t + 1]},
+                                    mode="decode", caches=caches)
+            steps.append(got[:, 0])
+        assert flash_ops.attention.launches - before == prefill
+        assert prefill == (cfg.n_enc_layers + 2 * cfg.n_dec_layers if dev != "cpu" else 0)
+        out.append((full.cpu(), torch.stack(steps, 1).cpu()))
+    for a, b in zip(*out):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)
 
 
 @pytest.mark.parametrize("arch", ["tspm-mlho", "gemma2-2b", "deepseek-moe-16b",

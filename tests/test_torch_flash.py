@@ -528,17 +528,19 @@ def test_bwd_wrapper_refusals():
 
 
 def test_bwd_route_follows_dtype_and_head_dim():
-    """``ops.bwd_route``: the wgmma backward takes bfloat16 at the wgmma
-    forward's head widths but 160, FFMA the rest (every float32 width of
-    the backward, bfloat16 at D 16 and 32); dtypes and widths no backward
-    takes raise (D 160 naming the ROADMAP item that brings it)."""
+    """``ops.bwd_route``: the backward takes the forward's head widths; the
+    wgmma backward takes bfloat16 at the wgmma forward's (D 160 among
+    them), FFMA the rest (every float32 width, bfloat16 at D 16 and 32);
+    dtypes and widths no backward takes raise."""
     assert ops.BWD_ROUTES == ("ffma", "wgmma")
     for D in ops.BWD_HEAD_DIMS:
         assert ops.bwd_route(torch.float32, D) == "ffma"
         assert ops.bwd_route(torch.bfloat16, D) == ("wgmma" if D in ops.BWD_WGMMA_HEAD_DIMS
                                                     else "ffma")
-    assert ops.BWD_WGMMA_HEAD_DIMS == (64, 128, 256)
-    assert set(ops.HEAD_DIMS) - set(ops.BWD_HEAD_DIMS) == {160}
+    assert ops.BWD_WGMMA_HEAD_DIMS == (64, 128, 160, 256)
+    assert ops.BWD_HEAD_DIMS == ops.HEAD_DIMS
+    assert ops.bwd_route(torch.bfloat16, 160) == "wgmma"
+    assert ops.bwd_route(torch.float32, 160) == "ffma"
     assert set(ops.BWD_KERNELS) == set(ops.BWD_ROUTES) == set(ops.BWD_ENTRIES)
     with pytest.raises(ValueError, match="head dim"):
         ops.bwd_route(torch.bfloat16, 96)
@@ -697,22 +699,70 @@ def test_route_at_d160():
         ops._launch(t, t, t, t, causal=True, window=None, softcap=None, force_route="tf32x3")
 
 
+def _jax_bwd_of_blocked_sdpa(q, k, v, do, kw):
+    """dq, dk, dv of the reference's ``models.attention.blocked_sdpa`` (the
+    path its models train through) by ``jax.vjp``, in float32, in the
+    kernel's ``[B, H, S, D]`` layout."""
+    import jax
+
+    def sdpa(a, b, c):
+        o = j_attention.blocked_sdpa(*(jnp.swapaxes(t, 1, 2) for t in (a, b, c)), **kw)
+        return jnp.swapaxes(o, 1, 2)
+
+    @jax.jit
+    def grads(a, b, c, g):
+        return jax.vjp(sdpa, a, b, c)[1](g)
+
+    return [np.array(g, np.float32) for g in grads(*(jnp.asarray(_f32(t)) for t in (q, k, v, do)))]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_bwd_refuses_d160_before_any_launch(dtype):
-    """The backward takes no D 160 yet: ``bwd_route`` and
-    ``_Attention.backward`` raise a ``ValueError`` naming the ROADMAP item
-    that brings it, before anything is launched or computed (the saved
-    tensors here are CPU tensors, which ``attention_bwd`` would hand to the
-    plain version)."""
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,kw", D160_CASES)
+def test_bwd_plain_version_at_d160_within_the_limit_of_jax_grad(dtype, B, Hq, Hkv, Sq, Skv,
+                                                                 D, kw):
+    """The backward at D 160 (zamba2-2.7b's shared attention), as
+    ``ops.attention_bwd`` gives it on CPU tensors (``ref.attention_bwd_ref``):
+    every element of dq, dk and dv within ``ref.attention_bwd_limit`` (16 x
+    the float32 plain version's error + 2^-8 |want| in bfloat16, the bar
+    the card's kernels are held to) of the float64 gradient, and in
+    float32 so is ``jax.grad`` of the reference's ``blocked_sdpa`` on the
+    same inputs (in bfloat16 the limit's delta takes the bfloat16 ``o``
+    the kernel is given, which ``jax.grad`` does not see); the last 32
+    columns (the wgmma route's third, half-filled box) carry
+    gradient.  Causal and not, GQA 4, window, softcap, rows that see no
+    key."""
+    q, k, v, do = (torch.from_numpy(a).to(dtype)
+                   for a in _bwd_inputs(B, Hq, Hkv, Sq, Skv, D, seed=160 + Sq))
+    o, lse = ops.attention(q, k, v, return_lse=True, **kw)
+    before = ops.attention_bwd.launches
+    got = ops.attention_bwd(q, k, v, o, do, lse, **kw)
+    assert ops.attention_bwd.launches == before
+    want64, _, _, limits = ref.attention_bwd_limit(q, k, v, o, do, **kw)
+    jgrads = (_jax_bwd_of_blocked_sdpa(q, k, v, do, kw) if dtype == torch.float32
+              else (None,) * 3)
+    for name, g, j, w64, limit in zip(("dq", "dk", "dv"), got, jgrads, want64, limits):
+        assert g.dtype == dtype and g.shape[3] == 160
+        assert ((g.double() - w64).abs() <= limit).all(), name
+        if j is not None:
+            assert ((torch.from_numpy(j).double() - w64).abs() <= limit).all(), name
+        assert w64[..., 128:].abs().max() > 1e-3, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_backward_at_d160_runs_the_plain_version_on_cpu(dtype):
+    """``_Attention.backward`` takes D 160 now: given CPU tensors (as a
+    card's saved tensors would be, on the CPU) it returns the plain
+    version's gradients and launches nothing."""
     import types
 
-    with pytest.raises(ValueError, match="item 17.6"):
-        ops.bwd_route(dtype, 160)
-    q = torch.zeros(1, 2, 8, 160, dtype=dtype)
-    lse = torch.zeros(1, 2, 8)
-    ctx = types.SimpleNamespace(saved_tensors=(q, q, q, q, lse),
-                                mask=dict(causal=True, window=None, softcap=None))
+    q, k, v, do = (torch.from_numpy(a).to(dtype)
+                   for a in _bwd_inputs(1, 4, 2, 24, 24, 160, seed=7))
+    kw = dict(causal=True, window=None, softcap=None)
+    o, lse = ops.attention(q, k, v, return_lse=True, **kw)
+    ctx = types.SimpleNamespace(saved_tensors=(q, k, v, o, lse), mask=kw)
     before = ops.attention_bwd.launches, dict(ops.attention_bwd.route_launches)
-    with pytest.raises(ValueError, match="hybrid"):
-        ops._Attention.backward(ctx, q)
+    got = ops._Attention.backward(ctx, do)
     assert (ops.attention_bwd.launches, ops.attention_bwd.route_launches) == before
+    assert got[3:] == (None, None, None)
+    for g, w in zip(got, ref.attention_bwd_ref(q, k, v, o, do, lse, **kw)):
+        assert torch.equal(g, w)

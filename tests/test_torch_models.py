@@ -41,7 +41,6 @@ ARCH_CASES = ["tspm-mlho", "gemma2-2b", "deepseek-moe-16b", "llama4-maverick-400
               "pixtral-12b", "xlstm-125m", "zamba2-2.7b"]
 TOL = 2e-5
 MOE_TOL = 2e-4
-UNPORTED = ["seamless-m4t-large-v2"]
 
 
 def _f32(x) -> np.ndarray:
@@ -351,14 +350,11 @@ def test_decode_attention_matches_reference(window, softcap):
     _close(got, want)
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_and_devices_raise(arch):
-    cfg = get_config(arch, reduced=True)
-    assert cfg.family == "encdec"
-    with pytest.raises(NotImplementedError, match="item 17"):
-        model_lib.build(cfg)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        model_lib.build(get_config(arch))
+def test_entry_points_default_to_the_card():
+    """``init`` and ``init_caches`` default to the card, and raise without
+    one (pass ``device='cpu'`` for the plain versions); every family of the
+    reference builds, ``encdec`` among them (tests/test_torch_encdec.py)."""
+    assert set(model_lib.FAMILIES) == {get_config(a).family for a in ARCHS}
     mdl = model_lib.build(get_config("tspm-mlho", reduced=True))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -12,7 +12,8 @@ of S); the conv agrees byte for byte in float32 and in bfloat16 (the
 products and the tap-by-tap sum round where the reference's do), its
 decode step in bfloat16 (within 2e-5 in float32); the blocks alone, on
 the reference's own init carried with ``models.convert``, within 2e-5 in
-float32.
+float32.  Where a chunk's decay overflows ``exp`` the reference's
+gradient is NaN and the port's finite (it masks the exponent first).
 """
 import jax
 import jax.numpy as jnp
@@ -131,6 +132,41 @@ def test_chunked_scan_matches_reference(dtype, S, chunk, normalize):
         _close(gqn, wqn, what="qn")
     else:
         assert gqn is None and wqn is None
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+def test_chunked_scan_gradient_where_the_decay_overflows(normalize):
+    """A chunk whose cumulative log-decay passes ~88 (here -3 a step over
+    64 steps, as zamba2-2.7b's full widths reach at random init): the
+    port's outputs equal the reference's, and its gradients (through
+    ``torch.autograd``) are finite and equal the reference's at chunk 8
+    (where nothing overflows) within 1e-4, while ``jax.grad`` of the
+    reference at chunk 64 is NaN: ``where(tri, exp(A_t - A_s), 0)`` takes
+    inf x 0 above the diagonal, which the port avoids by masking the
+    exponent first.  The reference is wrong here (ROADMAP queue 3)."""
+    q, k, v, _ = _scan_inputs(1, 64, 2, 4, 3, seed=64)
+    log_f = np.full((1, 64, 2), -3.0, np.float32)
+    arrays = (q, k, v, log_f)
+
+    def j_loss(chunk):
+        def f(*a):
+            y, qn, st = j_ssm.chunked_scan(*a, chunk=chunk, normalize=normalize)
+            return y.sum() + (qn.sum() if normalize else 0.0) + st.C.sum()
+        return f
+
+    want = jax.grad(j_loss(8), argnums=(0, 1, 2, 3))(*(jnp.asarray(a) for a in arrays))
+    broken = jax.grad(j_loss(64), argnums=(0, 1, 2, 3))(*(jnp.asarray(a) for a in arrays))
+    assert any(np.isnan(np.asarray(g)).any() for g in broken)
+    t = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    y, qn, st = ssm_common.chunked_scan(*t, chunk=64, normalize=normalize)
+    wy, wqn, wst = j_ssm.chunked_scan(*(jnp.asarray(a) for a in arrays), chunk=64,
+                                      normalize=normalize)
+    _close(y.detach(), wy, what="y")
+    _close(st.C.detach(), wst.C, what="C")
+    loss = y.sum() + (qn.sum() if normalize else 0.0) + st.C.sum()
+    for name, g, w in zip(("q", "k", "v", "log_f"), torch.autograd.grad(loss, t), want):
+        assert torch.isfinite(g).all(), name
+        _close(g, w, tol=1e-4, what=name)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

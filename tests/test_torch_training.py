@@ -201,7 +201,8 @@ def test_loss_and_grads_match_reference(arch, impl):
         _close(g, want[name], what=name)
 
 
-@pytest.mark.parametrize("arch", ["tspm-mlho", "gemma2-2b"])
+@pytest.mark.parametrize("arch", ["tspm-mlho", "gemma2-2b", "deepseek-moe-16b", "xlstm-125m",
+                                  "pixtral-12b"])
 def test_params_after_steps_match_reference(arch):
     """From one carried reference TrainState: the moments and metrics after
     1 and after 3 train steps within 1e-5, and the parameters too, but for
@@ -209,9 +210,12 @@ def test_params_after_steps_match_reference(arch):
     Adam's first step moves a parameter by about +-lr whatever the size of
     its gradient, so there the two packages' rounding-level gradient
     difference (~1e-9) becomes a step of a different size or sign (one such
-    element in each model: |g| 1.2e-8 and 6.0e-9).  Those may part by at
-    most the steps' sum of 2 lr, and fewer than 1 element in 10,000 may
-    part by more than 1e-5."""
+    element in tspm-mlho and in gemma2-2b: |g| 1.2e-8 and 6.0e-9).  Those
+    may part by at most the steps' sum of 2 lr, and fewer than 1 element in
+    10,000 may part by more than 1e-5.  deepseek-moe-16b and xlstm-125m take
+    AdamW over the MoE and recurrent trees; pixtral-12b trains on tokens
+    alone, its ``patch_proj`` getting the zero gradient ``jax.grad`` gives
+    it."""
     cfg, jm, jstate = _ref_state(arch)
     opt_cfg = dict(peak_lr=1e-3, warmup_steps=1, decay_steps=10)
     jstep = jax.jit(j_train_loop.make_train_step(jm, j_opt.OptConfig(**opt_cfg)))
