@@ -5,6 +5,7 @@ Run from the root of a checkout, with one visible CUDA device:
 
     python3 card_probe.py [idle] [share] [price] [scratch] [flex] [psplit] [tf32] [count]
                           [logits] [bwd] [lse] [widths] [step] [steptrace] [moe]
+                          [binding]
 
 (all when none is named; ``lse``, ``widths`` and ``step`` only with
 ``CARD_PROBE_BASE`` set).
@@ -102,6 +103,11 @@ Each prints one JSON line:
          the device's busy time (the union of its kernel, copy and memset
          intervals) and idle share, and device ms by kernel family
          (attention forward and backward, matmuls, the rest);
+  binding the attention kernels bound as ``torch.library.custom_op``s
+         against the binding before it (the wrapper's checks and the
+         ``ctypes`` launch called directly), at tspm-mlho's forward shape and
+         gemma2-2b's backward shape, in turns, with the outputs compared
+         byte for byte and the host's time a call;
   moe    where deepseek-moe-16b's serving time goes at full size: a warm
          prefill wave (4 x 512 tokens) and a warm decode step (batch 4),
          each traced like ``steptrace`` (device ms by family: attention,
@@ -657,6 +663,67 @@ def probe_bwd(torch) -> dict:
     return out
 
 
+BINDING_ROUNDS, BINDING_ITERS = 3, 50
+
+
+def probe_binding(torch) -> dict:
+    """The attention kernels' binding as ``torch.library.custom_op``s
+    against the binding before it (the wrapper's checks, then the
+    ``ctypes`` launch called directly: ``ops._forward`` / ``ops._backward``),
+    at tspm-mlho's prefill shape (the forward, float32, tf32x3) and
+    gemma2-2b's training layer (the backward, bfloat16, wgmma), timed in
+    turns (old, op, op, old) ``BINDING_ROUNDS`` times with CUDA events over
+    ``BINDING_ITERS`` calls each; outputs compared byte for byte; and the
+    host's microseconds a call, enqueued without a synchronize (what the
+    op's dispatch adds)."""
+    from repro_torch.kernels.flash_attention import ops
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(dev).manual_seed(5)
+    q = torch.randn(8, 12, 896, 64, generator=g, device=dev)
+    k, v = (torch.randn(8, 4, 896, 64, generator=g, device=dev) for _ in range(2))
+    kw = dict(causal=True, window=None, softcap=None)
+
+    def fwd_old():
+        ops._check_shapes(q, k, v)
+        return ops._forward(q, k, v, **kw)[0]
+
+    shape, dtype, bkw = smoke.BWD_MODEL_SHAPES["gemma2_2b"]
+    bq, bk, bv, bdo = smoke.bwd_inputs(torch, dev, shape, dtype, 11)
+    bo, blse = ops.attention(bq, bk, bv, return_lse=True, **bkw)
+
+    def bwd_old():
+        ops._check_shapes(bq, bk, bv)
+        return ops._backward(bq, bk, bv, bo, bdo, blse, **bkw)
+
+    calls = {"forward": {"old": fwd_old, "op": lambda: ops.attention(q, k, v, **kw)},
+             "backward": {"old": bwd_old,
+                          "op": lambda: ops.attention_bwd(bq, bk, bv, bo, bdo, blse, **bkw)}}
+    out = {"card": smoke.smi(),
+           "forward_shape": "q [8,12,896,64] k/v [8,4,896,64] float32 causal (tf32x3)",
+           "backward_shape": f"{shape} {dtype} {bkw} (wgmma)"}
+    for name, pair in calls.items():
+        a, b = (pair[n]() for n in ("old", "op"))
+        same = all(torch.equal(x, y) for x, y in zip(
+            a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)))
+        turns = {"old": [], "op": []}
+        for _ in range(BINDING_ROUNDS):
+            for n, t in smoke.in_turns(torch, pair, BINDING_ITERS).items():
+                turns[n] += t
+        host = {}
+        for n, fn in pair.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(BINDING_ITERS):
+                fn()
+            host[n] = (time.perf_counter() - t0) / BINDING_ITERS * 1e6
+            torch.cuda.synchronize()
+        ms = {n: sum(t) / len(t) for n, t in turns.items()}
+        out[name] = {"ms": ms, "turns_ms": turns, "op_over_old": ms["op"] / ms["old"] - 1,
+                     "host_us_per_call": host, "outputs_equal": same}
+    return out
+
+
 def probe_step(torch) -> dict:
     import subprocess
 
@@ -974,7 +1041,7 @@ def main(argv: list[str]) -> int:
               "scratch": probe_scratch, "flex": probe_flex, "psplit": probe_psplit,
               "tf32": probe_tf32, "count": probe_count, "logits": probe_logits,
               "bwd": probe_bwd, "lse": probe_lse, "widths": probe_widths, "step": probe_step,
-              "steptrace": probe_steptrace, "moe": probe_moe}
+              "steptrace": probe_steptrace, "moe": probe_moe, "binding": probe_binding}
     if not argv and "CARD_PROBE_BASE" not in os.environ:
         for name in ("lse", "widths", "step"):
             probes.pop(name)

@@ -17,6 +17,20 @@ most that many pairs (``FUSED_SCRATCH_BYTES`` of scratch).
 The block is sized from the device's total memory on the card and from a
 fixed default on the CPU, and the rounds from a fixed scratch, never from
 the memory free at that moment, so a plan is the same from run to run.
+
+The LM half (``Roofline``, ``count_params``, ``model_flops``,
+``shape_bytes``, ``format_table``) is the reference's three-term roofline
+of a dry-run cell, priced at the card's spec-sheet peaks:
+
+  compute    = FLOPs            / (chips * PEAK_FLOPS)
+  memory     = HBM bytes        / (chips * HBM_BW)
+  collective = collective bytes / (chips * NVLINK_BW)
+
+``launch/dryrun`` fills it from ``analysis/costmodel``'s FLOPs and bytes
+on one card (no collective).  The reference's ``collective_bytes`` parses
+XLA's HLO and waits for the sharded dry run; ``fused_kernel_vmem`` prices
+TPU VMEM and has no twin.  MODEL_FLOPS (6*N*D train, 2*N*D inference;
+active params for MoE) over the FLOPs measures the useful share.
 """
 from __future__ import annotations
 
@@ -105,3 +119,125 @@ def mining_tile_plan(max_events: int, n_buckets_log2: int, *,
                           threads=THREADS, blocks_per_sm=bc.blocks_per_sm(smem, THREADS),
                           shared_table=shared, compact_row=compact, smem_bytes=smem,
                           round_pairs=FUSED_SCRATCH_BYTES // 2)
+
+
+# --- the LM roofline -------------------------------------------------------
+# NVIDIA H100 SXM5 80GB, 700 W (NVIDIA's data sheet, dense rates)
+PEAK_FLOPS = 989e12      # bf16 tensor-core FLOP/s
+HBM_BW = 3.35e12         # device-memory bytes/s
+NVLINK_BW = 450e9        # NVLink bytes/s each way, one card to the others of its host
+HBM_BYTES = 80e9         # device memory
+
+_DTYPE_BYTES = {
+    "pred": 1, "s8": 1, "u8": 1, "s16": 2, "u16": 2, "f16": 2, "bf16": 2,
+    "s32": 4, "u32": 4, "f32": 4, "s64": 8, "u64": 8, "f64": 8, "c64": 8,
+    "c128": 16,
+}
+
+
+def shape_bytes(dtype: str, dims: str) -> int:
+    """Bytes of a ``dtype[dims]`` shape in HLO's spelling (``"bf16"``,
+    ``"2,3"``); an unknown dtype counts 4 bytes an element."""
+    n = 1
+    if dims:
+        for d in dims.split(","):
+            n *= int(d)
+    return n * _DTYPE_BYTES.get(dtype, 4)
+
+
+@dataclasses.dataclass
+class Roofline:
+    arch: str
+    shape: str
+    chips: int
+    hlo_flops: float
+    hlo_bytes: float
+    coll_bytes: float
+    coll_breakdown: dict
+    model_flops: float
+    bytes_per_device: float | None = None
+
+    @property
+    def t_compute(self) -> float:
+        return self.hlo_flops / (self.chips * PEAK_FLOPS)
+
+    @property
+    def t_memory(self) -> float:
+        return self.hlo_bytes / (self.chips * HBM_BW)
+
+    @property
+    def t_collective(self) -> float:
+        return self.coll_bytes / (self.chips * NVLINK_BW)
+
+    @property
+    def dominant(self) -> str:
+        terms = {"compute": self.t_compute, "memory": self.t_memory,
+                 "collective": self.t_collective}
+        return max(terms, key=terms.get)
+
+    @property
+    def useful_ratio(self) -> float:
+        return self.model_flops / max(self.hlo_flops, 1.0)
+
+    @property
+    def roofline_fraction(self) -> float:
+        """model-useful compute time over the achievable step time
+        (max of the three terms = the bound the step cannot beat)."""
+        bound = max(self.t_compute, self.t_memory, self.t_collective)
+        useful = self.model_flops / (self.chips * PEAK_FLOPS)
+        return useful / max(bound, 1e-12)
+
+    def row(self) -> dict:
+        return {
+            "arch": self.arch, "shape": self.shape, "chips": self.chips,
+            "hlo_flops": self.hlo_flops, "hlo_bytes": self.hlo_bytes,
+            "coll_bytes": self.coll_bytes,
+            "t_compute_s": self.t_compute, "t_memory_s": self.t_memory,
+            "t_collective_s": self.t_collective, "dominant": self.dominant,
+            "model_flops": self.model_flops,
+            "useful_ratio": self.useful_ratio,
+            "roofline_fraction": self.roofline_fraction,
+            "coll_breakdown": self.coll_breakdown,
+            "bytes_per_device": self.bytes_per_device,
+        }
+
+
+def count_params(cfg) -> tuple[int, int]:
+    """(total, active) parameter counts of ``cfg``'s model, built on the
+    meta device (nothing allocated, nothing drawn)."""
+    from repro_torch.models import model as model_lib
+
+    module, _ = model_lib.abstract_init(model_lib.build(cfg))
+    total = sum(p.numel() for p in module.parameters())
+    active = total
+    if cfg.n_experts:
+        expert = 3 * cfg.d_model * cfg.moe_d_ff  # gate/up/down per expert
+        n_moe_layers = cfg.n_layers // cfg.moe_interleave
+        routed_all = n_moe_layers * cfg.n_experts * expert
+        routed_active = n_moe_layers * cfg.experts_per_token * expert
+        active = total - routed_all + routed_active
+    return total, active
+
+
+def model_flops(cfg, shape, active_params: int, embed_params: int = 0) -> float:
+    """6*N*D for training; 2*N*D for prefill; 2*N*B for one decode step."""
+    n = active_params - embed_params
+    if shape.kind == "train":
+        return 6.0 * n * shape.seq_len * shape.global_batch
+    if shape.kind == "prefill":
+        return 2.0 * n * shape.seq_len * shape.global_batch
+    return 2.0 * n * shape.global_batch  # decode: one token per sequence
+
+
+def format_table(rows: list[dict]) -> str:
+    hdr = ("| arch | shape | t_compute | t_memory | t_coll | dominant | "
+           "useful | roofline-frac |")
+    sep = "|" + "---|" * 8
+    lines = [hdr, sep]
+    for r in rows:
+        lines.append(
+            f"| {r['arch']} | {r['shape']} | {r['t_compute_s']:.3e} | "
+            f"{r['t_memory_s']:.3e} | {r['t_collective_s']:.3e} | "
+            f"{r['dominant']} | {r['useful_ratio']:.2f} | "
+            f"{r['roofline_fraction']:.3f} |")
+    return "\n".join(lines)

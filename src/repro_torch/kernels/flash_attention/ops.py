@@ -25,9 +25,8 @@ every route writes it in its epilogue when given the pointer, and leaves
 ``o`` byte-identical; a call without it (serving) passes a null pointer.
 
 Gradients.  On a CUDA tensor, with gradients enabled and q, k or v
-requiring one, ``attention`` goes through ``_Attention``, a
-``torch.autograd.Function``: its forward is the same launch asked for the
-log-sum-exp, which it saves, and its backward launches
+requiring one, ``attention`` asks the forward op for the log-sum-exp, and
+the op's autograd formula (``_Attention``) saves it and launches
 ``csrc/flash_attention_bwd.cu`` through ``attention_bwd``, which takes
 that log-sum-exp and never recomputes it.  The backward's route follows
 ``bwd_route(dtype, D)`` alone, as the forward's: ``"wgmma"`` for bfloat16
@@ -43,14 +42,32 @@ serving does not change.  On a CPU tensor
 autograd differentiates the plain version.  ``attention_bwd.launches``
 counts backward calls that launch (all their kernels, one count) and
 ``attention_bwd.route_launches`` the same by route.
+
+The binding.  Both launches are ``torch.library.custom_op``s,
+``repro_torch::flash_attention_fwd`` (``(o, lse)``; ``lse`` empty unless
+asked for) and ``repro_torch::flash_attention_bwd`` (``(dq, dk, dv)``):
+their CUDA implementation is the ``ctypes`` launch above, their CPU one
+the plain version, and any other device raises.  Each registers a fake
+implementation (the outputs' shapes and dtypes, after the same checks of
+shapes, dtypes and head widths the card makes), so a step traces on fake
+tensors through the card's route without allocating (``launch/dryrun``),
+and a FLOP formula for ``torch.utils.flop_counter.FlopCounterMode``: the
+forward ``4 B Hq Sq Skv D`` (``analysis/costmodel``'s convention: the full
+``Sq x Skv`` rectangle, masked pairs included, as
+``scaled_dot_product_attention``'s formula counts), the backward ``10 B
+Hq Sq Skv D`` (PyTorch's convention for the attention backward: S
+recomputed, dP, dV, dQ and dK, five products).  A fake output has the real
+one's size; what a launch allocates beside its outputs and frees before it
+returns (``launch_scratch_bytes``) is counted apart.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
-from torch.autograd.function import once_differentiable
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ref
@@ -183,7 +200,8 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
               softcap: float | None = None, return_lse: bool = False):
     """Blocked attention with scale ``D ** -0.5``; the result is
     ``ref.attention_ref``'s (with ``return_lse``, ``(o, lse)``, which takes
-    no gradient)."""
+    no gradient).  A CPU tensor takes the plain version directly (autograd
+    differentiates it), a CUDA one the forward op."""
     _check_shapes(q, k, v)
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window,
@@ -195,45 +213,81 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
     if grad and return_lse:
         raise ValueError("return_lse takes no gradient: call attention without it "
                          "under autograd")
-    if grad:
-        return _Attention.apply(q, k, v, causal, window, softcap)
+    o, lse = flash_attention_fwd(q, k, v, causal, window, softcap, grad or return_lse)
+    return (o, lse) if return_lse else o
+
+
+def _no_lse(q) -> torch.Tensor:
+    """The forward op's ``lse`` when none was asked for."""
+    return torch.empty(0, dtype=torch.float32, device=q.device)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                        window: Optional[int], softcap: Optional[float],
+                        with_lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward op: ``(o, lse)``, ``lse`` empty unless ``with_lse``.  CUDA
+    tensors launch the kernel (``_forward``), CPU tensors take the plain
+    version; the caller has checked the shapes (``attention``)."""
+    if q.device.type == "cpu":
+        if with_lse:
+            return ref.attention_ref(q, k, v, causal=causal, window=window,
+                                     softcap=softcap, return_lse=True)
+        o = ref.attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+        return o, _no_lse(q)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention runs on CUDA or CPU tensors, not {q.device}")
     return _forward(q, k, v, causal=causal, window=window, softcap=softcap,
-                    with_lse=return_lse)
+                    with_lse=with_lse)
+
+
+@flash_attention_fwd.register_fake
+def _(q, k, v, causal, window, softcap, with_lse):
+    _check_shapes(q, k, v)
+    if q.device.type == "cuda":
+        kernel_route(q, k, v)
+    lse = (torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+           if with_lse else _no_lse(q))
+    return torch.empty_like(q, memory_format=torch.contiguous_format), lse
 
 
 def _forward(q, k, v, *, causal, window, softcap, with_lse=False):
-    """The forward launch on checked CUDA tensors, counted: ``o``, or
-    ``(o, lse)`` ``with_lse``."""
+    """The forward launch on checked CUDA tensors, counted: ``(o, lse)``."""
     r = kernel_route(q, k, v)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = (torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-           if with_lse else None)
+           if with_lse else _no_lse(q))
     if out.numel():
         q, k, v = (_aligned(t) for t in (q, k, v))
-        _launch(q, k, v, out, causal=causal, window=window, softcap=softcap, lse=lse)
+        _launch(q, k, v, out, causal=causal, window=window, softcap=softcap,
+                lse=lse if with_lse else None)
         attention.launches += 1
         attention.route_launches[r] += 1
-    return (out, lse) if with_lse else out
+    return out, lse
 
 
-class _Attention(torch.autograd.Function):
-    """``attention`` on CUDA tensors with a gradient: the forward launch
-    with its log-sum-exp, and ``attention_bwd``'s kernels as its backward."""
+class _Attention:
+    """The forward op's autograd formula: the forward saves its inputs, its
+    output and its log-sum-exp (asked for under autograd), and the
+    backward is ``attention_bwd`` on them."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap):
-        o, lse = _forward(q, k, v, causal=causal, window=window, softcap=softcap,
-                          with_lse=True)
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window, softcap, _ = inputs
+        o, lse = output
+        ctx.mark_non_differentiable(lse)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.mask = dict(causal=causal, window=window, softcap=softcap)
-        return o
 
     @staticmethod
-    @once_differentiable
-    def backward(ctx, do):
+    def backward(ctx, do, dlse=None):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = attention_bwd(q, k, v, o, do.contiguous(), lse, **ctx.mask)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
+
+
+flash_attention_fwd.register_autograd(_Attention.backward,
+                                      setup_context=_Attention.setup_context)
 
 
 def attention_bwd(q, k, v, o, do, lse, *, causal: bool = True, window: int | None = None,
@@ -251,11 +305,14 @@ def attention_bwd(q, k, v, o, do, lse, *, causal: bool = True, window: int | Non
     if lse.shape != q.shape[:3] or lse.dtype != torch.float32:
         raise ValueError(f"lse must be float32 of shape {tuple(q.shape[:3])}, not "
                          f"{lse.dtype} {tuple(lse.shape)}")
-    if q.device.type == "cpu":
-        return ref.attention_bwd_ref(q, k, v, o, do, lse, causal=causal, window=window,
-                                     softcap=softcap)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"attention_bwd runs on CUDA or CPU tensors, not {q.device}")
+    return tuple(flash_attention_bwd(q, k, v, o, do, lse, causal, window, softcap))
+
+
+def _check_bwd(q, k, v, o, do, lse) -> str:
+    """The backward's route for checked CUDA tensors; raises for what its
+    kernels do not take.  It reads shapes, dtypes and devices only."""
     kernel_route(q, k, v)
     B, Hq, Sq, D = q.shape
     r = bwd_route(q.dtype, D)
@@ -268,6 +325,37 @@ def attention_bwd(q, k, v, o, do, lse, *, causal: bool = True, window: int | Non
     if blocks > _INT32_MAX:
         raise ValueError(f"shape q {tuple(q.shape)} k {tuple(k.shape)} exceeds the "
                          f"backward kernel's int32 grid")
+    return r
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor, causal: bool,
+                        window: Optional[int], softcap: Optional[float],
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward op: ``(dq, dk, dv)``.  CUDA tensors launch the kernels
+    (``_backward``, which checks what they take), CPU tensors take the
+    plain version; the caller has checked the shapes (``attention_bwd``)."""
+    if q.device.type == "cpu":
+        return ref.attention_bwd_ref(q, k, v, o, do, lse, causal=causal, window=window,
+                                     softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention_bwd runs on CUDA or CPU tensors, not {q.device}")
+    return _backward(q, k, v, o, do, lse, causal=causal, window=window, softcap=softcap)
+
+
+@flash_attention_bwd.register_fake
+def _(q, k, v, o, do, lse, causal, window, softcap):
+    if q.device.type == "cuda":
+        _check_bwd(q, k, v, o, do, lse)
+    return tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
+                 for t in (q, k, v))
+
+
+def _backward(q, k, v, o, do, lse, *, causal, window, softcap):
+    """The backward launch on checked CUDA tensors, counted."""
+    r = _check_bwd(q, k, v, o, do, lse)
+    B, Hq, Sq, _ = q.shape
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     if dq.numel() == 0:         # no query: no key gets a gradient
         return dq, torch.zeros_like(k), torch.zeros_like(v)
@@ -379,6 +467,43 @@ def _launch(q, k, v, out, *, causal, window, softcap, force_route: str | None = 
         else:
             rc = _kernel("ffma")(*ptrs, DTYPES.index(q.dtype), *mask, stream)
     _build.check(_NAME, rc)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _fwd_flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+    B, Hq, Sq, D = q_shape
+    return 4 * B * Hq * Sq * k_shape[2] * D
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _bwd_flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+    B, Hq, Sq, D = q_shape
+    return 10 * B * Hq * Sq * k_shape[2] * D
+
+
+def _copies_bytes(*tensors) -> int:
+    """Bytes of the contiguous copies ``_aligned`` makes of ``tensors``."""
+    return sum(t.numel() * t.element_size() for t in tensors if not t.is_contiguous())
+
+
+def launch_scratch_bytes(func, args) -> int:
+    """Device bytes a launch of the op ``func`` (the forward's or the
+    backward's ``.default``) on ``args`` allocates beside its outputs and
+    frees before it returns: contiguous copies of the inputs that are not
+    contiguous, and the tf32x3 route's (``tf32x3_scratch_elems``) or the
+    backward's (``bwd_scratch_elems``) float32 scratch.  0 on the CPU and
+    for any other op."""
+    if func not in (torch.ops.repro_torch.flash_attention_fwd.default,
+                    torch.ops.repro_torch.flash_attention_bwd.default):
+        return 0
+    q, k = args[0], args[1]
+    if q.device.type != "cuda" or q.numel() == 0:
+        return 0
+    if func is torch.ops.repro_torch.flash_attention_fwd.default:
+        tf32x3 = route(q.dtype, q.shape[3]) == "tf32x3"
+        return _copies_bytes(*args[:3]) + (4 * tf32x3_scratch_elems(k.shape) if tf32x3 else 0)
+    B, Hq, Sq, D = q.shape
+    return _copies_bytes(*args[:6]) + 4 * bwd_scratch_elems(bwd_route(q.dtype, D), B, Hq, Sq)
 
 
 attention.launches = 0

@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.distributed.sharding import fsdp_axis_for
 from repro_torch.models import layers
 from repro_torch.models.layers import Linear, linear
 
@@ -38,11 +39,11 @@ class Attention(nn.Module):
     def __init__(self, cfg, device):
         super().__init__()
         d, h, hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-        dtype = layers.dt(cfg)
-        self.wq = Linear(d, h * hd, dtype, device, bias=cfg.qkv_bias)
-        self.wk = Linear(d, hk * hd, dtype, device, bias=cfg.qkv_bias)
-        self.wv = Linear(d, hk * hd, dtype, device, bias=cfg.qkv_bias)
-        self.wo = Linear(h * hd, d, dtype, device)
+        dtype, fsdp = layers.dt(cfg), fsdp_axis_for(cfg)
+        self.wq = Linear(d, h * hd, dtype, device, bias=cfg.qkv_bias, spec=(fsdp, "model"))
+        self.wk = Linear(d, hk * hd, dtype, device, bias=cfg.qkv_bias, spec=(fsdp, "model"))
+        self.wv = Linear(d, hk * hd, dtype, device, bias=cfg.qkv_bias, spec=(fsdp, "model"))
+        self.wo = Linear(h * hd, d, dtype, device, spec=("model", fsdp))
 
     def init_weights(self, generator):
         for lin in (self.wq, self.wk, self.wv, self.wo):

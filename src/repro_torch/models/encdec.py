@@ -28,6 +28,7 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from repro_torch.distributed.sharding import fsdp_axis_for
 from repro_torch.models import attention, layers
 from repro_torch.models.layers import rmsnorm
 
@@ -39,7 +40,7 @@ class EncLayer(nn.Module):
         self.ln1 = layers.RMSNorm(cfg.d_model, dtype, device)
         self.attn = attention.Attention(cfg, device)
         self.ln2 = layers.RMSNorm(cfg.d_model, dtype, device)
-        self.mlp = layers.MLP(cfg.d_model, cfg.d_ff, dtype, device)
+        self.mlp = layers.MLP(cfg.d_model, cfg.d_ff, dtype, device, fsdp_axis_for(cfg))
 
     def init_weights(self, generator):
         for m in self.children():
@@ -61,7 +62,8 @@ class EncDec(nn.Module):
         super().__init__()
         dtype = layers.dt(cfg)
         self.cfg = cfg
-        self.embed = layers.Embedding(cfg.vocab_size, cfg.d_model, dtype, device)
+        self.embed = layers.Embedding(cfg.vocab_size, cfg.d_model, dtype, device,
+                                      fsdp_axis_for(cfg))
         self.enc = nn.ModuleList(EncLayer(cfg, device) for _ in range(cfg.n_enc_layers))
         self.dec = nn.ModuleList(DecLayer(cfg, device) for _ in range(cfg.n_dec_layers))
         self.ln_enc = layers.RMSNorm(cfg.d_model, dtype, device)

@@ -14,6 +14,13 @@ Parameters are allocated on the module's device and filled by
 reference's truncated-normal scales (``layers.truncnorm``).  They are
 made without ``requires_grad``, so serving builds no graph;
 ``training.train_loop.init_state`` turns gradients on for training.
+
+Each module also carries its parameters' logical sharding specs, the
+reference's ``PartitionSpec``s as tuples (``'model'`` the TP/EP axis, the
+config's FSDP axis, None), in ``specs``: parameter name -> one entry a
+dimension of the port's tensor (a linear weight's spec is the reference's
+transposed, as the weight is).  ``param_specs`` collects them under the
+model's parameter names; nothing on one card shards with them.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ import functools
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch._subclasses.fake_tensor import FakeTensor
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -43,11 +51,26 @@ def _param(shape, dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
+def param_specs(module: nn.Module) -> dict[str, tuple]:
+    """Every parameter's logical spec (its module's ``specs``) under
+    ``module.named_parameters()``'s name."""
+    out = {}
+    for prefix, m in module.named_modules():
+        for name, spec in getattr(m, "specs", {}).items():
+            out[f"{prefix}.{name}" if prefix else name] = spec
+    return out
+
+
 class Linear(nn.Module):
-    def __init__(self, d_in, d_out, dtype, device, bias=False):
+    """``spec`` is the reference's spec of its ``w [d_in, d_out]``."""
+
+    def __init__(self, d_in, d_out, dtype, device, bias=False, spec=(None, None)):
         super().__init__()
         self.weight = _param((d_out, d_in), dtype, device)
         self.bias = _param((d_out,), dtype, device) if bias else None
+        self.specs = {"weight": (spec[1], spec[0])}
+        if bias:
+            self.specs["bias"] = (spec[1],)
 
     def init_weights(self, generator):
         truncnorm_(self.weight, self.weight.shape[1] ** -0.5, generator)
@@ -64,6 +87,7 @@ class RMSNorm(nn.Module):
     def __init__(self, d, dtype, device):
         super().__init__()
         self.scale = _param((d,), dtype, device)
+        self.specs = {"scale": (None,)}
 
     def init_weights(self, generator=None):
         self.scale.zero_()
@@ -77,9 +101,10 @@ def rmsnorm(p: RMSNorm, x, eps=1e-6):
 
 
 class Embedding(nn.Module):
-    def __init__(self, vocab, d, dtype, device):
+    def __init__(self, vocab, d, dtype, device, fsdp=None):
         super().__init__()
         self.table = _param((vocab, d), dtype, device)
+        self.specs = {"table": ("model", fsdp)}
 
     def init_weights(self, generator):
         truncnorm_(self.table, 1.0, generator)
@@ -115,7 +140,9 @@ def embed_logits(p: Embedding, x, softcap=None):
 def _rope_freqs(rot: int, theta: float, device: torch.device) -> torch.Tensor:
     """The rotation frequencies, computed on the CPU and copied to
     ``device`` once, so the card and the CPU rotate by the same float32
-    frequencies and no layer waits on a copy."""
+    frequencies and no layer waits on a copy.  Fake positions (a dry run
+    under a ``FakeTensorMode``) take them uncached: a fake tensor must not
+    stay in the cache for a real run, nor a real one reach a fake run."""
     freqs = torch.pow(torch.tensor(theta, dtype=torch.float32),
                       -torch.arange(0, rot, 2, dtype=torch.float32) / rot)
     return freqs.to(device)
@@ -124,7 +151,8 @@ def _rope_freqs(rot: int, theta: float, device: torch.device) -> torch.Tensor:
 def rope_angles(positions, hd, fraction=1.0, theta=10_000.0):
     """cos/sin tables [..., hd_rot/2] for the rotated fraction of hd."""
     rot = int(hd * fraction) // 2 * 2
-    ang = positions[..., None].float() * _rope_freqs(rot, float(theta), positions.device)
+    freqs = _rope_freqs.__wrapped__ if isinstance(positions, FakeTensor) else _rope_freqs
+    ang = positions[..., None].float() * freqs(rot, float(theta), positions.device)
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -144,11 +172,11 @@ def apply_rope(x, cos, sin, fraction=1.0):
 
 # --- MLP ---------------------------------------------------------------------
 class MLP(nn.Module):
-    def __init__(self, d, ff, dtype, device):
+    def __init__(self, d, ff, dtype, device, fsdp=None):
         super().__init__()
-        self.gate = Linear(d, ff, dtype, device)
-        self.up = Linear(d, ff, dtype, device)
-        self.down = Linear(ff, d, dtype, device)
+        self.gate = Linear(d, ff, dtype, device, spec=(fsdp, "model"))
+        self.up = Linear(d, ff, dtype, device, spec=(fsdp, "model"))
+        self.down = Linear(ff, d, dtype, device, spec=("model", fsdp))
 
     def init_weights(self, generator):
         for lin in (self.gate, self.up, self.down):

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.sharding import fsdp_axis_for
 from repro_torch.models import layers, ssm_common
 from repro_torch.models.layers import linear, rmsnorm
 
@@ -41,16 +42,19 @@ class Mamba2(nn.Module):
         d = cfg.d_model
         di, h, _, n = _dims(cfg)
         conv_dim = di + 2 * n
-        dtype = layers.dt(cfg)
+        dtype, fsdp = layers.dt(cfg), fsdp_axis_for(cfg)
         self.ln = layers.RMSNorm(d, dtype, device)
-        self.in_proj = layers.Linear(d, 2 * di + 2 * n + h, dtype, device)
+        self.in_proj = layers.Linear(d, 2 * di + 2 * n + h, dtype, device,
+                                     spec=(fsdp, "model"))
         self.conv_w = layers._param((cfg.ssm_conv, conv_dim), dtype, device)
         self.conv_b = layers._param((conv_dim,), dtype, device)
         self.a_log = layers._param((h,), torch.float32, device)
         self.d_skip = layers._param((h,), torch.float32, device)
         self.dt_bias = layers._param((h,), torch.float32, device)
         self.hn = layers.RMSNorm(di, dtype, device)
-        self.out_proj = layers.Linear(di, d, dtype, device)
+        self.out_proj = layers.Linear(di, d, dtype, device, spec=("model", fsdp))
+        self.specs = {"conv_w": (None, "model"), "conv_b": ("model",), "a_log": ("model",),
+                      "d_skip": ("model",), "dt_bias": ("model",)}
 
     def init_weights(self, generator):
         self.ln.init_weights()

@@ -6,7 +6,9 @@ Every family of the reference is ported: the dense, MoE and VLM families
 reference's PRNG key and allocates on the generator's device;
 ``init_caches`` takes the reference's ``src_len`` (the encoder's length,
 default ``max_len``), which only ``encdec`` reads.  The entry points
-default to the card.
+default to the card.  ``init(device="meta")`` builds the parameters on the
+meta device and draws nothing; ``abstract_init`` gives that module and
+its parameters' logical specs, allocating nothing.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from repro_torch.models import encdec, transformer, xlstm, zamba
+from repro_torch.models import encdec, layers, transformer, xlstm, zamba
 
 # family -> the module that builds, applies and caches it
 FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer,
@@ -54,6 +56,9 @@ def build(cfg) -> Model:
 
     def init(generator=None, device="cuda"):
         device = resolve_device(generator.device if generator is not None else device)
+        if device.type == "meta":           # shapes and dtypes only: nothing to draw
+            with torch.no_grad():
+                return MODULES[fam](cfg, device)
         if generator is None:
             generator = torch.Generator(device).manual_seed(0)
         return family.init(generator, cfg, device)
@@ -69,3 +74,17 @@ def build(cfg) -> Model:
 
 def param_count(params) -> int:
     return sum(x.numel() for x in params.parameters())
+
+
+def abstract_init(mdl: Model, device="meta"):
+    """(the model's parameters, their logical specs) without allocating or
+    drawing anything: the model's module built on ``device`` (the meta
+    device; under a ``FakeTensorMode`` any device, as fake tensors) with
+    its parameters left undrawn, and for each parameter, under
+    ``named_parameters()``'s name, the reference's logical spec
+    (``models/layers.param_specs``: the stacked-layer leading None dropped,
+    a linear weight's entries transposed with it)."""
+    with torch.no_grad():
+        module = MODULES[mdl.cfg.family](mdl.cfg, resolve_device(device))
+    specs = layers.param_specs(module)
+    return module, {n: specs[n] for n, _ in module.named_parameters()}

@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.sharding import fsdp_axis_for
 from repro_torch.models import layers
 
 
@@ -43,12 +44,14 @@ class MoE(nn.Module):
     def __init__(self, cfg, device):
         super().__init__()
         d, e, ffe = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
-        dtype = layers.dt(cfg)
+        dtype, fsdp = layers.dt(cfg), fsdp_axis_for(cfg)
         self.router = layers._param((d, e), torch.float32, device)
         self.w_gate = layers._param((e, d, ffe), dtype, device)
         self.w_up = layers._param((e, d, ffe), dtype, device)
         self.w_down = layers._param((e, ffe, d), dtype, device)
-        self.shared = (layers.MLP(d, cfg.n_shared_experts * ffe, dtype, device)
+        self.specs = {"router": (fsdp, "model"), "w_gate": ("model", fsdp, None),
+                      "w_up": ("model", fsdp, None), "w_down": ("model", None, fsdp)}
+        self.shared = (layers.MLP(d, cfg.n_shared_experts * ffe, dtype, device, fsdp)
                        if cfg.n_shared_experts else None)
 
     def init_weights(self, generator):

@@ -23,6 +23,7 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from repro_torch.distributed.sharding import fsdp_axis_for
 from repro_torch.models import attention, layers, moe
 from repro_torch.models.layers import rmsnorm
 
@@ -46,7 +47,7 @@ class Block(nn.Module):
         self.attn = attention.Attention(cfg, device)
         self.ln2 = layers.RMSNorm(cfg.d_model, dtype, device)
         self.ffn = (moe.MoE(cfg, device) if kind == "moe" else
-                    layers.MLP(cfg.d_model, cfg.d_ff, dtype, device))
+                    layers.MLP(cfg.d_model, cfg.d_ff, dtype, device, fsdp_axis_for(cfg)))
         if cfg.post_norms:
             self.ln1b = layers.RMSNorm(cfg.d_model, dtype, device)
             self.ln2b = layers.RMSNorm(cfg.d_model, dtype, device)
@@ -86,15 +87,17 @@ class Transformer(nn.Module):
         pattern = pattern_of(cfg)
         if cfg.n_layers % len(pattern):
             raise ValueError(f"{cfg.n_layers} layers do not repeat {pattern}")
-        dtype = layers.dt(cfg)
+        dtype, fsdp = layers.dt(cfg), fsdp_axis_for(cfg)
         self.cfg = cfg
-        self.embed = layers.Embedding(cfg.vocab_size, cfg.d_model, dtype, device)
+        self.embed = layers.Embedding(cfg.vocab_size, cfg.d_model, dtype, device, fsdp)
         self.blocks = nn.ModuleList(
             Block(cfg, pattern[i % len(pattern)], device) for i in range(cfg.n_layers))
         self.ln_f = layers.RMSNorm(cfg.d_model, dtype, device)
         self.head = (None if cfg.tie_embeddings else
-                     layers.Linear(cfg.d_model, cfg.vocab_size, dtype, device))
-        self.patch_proj = (layers.Linear(cfg.frontend_dim, cfg.d_model, dtype, device)
+                     layers.Linear(cfg.d_model, cfg.vocab_size, dtype, device,
+                                   spec=(fsdp, "model")))
+        self.patch_proj = (layers.Linear(cfg.frontend_dim, cfg.d_model, dtype, device,
+                                         spec=(None, fsdp))
                            if cfg.family == "vlm" else None)
 
     def init_weights(self, generator):

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from repro_torch.distributed.sharding import fsdp_axis_for
 from repro_torch.models import layers, ssm_common
 from repro_torch.models.layers import linear, rmsnorm
 from repro_torch.models.mamba2 import softplus
@@ -32,6 +33,12 @@ from repro_torch.models.mamba2 import softplus
 def _dims(cfg):
     di = cfg.d_model * cfg.ssm_expand
     return di, cfg.n_heads, di // cfg.n_heads
+
+
+def _tp(cfg):
+    """The blocks' TP axis: None under ``tp_internals=False`` (pure DP/FSDP,
+    the reference's choice for a model this small)."""
+    return "model" if cfg.tp_internals else None
 
 
 def log_sigmoid(x):
@@ -53,14 +60,14 @@ class MLSTM(nn.Module):
         super().__init__()
         d = cfg.d_model
         di, h, _ = _dims(cfg)
-        dtype = layers.dt(cfg)
+        dtype, fsdp, tp = layers.dt(cfg), fsdp_axis_for(cfg), _tp(cfg)
         self.ln = layers.RMSNorm(d, dtype, device)
-        self.wq = layers.Linear(d, di, dtype, device)
-        self.wk = layers.Linear(d, di, dtype, device)
-        self.wv = layers.Linear(d, di, dtype, device)
-        self.wz = layers.Linear(d, di, dtype, device)
-        self.wg = layers.Linear(d, 2 * h, dtype, device)
-        self.wo = layers.Linear(di, d, dtype, device)
+        self.wq = layers.Linear(d, di, dtype, device, spec=(fsdp, tp))
+        self.wk = layers.Linear(d, di, dtype, device, spec=(fsdp, tp))
+        self.wv = layers.Linear(d, di, dtype, device, spec=(fsdp, tp))
+        self.wz = layers.Linear(d, di, dtype, device, spec=(fsdp, tp))
+        self.wg = layers.Linear(d, 2 * h, dtype, device, spec=(fsdp, tp))
+        self.wo = layers.Linear(di, d, dtype, device, spec=(tp, fsdp))
         self.hn = layers.RMSNorm(di, dtype, device)
 
     def init_weights(self, generator):
@@ -119,11 +126,12 @@ class SLSTM(nn.Module):
         super().__init__()
         d = cfg.d_model
         di, h, dh = _dims(cfg)
-        dtype = layers.dt(cfg)
+        dtype, fsdp, tp = layers.dt(cfg), fsdp_axis_for(cfg), _tp(cfg)
         self.ln = layers.RMSNorm(d, dtype, device)
-        self.wx = layers.Linear(d, 4 * di, dtype, device)
+        self.wx = layers.Linear(d, 4 * di, dtype, device, spec=(fsdp, tp))
         self.r = layers._param((4, h, dh, dh), dtype, device)
-        self.wo = layers.Linear(di, d, dtype, device)
+        self.wo = layers.Linear(di, d, dtype, device, spec=(tp, fsdp))
+        self.specs = {"r": (None, tp, None, None)}
         self.hn = layers.RMSNorm(di, dtype, device)
 
     def init_weights(self, generator):
@@ -201,7 +209,10 @@ class XLSTM(nn.Module):
             raise ValueError(f"{cfg.n_layers} layers do not repeat {pattern}")
         dtype = layers.dt(cfg)
         self.cfg = cfg
-        self.embed = layers.Embedding(cfg.vocab_size, cfg.d_model, dtype, device)
+        # the embedding keeps vocab x 'model' whatever the blocks' TP (the
+        # FSDP tuple would collide with the vocab axis), as the reference's
+        self.embed = layers.Embedding(cfg.vocab_size, cfg.d_model, dtype, device,
+                                      "data" if cfg.fsdp else None)
         self.blocks = nn.ModuleList(
             (MLSTM if pattern[i % len(pattern)] == "m" else SLSTM)(cfg, device)
             for i in range(cfg.n_layers))

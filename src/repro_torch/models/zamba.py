@@ -23,6 +23,7 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from repro_torch.distributed.sharding import fsdp_axis_for
 from repro_torch.models import attention, layers, mamba2
 from repro_torch.models.layers import linear, rmsnorm
 
@@ -44,12 +45,12 @@ class SharedBlock(nn.Module):
     def __init__(self, cfg, device):
         super().__init__()
         d2 = 2 * cfg.d_model
-        dtype = layers.dt(cfg)
+        dtype, fsdp = layers.dt(cfg), fsdp_axis_for(cfg)
         self.ln1 = layers.RMSNorm(d2, dtype, device)
         self.attn = attention.Attention(_shared_cfg(cfg), device)
         self.ln2 = layers.RMSNorm(d2, dtype, device)
-        self.mlp = layers.MLP(d2, cfg.d_ff, dtype, device)
-        self.down = layers.Linear(d2, cfg.d_model, dtype, device)
+        self.mlp = layers.MLP(d2, cfg.d_ff, dtype, device, fsdp)
+        self.down = layers.Linear(d2, cfg.d_model, dtype, device, spec=("model", fsdp))
 
     def init_weights(self, generator):
         for m in self.children():
@@ -75,7 +76,8 @@ class Zamba(nn.Module):
         _groups(cfg)
         dtype = layers.dt(cfg)
         self.cfg = cfg
-        self.embed = layers.Embedding(cfg.vocab_size, cfg.d_model, dtype, device)
+        self.embed = layers.Embedding(cfg.vocab_size, cfg.d_model, dtype, device,
+                                      fsdp_axis_for(cfg))
         self.mamba = nn.ModuleList(mamba2.Mamba2(cfg, device) for _ in range(cfg.n_layers))
         self.shared = nn.ModuleList(SharedBlock(cfg, device)
                                     for _ in range(cfg.n_shared_attn_blocks))

@@ -593,6 +593,87 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
     assert flash_ops.attention.launches == before
 
 
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 64), (torch.bfloat16, 128),
+                                     (torch.float32, 128), (torch.bfloat16, 32),
+                                     (torch.float32, 64)])
+def test_flash_ops_pass_opcheck_on_cuda(cuda_device, dtype, D):
+    """Both attention ops (``repro_torch::flash_attention_fwd`` and
+    ``::flash_attention_bwd``) pass ``torch.library.opcheck`` on CUDA
+    tensors on each forward route (wgmma, ffma, tf32x3), their backward
+    routes among them: schema, fake implementation against the launch,
+    autograd registration, and the same outputs and gradients through
+    ``aot_dispatch``."""
+    g = torch.Generator(cuda_device).manual_seed(D)
+    q = torch.randn(1, 4, 80, D, generator=g, device=cuda_device).to(dtype)
+    k, v = (torch.randn(1, 2, 80, D, generator=g, device=cuda_device).to(dtype)
+            for _ in range(2))
+    for kw in (dict(causal=True, window=None, softcap=None),
+               dict(causal=True, window=17, softcap=30.0)):
+        args = tuple(kw.values())
+        for with_lse in (False, True):
+            torch.library.opcheck(flash_ops.flash_attention_fwd, (q, k, v, *args, with_lse))
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        torch.library.opcheck(flash_ops.flash_attention_fwd, (qg, kg, vg, *args, True))
+        o, lse = flash_ops.attention(q, k, v, return_lse=True, **kw)
+        do = torch.randn(q.shape, generator=g, device=cuda_device).to(dtype)
+        torch.library.opcheck(flash_ops.flash_attention_bwd, (q, k, v, o, do, lse, *args))
+
+
+def test_flash_ops_raise_on_a_failing_launch(cuda_device, monkeypatch):
+    """A check that fails inside an op raises through it, and a launch that
+    reports a CUDA error raises (``_build.check``) and counts nothing: no
+    path falls back to the plain version."""
+    x = torch.zeros(1, 2, 8, 48, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_ops.flash_attention_fwd(x, x, x, True, None, None, False)
+    y = torch.randn(1, 2, 64, 64, device=cuda_device, dtype=torch.bfloat16)
+    o, lse = flash_ops.attention(y, y, y, return_lse=True)
+    monkeypatch.setattr(flash_ops, "_kernel", lambda r: (lambda *a: 1))
+    monkeypatch.setattr(flash_ops, "_bwd_kernel", lambda r: (lambda *a: 1))
+    before = flash_ops.attention.launches, flash_ops.attention_bwd.launches
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        flash_ops.attention(y, y, y)
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        flash_ops.attention_bwd(y, y, y, o, o, lse)
+    yg = y.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        flash_ops.attention(yg, y, y)
+    assert (flash_ops.attention.launches, flash_ops.attention_bwd.launches) == before
+
+
+def test_dry_run_on_fake_cuda_counts_what_a_real_step_counts(cuda_device):
+    """gemma2-2b at its reduced config (D 16: the ffma routes), one train
+    step of 2 x 64 tokens traced on fake ``cuda`` tensors through the
+    attention ops' fake implementations, and the same step run for real:
+    ``FlopCounterMode`` counts the same FLOPs, the attention ops' among
+    them, and the real step launches both kernels."""
+    import dataclasses
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.training import optimizer as opt_lib, train_loop
+
+    cfg = get_config("gemma2-2b", reduced=True)
+    shape = ShapeConfig("s", 64, 2, "train")
+    fake = dryrun.trace_cell("gemma2-2b", shape, device=cuda_device,
+                             overrides=dataclasses.asdict(cfg))
+    assert {"repro_torch.flash_attention_fwd", "repro_torch.flash_attention_bwd"} \
+        <= set(fake["flops_by_op"])
+    mdl = model_lib.build(cfg)
+    state = train_loop.init_state(mdl, torch.Generator(cuda_device).manual_seed(0))
+    batch = {k: v.to(cuda_device) for k, v in
+             specs.train_batch(cfg, shape, concrete=True).items()}
+    before = flash_ops.attention.launches, flash_ops.attention_bwd.launches
+    with FlopCounterMode(display=False) as counter:
+        train_loop.make_train_step(mdl, opt_lib.OptConfig())(state, batch)
+    torch.cuda.synchronize()
+    assert counter.get_total_flops() == fake["flops"] > 0
+    assert flash_ops.attention.launches - before[0] == cfg.n_layers
+    assert flash_ops.attention_bwd.launches - before[1] == cfg.n_layers
+
+
 def _bwd_inputs(dev, B, Hq, Hkv, Sq, Skv, D, dtype, seed):
     g = torch.Generator(dev).manual_seed(seed)
     return [torch.randn(B, H, S, D, generator=g, device=dev).to(dtype)

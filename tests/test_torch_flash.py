@@ -750,9 +750,10 @@ def test_bwd_plain_version_at_d160_within_the_limit_of_jax_grad(dtype, B, Hq, Hk
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_backward_at_d160_runs_the_plain_version_on_cpu(dtype):
-    """``_Attention.backward`` takes D 160 now: given CPU tensors (as a
-    card's saved tensors would be, on the CPU) it returns the plain
-    version's gradients and launches nothing."""
+    """``_Attention.backward`` (the forward op's autograd formula) takes D
+    160 now: given CPU tensors (as a card's saved tensors would be, on the
+    CPU) it returns the plain version's gradients, None for the op's four
+    other inputs, and launches nothing."""
     import types
 
     q, k, v, do = (torch.from_numpy(a).to(dtype)
@@ -763,6 +764,6 @@ def test_attention_backward_at_d160_runs_the_plain_version_on_cpu(dtype):
     before = ops.attention_bwd.launches, dict(ops.attention_bwd.route_launches)
     got = ops._Attention.backward(ctx, do)
     assert (ops.attention_bwd.launches, ops.attention_bwd.route_launches) == before
-    assert got[3:] == (None, None, None)
+    assert got[3:] == (None, None, None, None)
     for g, w in zip(got, ref.attention_bwd_ref(q, k, v, o, do, lse, **kw)):
         assert torch.equal(g, w)
