@@ -273,7 +273,19 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with
      over the count within the reference's band, and the step's ``mfu``
      (model FLOPs over its seconds times 989 TFLOP/s); (b) every assigned
      arch's ``decode_32k`` cell traces (``run_cell``), and the report's
-     roofline and dry-run tables of those cells are printed.
+     roofline and dry-run tables of those cells are printed;
+ 12. the dry run on the reference's production meshes (``launch/mesh``: a
+     fake process group of 256 or 512 ranks, DTensor over it) on fake
+     ``cuda`` tensors: (a) gemma2-2b's ``train_4k`` on ``pod16x16`` and
+     deepseek-moe-16b's ``prefill_32k`` on ``pod2x16x16`` (its MoE layers on
+     the expert-parallel path) each trace (``run_cell``) with collective
+     bytes, every parameter's local shape is its sanitized spec's shard
+     shape, and the per-rank peak, fit, collectives by kind,
+     ``t_collective`` and trace seconds are printed; (b) both flash kernels
+     launch at the local q/k/v shapes rank 0's attention op saw in
+     gemma2-2b's trace, held against their plain versions (phase 3b's
+     limits): the forward on every batch row, the backward on the first
+     and the last.
 
 Every failed check raises, so the script exits non-zero.  The last three
 lines of its output are the ``nvidia-smi`` line, the ``kernels`` JSON line
@@ -4579,6 +4591,116 @@ def check_dry_run(torch, dev) -> dict:
     return out
 
 
+MESH_CELLS = (("gemma2-2b", "train_4k", "pod16x16"),           # phase 12 (a)
+              ("deepseek-moe-16b", "prefill_32k", "pod2x16x16"))  # its MoE layers take EP
+MESH_REF_ROWS = 4              # (b): batch rows a forward reference computes at once
+
+
+def check_local_shapes(torch, arch: str, shape: str, mesh_tag: str, dev) -> int:
+    """Every parameter of ``arch`` placed on the production mesh (fake
+    ``cuda`` tensors) has the local shape ``NamedSharding.shard_shape`` of
+    its sanitized spec gives; -> the parameters checked."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import dryrun, mesh as mesh_lib
+    from repro_torch.models import model as model_lib
+
+    with mesh_lib.production_mesh(multi_pod=dryrun.MESHES[mesh_tag], device=dev) as mesh, \
+            FakeTensorMode():
+        params, pspecs = model_lib.abstract_init(model_lib.build(dryrun.get_config(arch)),
+                                                 dev)
+        named = dict(params.named_parameters())
+        shardings = sharding.param_shardings(mesh, pspecs, named)
+        sharding.distribute_module(params, shardings)
+        for name, p in params.named_parameters():
+            want = shardings[name].shard_shape(named[name].shape)
+            require(tuple(p.to_local().shape) == want,
+                    f"phase 12 (a) {arch} {name}: local {tuple(p.to_local().shape)}, "
+                    f"shard_shape {want} of {shardings[name].spec}")
+    return len(named)
+
+
+def check_mesh_attention(torch, dev, cases: list) -> list:
+    """Phase 12 (b): both flash kernels launched at the local q/k/v shapes
+    rank 0's attention op saw in (a)'s trace, on seeded inputs; every
+    batch row of ``o`` held against ``attention_ref`` with phase 3b's limit
+    (``MESH_REF_ROWS`` rows a reference), and the first and last rows of
+    dq, dk, dv against the backward's limit (``ref.attention_bwd_limit``,
+    beside a planted fault)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops, ref as flash_ref
+
+    out = []
+    for i, c in enumerate(cases):
+        (B, Hq, Sq, D), (_, Hkv, Skv, _) = c["q"], c["k"]
+        kw = dict(causal=c["causal"], window=c["window"], softcap=c["softcap"])
+        q, k, v, do = bwd_inputs(torch, dev, (B, Hq, Hkv, Sq, Skv, D), c["dtype"], 30 + i)
+        o, lse = flash_ops.attention(q, k, v, return_lse=True, **kw)
+        dq, dk, dv = flash_ops.attention_bwd(q, k, v, o, do, lse, **kw)
+        torch.cuda.synchronize()
+        fwd = max(flash_err(torch, o[r:r + MESH_REF_ROWS], flash_ref.attention_ref(
+            *(t[r:r + MESH_REF_ROWS] for t in (q, k, v)), **kw), c["dtype"])
+            for r in range(0, B, MESH_REF_ROWS))
+        ends = torch.tensor(sorted({0, B - 1}), device=q.device)
+        bwd = bwd_reading(torch, [g.index_select(0, ends) for g in (dq, dk, dv)],
+                          *(t.index_select(0, ends) for t in (q, k, v, o, do)), kw)
+        out.append({"q": c["q"], "k": c["k"], "dtype": c["dtype"], **kw, "calls": c["calls"],
+                    "route": flash_ops.route(q.dtype, D),
+                    "bwd_route": flash_ops.bwd_route(q.dtype, D), "fwd_rows": B,
+                    "fwd_max_abs_err": fwd, "bwd_rows": ends.tolist(),
+                    "bwd": {g: {"ratio": r["ratio"], "fault_ratio": r["fault_ratio"],
+                                "max_abs_err": r["max_abs_err"]} for g, r in bwd.items()}})
+        del q, k, v, do, o, lse, dq, dk, dv
+        gc_free(torch)
+    return out
+
+
+def check_production_meshes(torch, dev) -> dict:
+    """Phase 12: the dry run on the reference's production meshes, on fake
+    ``cuda`` tensors over a fake process group.  (a) ``MESH_CELLS`` traced
+    with ``run_cell``: each ``ok`` with collective bytes, every parameter's
+    local shape its sanitized spec's shard shape; the per-rank peak,
+    ``fits``, the collective bytes by kind, ``t_collective`` and the trace
+    seconds printed; nothing launches (fake tensors).  (b)
+    ``check_mesh_attention`` at gemma2-2b's local attention shapes."""
+    from repro_torch.analysis import report
+    from repro_torch.launch import dryrun
+
+    gc_free(torch)
+    out = {"cells": {}}
+    recs = []
+    with tempfile.TemporaryDirectory(prefix="tspm_mesh_") as tmp:
+        for arch, shape, mesh_tag in MESH_CELLS:
+            zero_launches()
+            rec = dryrun.run_cell(arch, shape, False, tmp, device=dev, mesh=mesh_tag)
+            launched = read_launches()
+            require(rec["status"] == "ok",
+                    f"phase 12 (a) {arch} {shape} {mesh_tag}: {rec.get('traceback')}")
+            rf, mem = rec["roofline"], rec["memory_analysis"]
+            require(rf["coll_bytes"] > 0, f"phase 12 (a) {arch}: no collective: {rf}")
+            require(not any(launched.values()),
+                    f"phase 12 (a) {arch}: a fake trace launched {launched}")
+            r = {"mesh": mesh_tag, "chips": rec["chips"], "trace_s": rec["t_lower_s"],
+                 "peak_bytes_per_rank": mem["peak_size_in_bytes"],
+                 "argument_bytes_per_rank": mem["argument_size_in_bytes"],
+                 "fits_device_memory": rec["fits_device_memory"],
+                 "coll_breakdown": rf["coll_breakdown"], "coll_bytes": rf["coll_bytes"],
+                 "t_collective_s": rf["t_collective_s"], "dominant": rf["dominant"],
+                 "counted_flops_per_rank": rec["counted_flops"],
+                 "attention_local": rec["attention_local"],
+                 "params_checked": check_local_shapes(torch, arch, shape, mesh_tag, dev)}
+            out["cells"][f"{arch} {shape}"] = r
+            recs.append(rec)
+            print(f"phase 12 (a, {arch} {shape} on {mesh_tag}): {json.dumps(r)}", flush=True)
+    print(f"phase 12 (a) per rank:\n{report.mesh_table(recs)}", flush=True)
+    cases = out["cells"][f"{MESH_CELLS[0][0]} {MESH_CELLS[0][1]}"]["attention_local"]
+    require(cases, "phase 12 (a): gemma2-2b's trace saw no attention op")
+    out["b_attention"] = check_mesh_attention(torch, dev, cases)
+    print(f"phase 12 (b, flash kernels at the local shapes): "
+          f"{json.dumps(out['b_attention'])}", flush=True)
+    return out
+
+
 def flash_rows(routes: dict, lm: dict, timing: dict) -> list:
     """The ``kernels`` line's rows of ``flash_attention``'s three routes:
     tf32x3 at tspm-mlho's shape (float32) and ffma timed in turns with it
@@ -4812,6 +4934,8 @@ def main() -> int:
     lap("10e_train_families")
     dry_run = check_dry_run(torch, dev)
     lap("11_dry_run")
+    dry_run["production_meshes"] = check_production_meshes(torch, dev)
+    lap("12_production_meshes")
     kernels.append(kernel_row(
         "tspm_fused", "src/repro/kernels/tspm_fused/fused.py:134", fused_launches,
         err, fused_t2["ms"], fused_t2["plain_ms"], fused_t2["bound"], None,

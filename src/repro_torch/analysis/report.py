@@ -2,9 +2,14 @@
 
   PYTHONPATH=src python -m repro_torch.analysis.report experiments/dryrun
 
-The tables render a record as the reference's do; the port's mesh is one
-card (``h100x1``), so there is no multi-pod table.  Below them, the cells
-whose traced peak exceeds the card's memory.
+The tables render a record as the reference's do, a mesh at a time: one
+card (``h100x1``) and the reference's production meshes (``pod16x16``,
+``pod2x16x16``, traced over a fake process group, every count a rank's).
+A production mesh adds ``mesh_table``: per-rank temp and argument bytes,
+whether the rank's peak fits the card, the collective bytes and
+``t_collective`` (priced at NVLink's rate: a lower bound), the dominant
+term and the trace's seconds.  Below the tables, the cells whose traced
+peak exceeds the card's memory.
 """
 from __future__ import annotations
 
@@ -13,7 +18,9 @@ import json
 import os
 import sys
 
-MESHES = (("h100x1", "one card (NVIDIA H100 80GB)"),)
+MESHES = (("h100x1", "one card (NVIDIA H100 80GB)"),
+          ("pod16x16", "single pod (16x16 = 256 ranks, per rank)"),
+          ("pod2x16x16", "multi-pod (2x16x16 = 512 ranks, per rank)"))
 
 
 def load(out_dir: str, mesh: str):
@@ -82,6 +89,30 @@ def _note(r) -> str:
     return "HBM-bound"
 
 
+def mesh_table(recs) -> str:
+    """A production mesh's cells: the rank's bytes, fit, collectives and
+    trace seconds."""
+    lines = [
+        "| arch | shape | status | chips | per-rank temp | per-rank args | fits | "
+        "coll bytes | t_collective | dominant | trace |",
+        "|---|---|---|---|---|---|---|---|---|---|---|",
+    ]
+    for r in recs:
+        if r["status"] != "ok":
+            reason = r.get("reason", r.get("error", ""))[:60]
+            lines.append(f"| {r['arch']} | {r['shape']} | {r['status']} | {reason} "
+                         f"| | | | | | | |")
+            continue
+        mem, rf = r["memory_analysis"], r["roofline"]
+        lines.append(
+            f"| {r['arch']} | {r['shape']} | ok | {r['chips']} | "
+            f"{fmt_bytes(mem['temp_size_in_bytes'])} | "
+            f"{fmt_bytes(mem['argument_size_in_bytes'])} | "
+            f"{'yes' if r['fits_device_memory'] else 'no'} | {rf['coll_bytes']:.3g} | "
+            f"{rf['t_collective_s']:.3g}s | {rf['dominant']} | {r['t_lower_s']:.0f}s |")
+    return "\n".join(lines)
+
+
 def fit_lines(recs) -> list[str]:
     """One line for each traced cell whose peak exceeds the card's memory."""
     return [f"{r['arch']} x {r['shape']}: peak "
@@ -101,6 +132,9 @@ def main():
         print(dryrun_table(recs))
         print(f"\n### Roofline — {title}\n")
         print(roofline_table(recs))
+        if mesh != "h100x1":
+            print(f"\n### Per rank — {title}\n")
+            print(mesh_table(recs))
         over = fit_lines(recs)
         print(f"\ncells whose peak exceeds the card's memory: {len(over)}")
         for line in over:

@@ -26,10 +26,16 @@ of a dry-run cell, priced at the card's spec-sheet peaks:
   memory     = HBM bytes        / (chips * HBM_BW)
   collective = collective bytes / (chips * NVLINK_BW)
 
-``launch/dryrun`` fills it from ``analysis/costmodel``'s FLOPs and bytes
-on one card (no collective).  The reference's ``collective_bytes`` parses
-XLA's HLO and waits for the sharded dry run; ``fused_kernel_vmem`` prices
-TPU VMEM and has no twin.  MODEL_FLOPS (6*N*D train, 2*N*D inference;
+``launch/dryrun`` fills it from ``analysis/costmodel``'s FLOPs and bytes,
+over one card or a production mesh.  The reference's ``collective_bytes``
+parses XLA's HLO; its twin here counts what the traced step issues:
+``count_collective`` reads one op of ``torch.ops._c10d_functional`` (the
+collectives DTensor issues) as the reference reads one HLO line, and
+``launch/dryrun.RankCounts`` sums them by kind (``COLLECTIVES``), per
+device, beside rank 0's FLOPs and peak bytes.  A
+16-wide 'model' axis spans two 8-card NVLink domains, so pricing every
+byte at ``NVLINK_BW`` makes ``t_collective`` a lower bound.
+``fused_kernel_vmem`` prices TPU VMEM and has no twin.  MODEL_FLOPS (6*N*D train, 2*N*D inference;
 active params for MoE) over the FLOPs measures the useful share.
 """
 from __future__ import annotations
@@ -133,6 +139,36 @@ _DTYPE_BYTES = {
     "s32": 4, "u32": 4, "f32": 4, "s64": 8, "u64": 8, "f64": 8, "c64": 8,
     "c128": 16,
 }
+
+
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+# the functional collectives' names (DTensor's, and torch's older spelling)
+# -> the reference's kinds
+_FUNCTIONAL = {
+    "all_gather_into_tensor": "all-gather", "all_gather_into_tensor_coalesced": "all-gather",
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce", "all_reduce_coalesced_": "all-reduce",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "shard_dim_alltoall": "all-to-all",
+    "permute_tensor": "collective-permute",
+}
+_NAMESPACES = ("_c10d_functional", "c10d_functional", "_dtensor")
+
+
+def count_collective(func, args) -> tuple[str, int] | None:
+    """(kind, operand bytes per device) of one op, or None when it is no
+    collective.  The operand is the op's input, which is the reference's
+    ``_line_collective`` convention: an all-gather's operand is its output
+    over the group, a reduce-scatter's its output times the group."""
+    ns, _, name = func._schema.name.partition("::")
+    kind = _FUNCTIONAL.get(name) if ns in _NAMESPACES else None
+    if kind is None:
+        return None
+    operand = args[0]
+    tensors = operand if isinstance(operand, (list, tuple)) else [operand]
+    return kind, sum(t.numel() * t.element_size() for t in tensors)
 
 
 def shape_bytes(dtype: str, dims: str) -> int:

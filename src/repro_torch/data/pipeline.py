@@ -9,7 +9,8 @@ balanced router pins (``stream.shard.ShardRouter.balanced``);
 host-side (file-based) mode.  All of it is host numpy and threads.
 
 The reference's ``shard_batch`` places an LM batch on a device mesh and
-waits for the LM side's port (ROADMAP.md queue 1 item 17).
+waits for the sharded execution on real process groups (ROADMAP.md queue
+1 item 17.5b).
 """
 from __future__ import annotations
 

@@ -203,10 +203,10 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
     no gradient).  A CPU tensor takes the plain version directly (autograd
     differentiates it), a CUDA one the forward op."""
     _check_shapes(q, k, v)
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and not _is_dtensor(q):
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  softcap=softcap, return_lse=return_lse)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"attention runs on CUDA or CPU tensors, not {q.device}")
     grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad)
@@ -505,6 +505,45 @@ def launch_scratch_bytes(func, args) -> int:
     B, Hq, Sq, D = q.shape
     return _copies_bytes(*args[:6]) + 4 * bwd_scratch_elems(bwd_route(q.dtype, D), B, Hq, Sq)
 
+
+def _is_dtensor(t) -> bool:
+    return torch.distributed.is_available() and isinstance(
+        t, torch.distributed.tensor.DTensor)
+
+
+def _sharding_rules():
+    """DTensor sharding rules of both ops, one mesh dimension at a time:
+    q, k and v sharded on the batch, or on the heads, give that placement
+    to every output (``o``, ``lse`` (replicated when empty), ``dq``,
+    ``dk``, ``dv``); heads shard only where ``Hq`` and ``Hkv`` both divide
+    every mesh dimension, so a rank's GQA groups stay whole.  Any other
+    layout is replicated, and DTensor gathers its inputs first."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    def dims(q, k):
+        sizes = q.mesh.shape
+        heads = all(q.shape[1] % n == 0 and k.shape[1] % n == 0 for n in sizes)
+        return (0, 1) if heads else (0,)
+
+    @register_sharding(torch.ops.repro_torch.flash_attention_fwd.default)
+    def _(q, k, v, causal, window, softcap, with_lse):
+        out = [([Replicate(), Replicate()], [Replicate()] * 3 + [None] * 4)]
+        for d in dims(q, k):
+            lse = Shard(d) if with_lse else Replicate()
+            out.append(([Shard(d), lse], [Shard(d)] * 3 + [None] * 4))
+        return out
+
+    @register_sharding(torch.ops.repro_torch.flash_attention_bwd.default)
+    def _(q, k, v, o, do, lse, causal, window, softcap):
+        out = [([Replicate()] * 3, [Replicate()] * 6 + [None] * 3)]
+        for d in dims(q, k):
+            out.append(([Shard(d)] * 3, [Shard(d)] * 6 + [None] * 3))
+        return out
+
+
+if torch.distributed.is_available():
+    _sharding_rules()
 
 attention.launches = 0
 attention.route_launches = dict.fromkeys(ROUTES, 0)

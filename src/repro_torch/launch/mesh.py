@@ -1,15 +1,81 @@
-"""The patient-sharding "mesh": a 1-D tuple of devices.
+"""Meshes: the patient-sharding 1-D tuple of devices, and the LM side's
+2-D and 3-D ``DeviceMesh``es.
 
 The reference's ``('data',)`` mesh is a JAX device mesh; here it is the
 tuple of ``torch.device``s the shards of the streaming service pin to:
 ``cuda:0 .. cuda:k-1`` for the visible cards, or ``(cpu,)`` when the
-caller asks for the CPU.  The LM side's 2-D and 3-D meshes
-(``make_production_mesh``, ``make_test_mesh``) wait for the LM side's
-port (ROADMAP.md queue 1 item 17).
+caller asks for the CPU.
+
+The production meshes are the reference's: single pod 16 x 16 = 256 ranks
+``('data', 'model')``, multi-pod 2 x 16 x 16 = 512 ranks ``('pod', 'data',
+'model')``.  ``make_production_mesh`` builds one over a fake process group
+(the ``"fake"`` backend that PyTorch ships: every collective is accepted
+and moves nothing) of that many ranks, this process being rank 0, so a
+step traces per-rank on one card or the CPU (``launch/dryrun``).  This
+module owns that group: a fake group of another size is torn down and
+replaced, a default group that is not fake makes it raise, and
+``release()`` (or leaving ``production_mesh``) tears it down.
+``make_test_mesh`` builds over the default group the caller initialised
+(a spawned ``gloo`` world in the tests).
 """
 from __future__ import annotations
 
+import contextlib
+import math
+
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+
+PRODUCTION = {False: ((16, 16), ("data", "model")),
+              True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def _fake_group(world: int) -> None:
+    """A fake default group of ``world`` ranks (this process rank 0)."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError(
+                f"a {dist.get_backend()!r} process group is initialised; the production "
+                "mesh needs a fake one of its own")
+        if dist.get_world_size() == world:
+            return
+        release()
+    dist.init_process_group("fake", rank=0, world_size=world, store=FakeStore())
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+    """The reference's production mesh as a ``DeviceMesh`` of ``device``'s
+    type over a fake group of 256 (512 with ``multi_pod``) ranks."""
+    shape, axes = PRODUCTION[multi_pod]
+    kind = torch.device(device).type
+    if kind == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is visible; pass device='cpu'")
+    _fake_group(math.prod(shape))
+    return init_device_mesh(kind, shape, mesh_dim_names=axes)
+
+
+def release() -> None:
+    """Tear down the fake group ``make_production_mesh`` made, if it stands."""
+    if dist.is_initialized() and dist.get_backend() == "fake":
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def production_mesh(*, multi_pod: bool = False, device="cuda"):
+    """``make_production_mesh`` for the block; its group is torn down after."""
+    try:
+        yield make_production_mesh(multi_pod=multi_pod, device=device)
+    finally:
+        release()
+
+
+def make_test_mesh(shape=(2, 2), axes=("data", "model"), device="cuda"):
+    """A small mesh over the default group the caller initialised (its
+    world size must be the mesh's size)."""
+    return init_device_mesh(torch.device(device).type, tuple(shape), mesh_dim_names=axes)
 
 
 def make_data_mesh(n: int | None = None, device="cuda") -> tuple:

@@ -26,8 +26,12 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.distributed import _functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Replicate
 
-from repro_torch.distributed.sharding import fsdp_axis_for
+from repro_torch.distributed.sharding import (P, axis_size, batch_entry, current_rules,
+                                             entry_axes, flatten, fsdp_axis_for, local_call,
+                                             model_entry, on_mesh, unflatten)
 from repro_torch.models import layers
 from repro_torch.models.layers import Linear, linear
 
@@ -51,8 +55,7 @@ class Attention(nn.Module):
 
 
 def _split_heads(x, n):
-    b, s, _ = x.shape
-    return x.reshape(b, s, n, -1)
+    return unflatten(x, -1, (n, -1))
 
 
 def _sdpa_chunk(q, k, v, *, scale, softcap, causal, window, q_start, kv_len):
@@ -132,16 +135,51 @@ def full_attention(q, k, v, cfg, *, causal, window, impl=None, kv_len=None):
                                 v.transpose(1, 2), causal=causal, window=window,
                                 softcap=cfg.attn_softcap)
         return o.transpose(1, 2)
-    return blocked_sdpa(q, k, v, causal=causal, window=window,
-                        softcap=cfg.attn_softcap, kv_len=kv_len)
+
+    def sdpa(q, k, v):
+        return blocked_sdpa(q, k, v, causal=causal, window=window,
+                            softcap=cfg.attn_softcap, kv_len=kv_len)
+
+    if on_mesh(q):
+        # per (batch, head) with no communication: on the local shards
+        ba = batch_entry(q.shape[0])
+        seq = P(ba, None, model_entry(q.shape[2], k.shape[2], taken=entry_axes(ba)), None)
+        return local_call(sdpa, (q, k, v), (seq, seq, seq), seq, tuple(q.shape))
+    return sdpa(q, k, v)
 
 
 def _cache_write(buf, x, pos):
     """The reference's ``dynamic_update_slice_in_dim``: the start index is
     clamped so the update fits (a write past the end lands on the last
-    slots, as in the reference)."""
+    slots, as in the reference).  A cache on a mesh is written on each
+    rank's local shard (``_cache_write_local``)."""
     start = min(max(pos, 0), buf.shape[1] - x.shape[1])
+    if isinstance(buf, DTensor):
+        _cache_write_local(buf, x, start)
+        return
     buf[:, start:start + x.shape[1]] = x.to(buf.dtype)
+
+
+def _cache_write_local(buf: DTensor, x, start: int) -> None:
+    """Write ``x`` at ``start`` into a DTensor cache in place.  DTensor
+    would slice a cache sharded on its sequence (``decode_kv_shard="seq"``)
+    on a gathered copy, so the write would not land: here ``x`` takes the
+    cache's placements with its sequence whole, and each rank writes the
+    part of ``[start, start + S)`` that its shard holds (evenly sharded:
+    ``sanitize_pspec`` keeps only dividing axes)."""
+    mesh = buf.device_mesh
+    want = [Replicate() if pl.is_shard(1) else pl for pl in buf.placements]
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    local, xl = buf.to_local(), x.redistribute(mesh, want).to_local()
+    offset = 0
+    for i, pl in enumerate(buf.placements):
+        if pl.is_shard(1):
+            offset = offset * mesh.size(i) + mesh.get_local_rank(i)
+    offset *= local.shape[1]
+    lo, hi = max(start, offset), min(start + xl.shape[1], offset + local.shape[1])
+    if lo < hi:
+        local[:, lo - offset:hi - offset] = xl[:, lo - start:hi - start].to(local.dtype)
 
 
 def apply(p: Attention, x, cfg, *, positions, causal=True, window=None, cache=None,
@@ -176,29 +214,79 @@ def apply(p: Attention, x, cfg, *, positions, causal=True, window=None, cache=No
                                  window=window)
         else:                # prefill: bulk-fill cache, full attention
             o = full_attention(q, k, v, cfg, causal=causal, window=window)
-        return linear(p.wo, o.reshape(*x.shape[:2], -1)), new_cache
+        return linear(p.wo, flatten(o, 2)), new_cache
 
     o = full_attention(q, k, v, cfg, causal=causal, window=window)
-    return linear(p.wo, o.reshape(*x.shape[:2], -1)), None
+    return linear(p.wo, flatten(o, 2)), None
 
 
 def decode_attention(q, k, v, cfg, *, pos, window=None):
-    """q [B,1,H,hd] vs cache k/v [B,Smax,Hkv,hd]; linear in Smax."""
+    """q [B,1,H,hd] vs cache k/v [B,Smax,Hkv,hd]; linear in Smax.  On a
+    mesh, ``_decode_on_mesh``."""
+    if on_mesh(q):
+        return _decode_on_mesh(q, k, v, cfg, pos=pos, window=window)
     b, _, h, hd = q.shape
-    smax, hk = k.shape[1], k.shape[2]
-    g = h // hk
-    qg = q.reshape(b, 1, hk, g, hd)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * hd ** -0.5
-    if cfg.attn_softcap is not None:
-        s = cfg.attn_softcap * torch.tanh(s / cfg.attn_softcap)
-    kj = torch.arange(smax, device=q.device)
-    mask = kj <= pos
-    if window is not None:
-        mask = mask & ((pos - kj) < window)
-    s = torch.where(mask, s, NEG_INF)
+    hk = k.shape[2]
+    qg = q.reshape(b, 1, hk, h // hk, hd)
+    s = _decode_scores(qg, k, cfg, pos=pos, window=window, offset=0)
     w = torch.softmax(s, dim=-1).to(v.dtype)
     o = torch.einsum("bhgqk,bkhd->bqhgd", w, v)
     return o.reshape(b, 1, h, hd)
+
+
+def _decode_scores(qg, k, cfg, *, pos, window, offset):
+    """Masked float32 scores ``[B,Hkv,G,1,Sk]`` of keys ``offset ..``."""
+    hd = qg.shape[-1]
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * hd ** -0.5
+    if cfg.attn_softcap is not None:
+        s = cfg.attn_softcap * torch.tanh(s / cfg.attn_softcap)
+    kj = offset + torch.arange(k.shape[1], device=qg.device)
+    mask = kj <= pos
+    if window is not None:
+        mask = mask & ((pos - kj) < window)
+    return torch.where(mask, s, NEG_INF)
+
+
+def _decode_on_mesh(q, k, v, cfg, *, pos, window):
+    """The decode step on each rank's local shards: the batch on the rules'
+    batch axes; a cache sharded on its sequence (``decode_kv_shard="seq"``)
+    stays so, flash-decode style (the softmax's max and sum, and the
+    output, all-reduced over that axis: ``[B, H]``-sized, where gathering
+    the cache would move it all); else the heads on 'model' where it
+    divides both head counts."""
+    mesh, _ = current_rules()
+    b, _, h, hd = q.shape
+    smax, hk = k.shape[1], k.shape[2]
+    ba = batch_entry(b)
+    batch = entry_axes(ba)
+    names = mesh.mesh_dim_names
+    seq = [names[i] for i, pl in enumerate(k.placements)
+           if pl.is_shard(1) and names[i] not in batch]
+    seq = seq[0] if len(seq) == 1 and smax % axis_size(mesh, seq[0]) == 0 else None
+    hm = model_entry(h, hk, taken=(*batch, seq))
+    group = mesh.get_group(seq) if seq else None
+
+    def local(q, k, v):
+        bl, _, hl, _ = q.shape
+        hkl = k.shape[2]
+        offset = mesh.get_local_rank(seq) * k.shape[1] if seq else 0
+        s = _decode_scores(q.reshape(bl, 1, hkl, hl // hkl, hd), k, cfg, pos=pos,
+                           window=window, offset=offset)
+        m = s.amax(-1, keepdim=True)
+        if seq:
+            m = funcol.all_reduce(m, "max", group)
+        p = torch.exp(s - m)
+        den = p.sum(-1, keepdim=True)
+        if seq:
+            den = funcol.all_reduce(den, "sum", group)
+        o = torch.einsum("bhgqk,bkhd->bqhgd", (p / den).to(v.dtype), v)
+        if seq:
+            o = funcol.all_reduce(o, "sum", group)
+        return o.reshape(bl, 1, hl, hd)
+
+    kv = P(ba, seq, hm, None)
+    return local_call(local, (q, k, v), (P(ba, None, hm, None), kv, kv),
+                      P(ba, None, hm, None), (b, 1, h, hd))
 
 
 def init_cache(cfg, batch, max_len, *, device="cuda"):

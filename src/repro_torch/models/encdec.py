@@ -28,7 +28,7 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
-from repro_torch.distributed.sharding import fsdp_axis_for
+from repro_torch.distributed.sharding import constrain, fsdp_axis_for, with_current_rules
 from repro_torch.models import attention, layers
 from repro_torch.models.layers import rmsnorm
 
@@ -99,16 +99,19 @@ def encode(p: EncDec, src_embeds, cfg):
     """The encoder's output ``[B, Ss, d_model]`` in the model's dtype."""
     x = torch.as_tensor(src_embeds, device=p.embed.table.device).to(layers.dt(cfg))
     positions = _positions(*x.shape[:2], x.device)
+    x = constrain(x, ("batch", None, None))
 
     def body(y, lp):
         h, _ = attention.apply(lp.attn, rmsnorm(lp.ln1, y, cfg.norm_eps), cfg,
                                positions=positions, causal=False)
         y = y + h
-        return y + layers.mlp(lp.mlp, rmsnorm(lp.ln2, y, cfg.norm_eps), cfg.mlp_act)
+        y = y + layers.mlp(lp.mlp, rmsnorm(lp.ln2, y, cfg.norm_eps), cfg.mlp_act)
+        return constrain(y, ("batch", None, None))
 
     remat = _remat(cfg)
     for lp in p.enc:
-        x = (torch.utils.checkpoint.checkpoint(body, x, lp, use_reentrant=False)
+        x = (torch.utils.checkpoint.checkpoint(with_current_rules(body), x, lp,
+                                               use_reentrant=False)
              if remat else body(x, lp))
     return rmsnorm(p.ln_enc, x, cfg.norm_eps)
 
@@ -121,7 +124,7 @@ def _dec_layer(lp: DecLayer, x, memory, cfg, positions, cache=None):
                             positions=positions, causal=False, memory=memory)
     x = x + hx
     x = x + layers.mlp(lp.mlp, rmsnorm(lp.ln2, x, cfg.norm_eps), cfg.mlp_act)
-    return x, new_cache
+    return constrain(x, ("batch", None, None)), new_cache
 
 
 def _logits(p: EncDec, x, cfg):
@@ -149,7 +152,8 @@ def apply(p: EncDec, batch, cfg, *, mode="train", caches=None):
 
     remat = _remat(cfg)
     for lp in p.dec:
-        x = (torch.utils.checkpoint.checkpoint(body, x, lp, use_reentrant=False)
+        x = (torch.utils.checkpoint.checkpoint(with_current_rules(body), x, lp,
+                                               use_reentrant=False)
              if remat else body(x, lp))
     return _logits(p, x, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
 

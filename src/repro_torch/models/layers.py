@@ -20,7 +20,10 @@ reference's ``PartitionSpec``s as tuples (``'model'`` the TP/EP axis, the
 config's FSDP axis, None), in ``specs``: parameter name -> one entry a
 dimension of the port's tensor (a linear weight's spec is the reference's
 transposed, as the weight is).  ``param_specs`` collects them under the
-model's parameter names; nothing on one card shards with them.
+model's parameter names.  On a mesh (``distributed/sharding``) the
+parameters are DTensors laid out by those specs, and ``linear`` and the
+embedding gather a weight's FSDP shards before use (``gather_fsdp``); on
+one card nothing shards with them.
 """
 from __future__ import annotations
 
@@ -30,6 +33,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed.sharding import gather_fsdp
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -79,8 +85,8 @@ class Linear(nn.Module):
 
 
 def linear(p: Linear, x):
-    return F.linear(x, p.weight.to(x.dtype),
-                    None if p.bias is None else p.bias.to(x.dtype))
+    return F.linear(x, gather_fsdp(p.weight).to(x.dtype),
+                    None if p.bias is None else gather_fsdp(p.bias).to(x.dtype))
 
 
 class RMSNorm(nn.Module):
@@ -116,11 +122,14 @@ def embed_lookup(p: Embedding, tokens, scale=False):
     a row of NaN.  The gather reads clamped ids only, so an out-of-range id
     never indexes past the table (on the card that would be a device-side
     assert, which leaves the CUDA context unusable)."""
-    t = p.table
+    t = gather_fsdp(p.table)
     V = t.shape[0]
     tokens = torch.as_tensor(tokens, device=t.device)
     inside = (tokens >= -V) & (tokens < V)
-    y = t[torch.where(tokens < 0, tokens + V, tokens).clamp(0, V - 1)]
+    ids = torch.where(tokens < 0, tokens + V, tokens).clamp(0, V - 1)
+    # on a mesh, F.embedding takes DTensor's vocab-parallel lookup (a masked
+    # gather and one all-reduce) where indexing would gather the table
+    y = F.embedding(ids, t) if isinstance(t, DTensor) else t[ids]
     y = torch.where(inside[..., None], y, torch.full((), float("nan"), dtype=t.dtype,
                                                      device=t.device))
     if scale:   # sqrt(d) rounded to the table's dtype first, as the reference
@@ -129,7 +138,7 @@ def embed_lookup(p: Embedding, tokens, scale=False):
 
 
 def embed_logits(p: Embedding, x, softcap=None):
-    logits = x @ p.table.to(x.dtype).T
+    logits = x @ gather_fsdp(p.table).to(x.dtype).T
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
     return logits

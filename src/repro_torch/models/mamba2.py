@@ -114,7 +114,7 @@ def apply(p: Mamba2, x, cfg, state=None):
     if state is None:
         return out, None
     k1 = cfg.ssm_conv - 1
-    padded = F.pad(xbc_pre, (0, 0, k1, 0))
+    padded = F.pad(xbc_pre, (0, 0, k1, 0)) if xbc_pre.shape[1] < k1 else xbc_pre
     return out, (padded[:, -k1:], new_ssm)
 
 

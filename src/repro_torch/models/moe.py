@@ -24,19 +24,35 @@ gathered into ``[n, k, d]`` in ascending expert order (the order in which
 the reference's ``.at[token].add`` applies them) and summed one by one in
 ``x.dtype``, on both devices.
 
-The reference's expert-parallel ``apply_shard_map`` has no twin here (one
-device; ROADMAP item 17.5): on one device the reference itself takes
-``apply``.
+On a mesh (parameters and activations as DTensors under
+``distributed.sharding.axis_rules``) ``apply`` chooses as the reference
+does: ``moe_dispatch="shard_map_ep"`` with a 'model' axis that divides
+the experts, and more than one position, takes ``apply_shard_map``, the
+reference's manual SPMD: each 'model' rank routes its data shard's tokens
+locally, keeps its own slab of ``n_experts / m_size`` experts
+(``_local_expert_ffn``), and one all-reduce over 'model' combines the
+partial outputs in the activation dtype.  The reference's other path
+leaves the sort dispatch to XLA's partitioner, which has no DTensor twin
+(DTensor has no sharding rule for a sort or ``searchsorted``):
+``apply_shard_map(..., gather_tokens=True)`` takes its place, the same
+local slab computation on the tokens of every batch shard gathered, at
+the global capacity, so its result is ``apply``'s.  Both run on the ranks' local tensors
+(``to_local``) and hand DTensors back, so their collectives are DTensor's
+and show in the dry run's count.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 
-from repro_torch.distributed.sharding import fsdp_axis_for
+from repro_torch.distributed.sharding import (P, axis_size, batch_entry, current_rules,
+                                             entry_axes, fsdp_axis_for, on_mesh,
+                                             placements_of, to_local_as)
 from repro_torch.models import layers
 
 
@@ -90,60 +106,158 @@ class Routing(NamedTuple):
     capacity: int
 
 
+def _topk(xf, router, k):
+    """(float32 probabilities ``[n, e]``, the renormalised gates and experts
+    of the top ``k``, a stable descending sort's first ``k``)."""
+    probs = torch.softmax(xf.float() @ router.float(), dim=-1)
+    gate, eid = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, eid = gate[:, :k], eid[:, :k]
+    return probs, gate / gate.sum(-1, keepdim=True).clamp_min(1e-9), eid
+
+
 def route(p: MoE, xf, cfg) -> Routing:
     """``xf [n, d]``'s routing (``Routing``): float32 logits, softmax, top-k
     with the gates renormalised, then the sort dispatch at capacity
     ``_capacity(n, cfg)``."""
     n = xf.shape[0]
     e, k = cfg.n_experts, cfg.experts_per_token
-    logits = xf.float() @ p.router.float()
-    probs = torch.softmax(logits, dim=-1)                     # [n, e]
-    gate, eid = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate, eid = gate[:, :k], eid[:, :k]
-    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
-
+    probs, gate, eid = _topk(xf, p.router, k)
     c = _capacity(n, cfg)
-    flat_e = eid.reshape(-1)
-    sorted_e, order = torch.sort(flat_e, stable=True)
-    first = torch.searchsorted(sorted_e, sorted_e, side="left")
-    rank = torch.arange(n * k, device=xf.device) - first
-    keep = rank < c
-    slot = torch.where(keep, sorted_e * c + rank, e * c)      # sentinel row
+    order, rank, keep, slot = _dispatch(eid.reshape(-1), e, c)
     return Routing(probs, gate, eid, order, rank, keep, slot, order // k, c)
+
+
+def _dispatch(key, n_slab: int, c: int):
+    """The sort dispatch of the flat assignments ``key [n * k]`` (each an
+    expert of the slab ``[0, n_slab)``, or ``n_slab`` for one elsewhere) at
+    capacity ``c``: ``(order, rank, keep, slot)``, ``Routing``'s."""
+    sorted_e, order = torch.sort(key, stable=True)
+    first = torch.searchsorted(sorted_e, sorted_e, side="left")
+    rank = torch.arange(key.shape[0], device=key.device) - first
+    keep = (sorted_e < n_slab) & (rank < c)
+    slot = torch.where(keep, sorted_e * c + rank, n_slab * c)   # sentinel row
+    return order, rank, keep, slot
+
+
+def _experts(xf, gate, order, keep, slot, w_gate, w_up, w_down, cfg, c: int):
+    """The slab's FFN (``w_* [e, ...]``) on the kept assignments, gathered
+    into an ``[e, c, d]`` buffer, each token's contributions combined ->
+    ``[n, d]`` (zeros for a token whose assignments all went elsewhere)."""
+    n, d = xf.shape
+    k, e = gate.shape[-1], w_gate.shape[0]
+    kept = keep[:, None]
+    buf = xf.new_zeros((e * c + 1, d)).index_put((slot,), torch.where(kept, xf[order // k], 0))
+    h = buf[: e * c].view(e, c, d)
+    act = F.silu if cfg.mlp_act == "silu" else (lambda y: F.gelu(y, approximate="tanh"))
+    hg = act(torch.bmm(h, w_gate.to(xf.dtype)))
+    hu = torch.bmm(h, w_up.to(xf.dtype))
+    ho = torch.bmm(hg * hu, w_down.to(xf.dtype))
+
+    ho_flat = torch.cat([ho.reshape(e * c, d), xf.new_zeros((1, d))])
+    contrib = torch.where(kept, ho_flat[slot] * gate.reshape(-1)[order][:, None].to(xf.dtype),
+                          0)                                  # sorted order
+    # a token's assignments sit in the sorted order by ascending expert:
+    # their sorted positions, ascending, give its k contributions in the
+    # order the reference's scatter-add applies them
+    pos = torch.empty_like(order).scatter_(0, order, torch.arange(n * k, device=xf.device))
+    per_token = contrib[pos.view(n, k).sort(dim=-1).values]   # [n, k, d]
+    y = xf.new_zeros((n, d))
+    for i in range(k):
+        y = y + per_token[:, i]
+    return y
+
+
+def _local_expert_ffn(xf, gate, eid, w_gate, w_up, w_down, cfg, e_base, e_loc, c):
+    """Sort-dispatch ``xf``'s tokens to the LOCAL expert slab ``[e_loc,
+    ...]``: ``apply``'s machinery restricted to experts ``[e_base, e_base +
+    e_loc)``; other assignments sort last and drop.  -> the partial output
+    ``[n, d]`` (zeros where tokens went elsewhere)."""
+    flat_e = eid.reshape(-1)
+    local = (flat_e >= e_base) & (flat_e < e_base + e_loc)
+    order, _, keep, slot = _dispatch(torch.where(local, flat_e - e_base, e_loc), e_loc, c)
+    return _experts(xf, gate, order, keep, slot, w_gate, w_up, w_down, cfg, c)
+
+
+def apply_shard_map(p: MoE, x, cfg, *, gather_tokens: bool = False):
+    """Replicated-routing expert parallelism (manual SPMD) on DTensors.
+
+    Under plain GSPMD the sort-based dispatch scatters data-sharded tokens
+    into a model-sharded buffer, which XLA turns into TB-scale all-reduces
+    (the reference's finding).  Here every 'model' rank routes its data
+    shard's tokens locally (the router product is redundant across ranks
+    but small), keeps only the assignments of its OWN expert slab, and one
+    all-reduce over 'model' combines the partial outputs in the activation
+    dtype.  Expert weights enter pre-sliced (EP: gathered over the FSDP
+    axes only), so their gradients stay local to the slab.  The aux loss
+    averages the routing statistics over the batch axes.
+
+    ``gather_tokens`` gathers the tokens of every batch shard first and
+    routes them all at the global capacity."""
+    mesh, rules = current_rules()
+    ma = rules["model"]
+    b, s, d = x.shape
+    ba = batch_entry(b)
+    bas = entry_axes(ba)
+    e, k = cfg.n_experts, cfg.experts_per_token
+    e_loc = e // axis_size(mesh, ma)
+
+    # the ranks that hold the same slice on other tokens (or other experts)
+    # each hold a part of its gradient
+    token_axes = (ma,) if gather_tokens else mesh.mesh_dim_names
+    x_spec = P(None, None, None) if gather_tokens else P(ba, None, None)
+    xb = to_local_as(x, x_spec, (ma,))
+    router = to_local_as(p.router, P(None, None), token_axes)
+    w = [to_local_as(t, P(ma, None, None), () if gather_tokens else bas)
+         for t in (p.w_gate, p.w_up, p.w_down)]
+
+    xf = xb.reshape(-1, d)
+    probs, gate, eid = _topk(xf, router, k)
+    r = mesh.get_local_rank(ma)
+    y_part = _local_expert_ffn(xf, gate, eid, *w, cfg, r * e_loc, e_loc,
+                               _capacity(xf.shape[0], cfg))
+    # combine in the activation dtype (bf16 halves the all-reduce's bytes)
+    y = DTensor.from_local(y_part.to(x.dtype).reshape(xb.shape), mesh,
+                           placements_of(mesh, x_spec, (ma,)), run_check=False,
+                           shape=x.shape, stride=x.stride())
+    y = y.redistribute(mesh, placements_of(mesh, P(ba, None, None)))
+
+    # every 'model' rank computes the same statistics: one of them carries
+    # their gradient, so the sum over 'model' counts it once
+    if r:
+        probs = probs.detach()
+    stats = placements_of(mesh, P(None), () if gather_tokens else bas)
+    me, fe = (DTensor.from_local(t, mesh, stats, run_check=False, shape=(e,), stride=(1,))
+              for t in (probs.mean(0), F.one_hot(eid[:, 0], e).float().mean(0)))
+    n_shards = 1 if gather_tokens else math.prod(axis_size(mesh, a) for a in bas)
+    me, fe = (t.redistribute(mesh, [Replicate()] * mesh.ndim) / n_shards for t in (me, fe))
+    aux = cfg.router_aux_coef * e * torch.sum(me * fe)
+    if p.shared is not None:
+        y = y + layers.mlp(p.shared, x.reshape(-1, d), cfg.mlp_act).reshape(x.shape)
+    return y, aux
 
 
 def apply(p: MoE, x, cfg):
     """x [B, S, D] -> (y [B, S, D], aux): the routed experts' gated
     mixture plus the shared experts, and the Switch load-balance loss of
-    the top-1 expert (a float32 scalar)."""
+    the top-1 expert (a float32 scalar).  On a mesh, ``apply_shard_map``
+    (the module's docstring)."""
+    if on_mesh(x):
+        mesh, rules = current_rules()
+        m_size = axis_size(mesh, rules["model"]) if rules["model"] else 1
+        if m_size > 1 and cfg.n_experts % m_size == 0:
+            # the reference's other path leaves the sort dispatch to XLA's
+            # partitioner: here the tokens of every batch shard, gathered
+            gather = not (cfg.moe_dispatch == "shard_map_ep" and x.shape[1] > 1)
+            return apply_shard_map(p, x, cfg, gather_tokens=gather)
+        raise NotImplementedError(
+            f"{cfg.n_experts} experts on a {m_size}-wide 'model' axis: the slab "
+            "dispatch needs the axis to divide the experts")
     b, s, d = x.shape
-    e, k = cfg.n_experts, cfg.experts_per_token
-    n = b * s
-    xf = x.reshape(n, d)
+    e = cfg.n_experts
+    xf = x.reshape(b * s, d)
     r = route(p, xf, cfg)
-    c = r.capacity
-
-    kept = r.keep[:, None]
-    buf = x.new_zeros((e * c + 1, d)).index_put(
-        (r.slot,), torch.where(kept, xf[r.token], 0))
-    h = buf[: e * c].view(e, c, d)
-    act = F.silu if cfg.mlp_act == "silu" else (lambda y: F.gelu(y, approximate="tanh"))
-    hg = act(torch.bmm(h, p.w_gate.to(x.dtype)))
-    hu = torch.bmm(h, p.w_up.to(x.dtype))
-    ho = torch.bmm(hg * hu, p.w_down.to(x.dtype))
-
-    ho_flat = torch.cat([ho.reshape(e * c, d), x.new_zeros((1, d))])
-    gate = r.gate.reshape(-1)[r.order][:, None].to(x.dtype)
-    contrib = torch.where(kept, ho_flat[r.slot] * gate, 0)    # sorted order
-    # a token's assignments sit in the sorted order by ascending expert:
-    # their sorted positions, ascending, give its k contributions in the
-    # order the reference's scatter-add applies them
-    pos = torch.empty_like(r.order).scatter_(
-        0, r.order, torch.arange(n * k, device=x.device))
-    per_token = contrib[pos.view(n, k).sort(dim=-1).values]   # [n, k, d]
-    y = x.new_zeros((n, d))
-    for i in range(k):
-        y = y + per_token[:, i]
+    y = _experts(xf, r.gate, r.order, r.keep, r.slot, p.w_gate, p.w_up, p.w_down, cfg,
+                 r.capacity)
 
     if p.shared is not None:
         y = y + layers.mlp(p.shared, xf, cfg.mlp_act)

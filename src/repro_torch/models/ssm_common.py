@@ -23,6 +23,13 @@ multiple of the chunk at full size) avoid.
 No TPU kernel computes any of this (the reference leaves it to XLA), so
 the port keeps it as plain PyTorch on both devices.
 
+On a mesh (DTensors under ``distributed.sharding.axis_rules``) both the
+scan and the decode step run on each rank's local tensors
+(``sharding.local_call``): the batch on the rules' batch axes, the heads
+on 'model' where it divides them (else replicated), as XLA partitions
+this per-(batch, head) recurrence with no communication inside.  The
+chunk loop then costs the dry run's trace what one card's does.
+
 One difference from the reference, in gradients only: the reference
 takes ``where(tri, exp(A_t - A_s), 0)``, whose gradient is NaN once a
 chunk's cumulative log-decay passes ~88 (``exp`` overflows above the
@@ -38,6 +45,9 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.distributed.sharding import (P, batch_entry, entry_axes, local_call,
+                                             model_entry, on_mesh)
+
 
 class ScanState(NamedTuple):
     C: torch.Tensor   # [B, H, dk, dv] float32
@@ -47,6 +57,17 @@ class ScanState(NamedTuple):
 def init_state(b, h, dk, dv, dtype=torch.float32, device="cuda") -> ScanState:
     return ScanState(torch.zeros((b, h, dk, dv), dtype=dtype, device=device),
                      torch.zeros((b, h, dk), dtype=dtype, device=device))
+
+
+def _entries(b: int, h: int):
+    """(the rules' batch entry for a batch of ``b``, 'model' for ``h``
+    heads where it divides them)."""
+    ba = batch_entry(b)
+    return ba, model_entry(h, taken=entry_axes(ba))
+
+
+def _state_specs(ba, hm) -> ScanState:
+    return ScanState(P(ba, hm, None, None), P(ba, hm, None))
 
 
 def chunk_len(s: int, chunk: int) -> int:
@@ -61,6 +82,22 @@ def chunked_scan(q, k, v, log_f, *, chunk: int = 64, state: ScanState | None = N
 
     Returns (y [B,S,H,dv] float32, qn [B,S,H] float32 or None, the final
     ``ScanState``)."""
+    if on_mesh(q):
+        b, s, h, dk = q.shape
+        dv = v.shape[-1]
+        ba, hm = _entries(b, h)
+
+        def local(q, k, v, log_f, state):
+            return chunked_scan(q, k, v, log_f, chunk=chunk, state=state,
+                                normalize=normalize)
+
+        seq = P(ba, None, hm, None)
+        return local_call(
+            local, (q, k, v, log_f, state),
+            (seq, seq, seq, P(ba, None, hm), _state_specs(ba, hm)),
+            (seq, P(ba, None, hm) if normalize else None, _state_specs(ba, hm)),
+            ((b, s, h, dv), (b, s, h) if normalize else None,
+             ScanState((b, h, dk, dv), (b, h, dk))))
     b, s, h, dk = q.shape
     dv = v.shape[-1]
     c = chunk_len(s, chunk)
@@ -104,6 +141,16 @@ def chunked_scan(q, k, v, log_f, *, chunk: int = 64, state: ScanState | None = N
 
 def decode_step(q, k, v, log_f, state: ScanState, normalize: bool = False):
     """One-token update.  q, k [B,H,dk]; v [B,H,dv]; log_f [B,H]."""
+    if on_mesh(q):
+        b, h, dk = q.shape
+        dv = v.shape[-1]
+        ba, hm = _entries(b, h)
+        tok = P(ba, hm, None)
+        return local_call(
+            lambda *a: decode_step(*a, normalize=normalize), (q, k, v, log_f, state),
+            (tok, tok, tok, P(ba, hm), _state_specs(ba, hm)),
+            (tok, P(ba, hm) if normalize else None, _state_specs(ba, hm)),
+            ((b, h, dv), (b, h) if normalize else None, ScanState((b, h, dk, dv), (b, h, dk))))
     f = torch.exp(log_f.float())[..., None]
     k32 = k.float()
     C = state.C * f[..., None] + torch.einsum("bhd,bhv->bhdv", k32, v.float())
@@ -118,7 +165,14 @@ def causal_conv1d(x, w, b=None):
     """Depthwise causal conv: x [B,S,C], w [K,C] -> [B,S,C], the
     reference's shift-and-add: each tap's product in ``x``'s dtype, summed
     tap after tap from the oldest (not ``conv1d``, whose bfloat16 sums
-    round elsewhere)."""
+    round elsewhere).  On a mesh it runs on the local shards: the batch on
+    the rules' batch axes, the channels on 'model' where it divides them."""
+    if on_mesh(x):
+        batch, s, c = x.shape
+        ba, cm = _entries(batch, c)
+        grads = {1: entry_axes(ba), 2: entry_axes(ba)}
+        return local_call(causal_conv1d, (x, w, b), (P(ba, None, cm), P(None, cm), P(cm)),
+                          P(ba, None, cm), (batch, s, c), grad_partial=grads)
     k, s = w.shape[0], x.shape[1]
     xp = torch.nn.functional.pad(x, (0, 0, k - 1, 0))
     y = xp[:, 0:s] * w[0]

@@ -3,8 +3,10 @@
 The reference stacks each pattern position's layers and scans them with
 ``lax.scan``; here every layer is its own module in ``blocks`` (layer
 order: repetition after repetition of the pattern) and a Python loop runs
-them.  The reference's sharding hints (``constrain``) have no meaning on
-one device and no twin.  Patterns:
+them.  The reference's sharding hints (``constrain``) stand at its
+places: the residual stream after attention and after the FFN, and the
+embedded inputs of train and prefill; they act only on a DTensor under
+``axis_rules`` (``distributed/sharding``).  Patterns:
 
   dense uniform        -> ('dense',)
   gemma2 local/global  -> ('local', 'global')
@@ -23,7 +25,7 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
-from repro_torch.distributed.sharding import fsdp_axis_for
+from repro_torch.distributed.sharding import constrain, fsdp_axis_for, with_current_rules
 from repro_torch.models import attention, layers, moe
 from repro_torch.models.layers import rmsnorm
 
@@ -67,6 +69,9 @@ def layer_apply(p: Block, x, cfg, *, positions, cache=None):
     if cfg.post_norms:
         h = rmsnorm(p.ln1b, h, cfg.norm_eps)
     x = x + h
+    # sp_residual: 'seq_res' -> 'model' shards the residual stream on the
+    # sequence dim between blocks (Megatron-SP)
+    x = constrain(x, ("batch", "seq_res", None))
     f = rmsnorm(p.ln2, x, cfg.norm_eps)
     aux = None
     if p.kind == "moe":
@@ -75,7 +80,7 @@ def layer_apply(p: Block, x, cfg, *, positions, cache=None):
         f = layers.mlp(p.ffn, f, cfg.mlp_act)
     if cfg.post_norms:
         f = rmsnorm(p.ln2b, f, cfg.norm_eps)
-    return x + f, new_cache, aux
+    return constrain(x + f, ("batch", "seq_res", None)), new_cache, aux
 
 
 class Transformer(nn.Module):
@@ -158,7 +163,8 @@ def _train_layers(p: Transformer, x, cfg, *, positions):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in p.blocks:
         if remat:
-            x, a = torch.utils.checkpoint.checkpoint(layer, x, blk, use_reentrant=False)
+            x, a = torch.utils.checkpoint.checkpoint(with_current_rules(layer), x, blk,
+                                                     use_reentrant=False)
         else:
             x, a = layer(x, blk)
         if a is not None:
@@ -179,6 +185,7 @@ def apply(p: Transformer, batch, cfg, *, mode="train", caches=None):
     x = _embed_inputs(p, batch, cfg, mode=mode)
     b, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+    x = constrain(x, ("batch", None, None))
     x, aux = _train_layers(p, x, cfg, positions=positions)
     return _logits(p, x, cfg), aux
 
@@ -193,6 +200,7 @@ def _serve(p: Transformer, batch, cfg, *, mode, caches):
         x, new_caches = _run_layers(p, x, cfg, positions=positions, caches=caches)
         return _logits(p, x, cfg), new_caches
     positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+    x = constrain(x, ("batch", None, None))
     x, new_caches = _run_layers(p, x, cfg, positions=positions, caches=caches)
     # serving prefill only needs next-token logits (saves a [B,S,V])
     return _logits(p, x[:, -1:], cfg), new_caches

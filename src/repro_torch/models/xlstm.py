@@ -6,8 +6,11 @@ normalizer ``h = (q C) / max(|q n|, 1)`` and bounded gates (sigmoid input,
 log-sigmoid forget), as the reference.  The sLSTM is the stabilized
 exponential-gate cell with per-head block-diagonal recurrent weights,
 walked over time one step at a time in float32 (the reference's
-``lax.scan``; its ``shard_map`` branch runs only under a mesh, and on one
-device it takes the same scan).  The stabilizer ``m`` starts at -10 and
+``lax.scan``).  On a mesh (DTensors under ``axis_rules``) a sequence of
+more than one position takes the reference's ``shard_map`` branch: the
+scan runs on each rank's local batch shard (``sharding.local_call``), so
+the recurrent weight's gradient is reduced once, not once a step, and the
+dry run's trace costs per rank what one card's does.  The stabilizer ``m`` starts at -10 and
 carries across prefill and decode in the state.
 
 No TPU kernel computes any of this: both blocks are plain PyTorch on
@@ -24,7 +27,9 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from repro_torch.distributed.sharding import fsdp_axis_for
+from repro_torch.distributed.sharding import (P, batch_entry, constrain, entry_axes,
+                                             fsdp_axis_for, local_call, on_mesh,
+                                             with_current_rules)
 from repro_torch.models import layers, ssm_common
 from repro_torch.models.layers import linear, rmsnorm
 from repro_torch.models.mamba2 import softplus
@@ -179,9 +184,27 @@ def slstm_apply(p: SLSTM, x, cfg, state=None):
     di, h, dh = _dims(cfg)
     xn = rmsnorm(p.ln, x, cfg.norm_eps)
     gx = linear(p.wx, xn).reshape(b, sq, 4, h, dh)
-    if state is None:
-        state = slstm_state(cfg, b, device=x.device)
-    new_state, hs = _slstm_scan(gx, p.r, state)
+    if on_mesh(gx) and sq > 1:
+        # Manual SPMD around the sequential cell: under DTensor the
+        # recurrent weight's gradient would be all-reduced at every time
+        # step; on the local batch shard it accumulates per rank and is
+        # reduced once, at the boundary (the reference's shard_map)
+        ba = batch_entry(b)
+        st = {k: P(ba, None, None) for k in ("h", "c", "n", "m")}
+
+        def local(gx, r, state):
+            if state is None:
+                state = slstm_state(cfg, gx.shape[0], device=gx.device)
+            return _slstm_scan(gx, r, state)
+
+        new_state, hs = local_call(
+            local, (gx, p.r, state), (P(ba, None, None, None, None), P(None, None, None, None), st),
+            (st, P(ba, None, None, None)),
+            ({k: (b, h, dh) for k in st}, (b, sq, h, dh)), grad_partial={1: entry_axes(ba)})
+    else:
+        if state is None:
+            state = slstm_state(cfg, b, device=x.device)
+        new_state, hs = _slstm_scan(gx, p.r, state)
     y = hs.reshape(b, sq, di).to(x.dtype)
     y = rmsnorm(p.hn, y, cfg.norm_eps)
     return x + linear(p.wo, y), new_state
@@ -259,7 +282,8 @@ def apply(p: XLSTM, batch, cfg, *, mode="train", caches=None):
     position's logits.  Prefill and decode run without gradients."""
     if mode in ("prefill", "decode"):
         return _serve(p, batch, cfg, mode=mode, caches=caches)
-    x = layers.embed_lookup(p.embed, batch["tokens"], cfg.embed_scale)
+    x = constrain(layers.embed_lookup(p.embed, batch["tokens"], cfg.embed_scale),
+                  ("batch", None, None))
     n = len(pattern_of(cfg))
 
     def rep(y, r):
@@ -269,14 +293,16 @@ def apply(p: XLSTM, batch, cfg, *, mode="train", caches=None):
 
     remat = cfg.remat != "none" and torch.is_grad_enabled()
     for r in range(cfg.n_layers // n):
-        x = (torch.utils.checkpoint.checkpoint(rep, x, r, use_reentrant=False) if remat
+        x = (torch.utils.checkpoint.checkpoint(with_current_rules(rep), x, r,
+                                               use_reentrant=False) if remat
              else rep(x, r))
     return _logits(p, x, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 @torch.no_grad()
 def _serve(p: XLSTM, batch, cfg, *, mode, caches):
-    x = layers.embed_lookup(p.embed, batch["tokens"], cfg.embed_scale)
+    x = constrain(layers.embed_lookup(p.embed, batch["tokens"], cfg.embed_scale),
+                  ("batch", None, None))
     n = len(pattern_of(cfg))
     new = tuple([] for _ in range(n))
     for layer, blk in enumerate(p.blocks):

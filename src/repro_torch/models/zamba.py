@@ -23,7 +23,7 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
-from repro_torch.distributed.sharding import fsdp_axis_for
+from repro_torch.distributed.sharding import constrain, fsdp_axis_for, with_current_rules
 from repro_torch.models import attention, layers, mamba2
 from repro_torch.models.layers import linear, rmsnorm
 
@@ -138,7 +138,8 @@ def apply(p: Zamba, batch, cfg, *, mode="train", caches=None):
     n_groups, _ = _groups(cfg)
     if mode in ("prefill", "decode"):
         return _serve(p, batch, cfg, mode=mode, caches=caches)
-    x = layers.embed_lookup(p.embed, batch["tokens"], cfg.embed_scale)
+    x = constrain(layers.embed_lookup(p.embed, batch["tokens"], cfg.embed_scale),
+                  ("batch", None, None))
     b, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
     x0 = x
@@ -149,7 +150,8 @@ def apply(p: Zamba, batch, cfg, *, mode="train", caches=None):
     remat = cfg.remat != "none" and torch.is_grad_enabled()
     for g in range(n_groups):
         if remat:
-            x = torch.utils.checkpoint.checkpoint(group, x, g, use_reentrant=False)
+            x = torch.utils.checkpoint.checkpoint(with_current_rules(group), x, g,
+                                                  use_reentrant=False)
         else:
             x = group(x, g)
     return _logits(p, x, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
@@ -158,7 +160,8 @@ def apply(p: Zamba, batch, cfg, *, mode="train", caches=None):
 @torch.no_grad()
 def _serve(p: Zamba, batch, cfg, *, mode, caches):
     n_groups, _ = _groups(cfg)
-    x = layers.embed_lookup(p.embed, batch["tokens"], cfg.embed_scale)
+    x = constrain(layers.embed_lookup(p.embed, batch["tokens"], cfg.embed_scale),
+                  ("batch", None, None))
     b, s = x.shape[:2]
     if mode == "decode":
         positions = torch.full((b, 1), caches["attn"][0]["pos"], dtype=torch.int32,

@@ -7,8 +7,9 @@
   median: persistent outliers get reported for replacement.
 
 The reference's ``reshard`` (a state placed onto a new device mesh with
-its parameters' shardings) waits for the LM side's sharding
-(``distributed/sharding.param_shardings``, ROADMAP queue 1 item 17).
+its parameters' shardings, ``distributed/sharding.param_shardings``)
+waits for the sharded execution on real process groups (ROADMAP queue 1
+item 17.5b).
 """
 from __future__ import annotations
 

@@ -15,7 +15,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed import _functional_collectives as funcol
 
+from repro_torch.distributed.sharding import (P, batch_entry, current_rules, entry_axes,
+                                             local_call, model_entry, on_mesh)
 from repro_torch.models import convert, layers
 from repro_torch.training import optimizer as opt_lib
 
@@ -27,6 +30,11 @@ class TrainState(NamedTuple):
 
 def lm_loss(logits, labels, mask, z_coef: float = 1e-4):
     """Masked CE + z-loss (keeps the softmax normalizer bounded at scale)."""
+    if on_mesh(logits):
+        ll_sum, z_sum, n = _loss_sums_on_mesh(logits, labels, mask)
+        denom = torch.clamp(n, min=1.0)
+        ce = -ll_sum / denom
+        return ce + z_coef * (z_sum / denom), ce
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.take_along_dim(logits, labels[..., None].long(), -1)[..., 0] - lse
@@ -35,6 +43,54 @@ def lm_loss(logits, labels, mask, z_coef: float = 1e-4):
     ce = -(ll * mask).sum() / denom
     z = (lse ** 2 * mask).sum() / denom
     return ce + z_coef * z, ce
+
+
+class _SumOver(torch.autograd.Function):
+    """All-reduce (sum) over a group; each rank's input is one term, so its
+    gradient is the sum's."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return funcol.all_reduce(x, "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _loss_sums_on_mesh(logits, labels, mask):
+    """``lm_loss``'s sums on a mesh, vocab-parallel: (the masked sum of
+    log-likelihoods, the masked sum of ``lse ** 2``, the mask's count),
+    partial over the batch axes.  Each rank keeps its slice of the vocab:
+    the max, the sum of exponentials and the picked logit are all-reduced
+    over 'model' (``[B, S]`` each), where DTensor would gather the
+    ``[B, S, V]`` logits."""
+    mesh, _ = current_rules()
+    b, s, v = logits.shape
+    vocab = model_entry(v)
+    ba = batch_entry(b, exclude=(vocab,))
+    group = mesh.get_group(vocab) if vocab else None
+
+    def sums(lg, lab, msk):
+        lg = lg.float()
+        lo = mesh.get_local_rank(vocab) * lg.shape[-1] if vocab else 0
+        m = lg.detach().amax(-1)
+        if vocab:
+            m = funcol.all_reduce(m, "max", group)
+        se = torch.exp(lg - m[..., None]).sum(-1)
+        ids = lab.long() - lo
+        inside = (ids >= 0) & (ids < lg.shape[-1])
+        picked = torch.where(inside, torch.take_along_dim(
+            lg, ids.clamp(0, lg.shape[-1] - 1)[..., None], -1)[..., 0], 0.0)
+        if vocab:
+            se, picked = _SumOver.apply(se, group), _SumOver.apply(picked, group)
+        lse = m + torch.log(se)
+        msk = msk.float()
+        return ((picked - lse) * msk).sum(), (lse ** 2 * msk).sum(), msk.sum()
+
+    tok = P(ba, None)
+    return local_call(sums, (logits, labels, mask), (P(ba, None, vocab), tok, tok),
+                      (P(), P(), P()), ((), (), ()), out_partial=entry_axes(ba))
 
 
 def make_loss_fn(mdl, z_coef: float = 1e-4):
@@ -113,6 +169,14 @@ def init_state(mdl, generator=None, device="cuda") -> TrainState:
     else ``device``), made trainable, and zero moments."""
     model = trainable(mdl.init(generator, device))
     return TrainState(model, opt_lib.init(dict(model.named_parameters())))
+
+
+def state_pspecs(pspecs: dict) -> TrainState:
+    """The train state's specs: the moments mirror the parameters (by
+    name), the step is replicated."""
+    from repro_torch.distributed.sharding import P
+
+    return TrainState(pspecs, opt_lib.OptState(pspecs, pspecs, P()))
 
 
 def state_tree(state: TrainState) -> TrainState:

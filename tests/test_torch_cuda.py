@@ -1356,3 +1356,34 @@ def test_dropping_the_server_frees_its_device_memory(cuda_device):
     del srv, res
     gc.collect()
     assert torch.cuda.memory_allocated() == before
+
+
+def test_mesh_dry_run_attention_cases_launch_at_their_local_shapes(cuda_device):
+    """gemma2-2b (2 layers at full width) traced on fake ``cuda`` tensors on
+    the 16 x 16 production mesh: rank 0's attention op sees batch-sharded,
+    head-replicated q/k/v (8 query heads do not divide 16), and both
+    kernels launched at those local shapes match their plain versions: the
+    forward on every batch row within phase 3b's limit, the backward on the
+    first and last within ``attention_bwd_limit``."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    shape = ShapeConfig("t512", 512, 32, "train")
+    t = dryrun.trace_cell("gemma2-2b", shape, device=cuda_device,
+                          overrides={"n_layers": 2}, mesh="pod16x16")
+    cases = t["attention_local"]
+    assert t["chips"] == 256 and sum(t["coll"].values()) > 0
+    assert {c["window"] for c in cases} == {None, 4096}
+    for i, c in enumerate(cases):
+        (B, Hq, Sq, D), (_, Hkv, Skv, _) = c["q"], c["k"]
+        assert (B, Hq, Hkv, D) == (2, 8, 4, 256) and c["dtype"] == "bfloat16"
+        kw = dict(causal=c["causal"], window=c["window"], softcap=c["softcap"])
+        q, k, v, do = _bwd_inputs(cuda_device, B, Hq, Hkv, Sq, Skv, D, torch.bfloat16, i)
+        o, lse = flash_ops.attention(q, k, v, return_lse=True, **kw)
+        got = flash_ops.attention_bwd(q, k, v, o, do, lse, **kw)
+        want = flash_ref.attention_ref(q, k, v, **kw)
+        atol, rel = FLASH_TOL[torch.bfloat16]
+        assert ((o.float() - want.float()).abs() <= atol + rel * want.float().abs()).all()
+        ends = torch.tensor([0, B - 1], device=q.device)
+        _assert_bwd_within_limit([g.index_select(0, ends) for g in got],
+                                 *(t.index_select(0, ends) for t in (q, k, v, o, do)), kw)

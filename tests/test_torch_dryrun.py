@@ -11,7 +11,7 @@ card (tests/test_torch_cuda.py, chip_smoke.py phase 11).
   reference's ``eval_shape`` shape and dtype under ``models/convert``'s
   name, and the reference's logical spec (its stacked-layer leading Nones
   dropped, a linear weight's two entries swapped as the weight is).
-* ``run_cell`` at full size (gemma2-2b x train_4k) finishes on fake
+* ``run_cell`` at full size (gemma2-2b x train_4k) on one card finishes on fake
   tensors with a recorded peak far above this machine's memory, so nothing
   was allocated, and its counted FLOPs lie in the cost model's band; at a
   reduced config the fake trace counts what a real step on real tensors
@@ -100,15 +100,23 @@ def test_run_cell_traces_full_size_without_allocating(tmp_path):
 
 
 def test_run_cell_skips_by_rule_and_refuses_meshes(tmp_path, capsys):
+    """A full-attention arch skips long_500k by rule, on one card and on a
+    production mesh; a mesh the dry run does not know is refused, by
+    ``run_cell`` and ``trace_cell`` alike (the production meshes trace:
+    tests/test_torch_dryrun_mesh.py)."""
     rec = dryrun.run_cell("gemma2-2b", "long_500k", False, str(tmp_path), device="cpu")
-    assert rec["status"] == "skipped-by-rule"
-    with pytest.raises(NotImplementedError, match="17.5"):
-        dryrun.run_cell("gemma2-2b", "train_4k", True, str(tmp_path), device="cpu")
-    for flag in ("--multi-pod", "--both-meshes"):
-        with pytest.raises(SystemExit) as e:
-            dryrun.main([flag, "--out", str(tmp_path)])
-        assert e.value.code == 2
-        assert "17.5" in capsys.readouterr().err
+    assert rec["status"] == "skipped-by-rule" and rec["mesh"] == "h100x1"
+    rec = dryrun.run_cell("gemma2-2b", "long_500k", True, str(tmp_path), device="cpu")
+    assert rec["status"] == "skipped-by-rule" and rec["mesh"] == "pod2x16x16"
+    for call in (dryrun.run_cell, dryrun.trace_cell):
+        with pytest.raises(ValueError, match="unknown mesh"):
+            call("gemma2-2b", "train_4k", **({"multi_pod": False, "out_dir": str(tmp_path)}
+                                              if call is dryrun.run_cell else {}),
+                 device="cpu", mesh="pod4x4")
+    with pytest.raises(SystemExit) as e:
+        dryrun.main(["--mesh", "pod4x4", "--out", str(tmp_path)])
+    assert e.value.code == 2
+    assert "unrecognized arguments" in capsys.readouterr().err
 
 
 def test_main_traces_cells_in_worker_processes(tmp_path, capsys):
