@@ -5,7 +5,7 @@ Run from the root of a checkout, with one visible CUDA device:
 
     python3 card_probe.py [idle] [share] [price] [scratch] [flex] [psplit] [tf32] [count]
                           [logits] [bwd] [lse] [widths] [step] [steptrace] [moe]
-                          [binding]
+                          [binding] [gloo]
 
 (all when none is named; ``lse``, ``widths`` and ``step`` only with
 ``CARD_PROBE_BASE`` set).
@@ -108,6 +108,13 @@ Each prints one JSON line:
          ``ctypes`` launch called directly), at tspm-mlho's forward shape and
          gemma2-2b's backward shape, in turns, with the outputs compared
          byte for byte and the host's time a call;
+  gloo   which collectives ``gloo`` takes for CUDA tensors when 4 ranks
+         share ``cuda:0`` (chip_smoke.py phase 13's world): one world an
+         op (the process-group calls, the functional ones DTensor issues,
+         a ``DeviceMesh`` of type ``cuda`` and DTensor redistributions),
+         each op's result on rank 0, or how its world died (a signal, a
+         hang past ``GLOO_PROBE_LIMIT_S``); the functional all-gather and
+         the redistributions again with ``launch/mesh.gloo_cuda_all_gather``;
   moe    where deepseek-moe-16b's serving time goes at full size: a warm
          prefill wave (4 x 512 tokens) and a warm decode step (batch 4),
          each traced like ``steptrace`` (device ms by family: attention,
@@ -1025,6 +1032,128 @@ def probe_logits(torch) -> dict:
     return out
 
 
+GLOO_PROBE_WORLD, GLOO_PROBE_LIMIT_S = 4, 60
+GLOO_OPS = ("all_reduce_f32", "all_reduce_i32", "all_reduce_i64_max", "all_reduce_0d",
+            "broadcast", "barrier", "all_gather", "all_gather_into_tensor",
+            "reduce_scatter_tensor", "all_to_all_single", "funcol_all_reduce",
+            "funcol_all_gather", "funcol_reduce_scatter", "device_mesh_cuda",
+            "dtensor_redistribute")
+GLOO_FIXED = ("funcol_all_gather", "dtensor_redistribute")
+
+
+def gloo_op(torch, name: str, rank: int, world: int):
+    """One collective on ``cuda:0`` tensors; -> what rank 0 reads back."""
+    import torch.distributed as dist
+    from torch.distributed import _functional_collectives as funcol
+
+    dev = torch.device("cuda", 0)
+    t = torch.arange(8, dtype=torch.float32, device=dev) + rank
+    group = dist.group.WORLD
+    if name.startswith("all_reduce"):
+        x = {"all_reduce_f32": t, "all_reduce_i32": t.to(torch.int32),
+             "all_reduce_i64_max": t.to(torch.int64), "all_reduce_0d": t.sum()}[name]
+        dist.all_reduce(x, op=dist.ReduceOp.MAX if name.endswith("max") else dist.ReduceOp.SUM)
+        return x.tolist()
+    if name == "broadcast":
+        dist.broadcast(t, 0)
+        return t.tolist()
+    if name == "barrier":
+        dist.barrier()
+        return "ok"
+    if name == "all_gather":
+        out = [torch.empty_like(t) for _ in range(world)]
+        dist.all_gather(out, t)
+        return [o[0].item() for o in out]
+    if name == "all_gather_into_tensor":
+        out = torch.empty(world * 8, device=dev)
+        dist.all_gather_into_tensor(out, t)
+        return out[::8].tolist()
+    if name == "reduce_scatter_tensor":
+        out = torch.empty(2, device=dev)
+        dist.reduce_scatter_tensor(out, torch.arange(world * 2, dtype=torch.float32, device=dev))
+        return out.tolist()
+    if name == "all_to_all_single":
+        x = torch.arange(world * 2, dtype=torch.float32, device=dev) + 100 * rank
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x)
+        return out.tolist()
+    if name == "funcol_all_reduce":
+        return funcol.all_reduce(t, "sum", group).tolist()
+    if name == "funcol_all_gather":
+        return funcol.all_gather_tensor(t, 0, group)[::8].tolist()
+    if name == "funcol_reduce_scatter":
+        return funcol.reduce_scatter_tensor(t, "sum", 0, group).tolist()
+    from torch.distributed.device_mesh import init_device_mesh
+
+    mesh = init_device_mesh("cuda", (2, world // 2), mesh_dim_names=("data", "model"))
+    if name == "device_mesh_cuda":
+        return str(mesh)
+    from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                          distribute_tensor)
+
+    x = torch.arange(16, dtype=torch.float32, device=dev).reshape(4, 4)
+    d = distribute_tensor(x, mesh, [Shard(0), Shard(1)], src_data_rank=None)
+    p = DTensor.from_local(torch.ones(4, 4, device=dev), mesh, [Partial(), Replicate()])
+    rep = [Replicate(), Replicate()]
+    return {"full_tensor": d.full_tensor().sum().item(),
+            "shard_to_replicate": d.redistribute(mesh, rep).to_local().sum().item(),
+            "partial_to_replicate": p.redistribute(mesh, rep).to_local().sum().item(),
+            "partial_to_shard": p.redistribute(mesh, [Shard(0), Replicate()]).to_local()
+            .sum().item()}
+
+
+def gloo_rank(rank: int, world: int, tmp: str, name: str, fixed: bool) -> None:
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(smoke.SRC))
+    from repro_torch.launch.mesh import gloo_cuda_all_gather
+
+    torch.cuda.set_device(0)
+    registered = gloo_cuda_all_gather() if fixed else None  # noqa: F841
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous", rank=rank,
+                            world_size=world)
+    try:
+        try:
+            out = {"ok": gloo_op(torch, name, rank, world)}
+            torch.cuda.synchronize()
+        except (RuntimeError, ValueError, NotImplementedError) as e:
+            out = {"raised": f"{type(e).__name__}: {e}"[:300]}
+        if rank == 0:
+            with open(f"{tmp}/out.json", "w") as f:
+                json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def probe_gloo(torch) -> dict:
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+
+    out = {}
+    for name, fixed in [(n, False) for n in GLOO_OPS] + [(n, True) for n in GLOO_FIXED]:
+        key = f"{name} (gloo_cuda_all_gather)" if fixed else name
+        with tempfile.TemporaryDirectory(prefix="gloo_probe_") as tmp:
+            ctx = mp.start_processes(gloo_rank, args=(GLOO_PROBE_WORLD, tmp, name, fixed),
+                                     nprocs=GLOO_PROBE_WORLD, join=False,
+                                     start_method="spawn")
+            t0 = time.perf_counter()
+            try:
+                while not ctx.join(timeout=2):
+                    if time.perf_counter() - t0 > GLOO_PROBE_LIMIT_S:
+                        for p in ctx.processes:
+                            p.kill()
+                        out[key] = {"hung": GLOO_PROBE_LIMIT_S}
+                        break
+                else:
+                    with open(f"{tmp}/out.json") as f:
+                        out[key] = json.load(f)
+            except ProcessException as e:      # a signal, or an exception it raised
+                out[key] = {"died": str(e)[:500]}
+        print(f"gloo probe {key}: {json.dumps(out[key])}", flush=True)
+    return out
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -1041,7 +1170,8 @@ def main(argv: list[str]) -> int:
               "scratch": probe_scratch, "flex": probe_flex, "psplit": probe_psplit,
               "tf32": probe_tf32, "count": probe_count, "logits": probe_logits,
               "bwd": probe_bwd, "lse": probe_lse, "widths": probe_widths, "step": probe_step,
-              "steptrace": probe_steptrace, "moe": probe_moe, "binding": probe_binding}
+              "steptrace": probe_steptrace, "moe": probe_moe, "binding": probe_binding,
+              "gloo": probe_gloo}
     if not argv and "CARD_PROBE_BASE" not in os.environ:
         for name in ("lse", "widths", "step"):
             probes.pop(name)

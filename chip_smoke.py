@@ -79,7 +79,7 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with
      host sort: rows come in patient order) and each fit's peak device
      memory within its ``budget_bytes``; in between (phase 4c) the hash
      session serves its Table 1 frame through ``session.serve()``: the
-     reference's serving mix cut to 4 distinct plans (2,048 zipf-drawn
+     reference's serving mix cut to 2 distinct plans (2,048 zipf-drawn
      queries from 32 client threads), each distinct plan's keep mask equal to the
      frame chain's, the predicate op timed alone, and every byte of device
      memory the server took given back when it goes;
@@ -123,12 +123,13 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with
      after (``tspm_delta`` launches = ticks); the sketch table must equal
      the batch engine's and the rows the batch rows as multisets (sorted on
      the card), the evicting replay the plain replay's rows of its patients
-     row for row; then (e) the 3-wave replay through 4 shards
-     (``placement='host'``, hash router, rebalancing every 32 ticks, the 64
-     heaviest patients migrated after wave 2): ``tspm_delta`` launches =
-     shard ticks, merged table = the batch table, rows = the batch rows as
-     multisets; (f) the same under ``placement='devices'`` (every shard on
-     the card, two-pass ticks, async admits), checkpointed after wave 2,
+     row for row; then (e) the 3-wave replay of those 1,248 patients
+     through 4 shards (``placement='host'``, hash router, rebalancing every
+     32 ticks, the 64 heaviest patients migrated after wave 2):
+     ``tspm_delta`` launches = shard ticks, merged table = their batch
+     table, rows = their batch rows as multisets; (f) the same under
+     ``placement='devices'`` (every shard on the card, two-pass ticks,
+     async admits), checkpointed after wave 2,
      restored in this process and finished there: byte-identical to (e),
      journaled across the restore, and its journal verifies; (g) (c) again
      with a tick journal: byte-identical to (c), the journal verifies
@@ -136,10 +137,10 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with
      the live ``state_digest``, stops at ``upto_tick``, and convicts a
      flipped segment byte and a re-chained forged delta; then the
      streaming launcher (``python -m repro_torch.launch.stream
-     --shards 4 --router hash --rebalance-every 4``) runs through, stops
-     after wave 3 with a checkpoint, and resumes to the uninterrupted
-     run's ``state_digest``, and runs with ``--journal-dir`` and then
-     ``--replay-journal`` to the same digest; ``launch.serve --workload
+     --shards 4 --router hash --rebalance-every 4``) runs through with
+     ``--journal-dir``, stops after wave 3 with a checkpoint and resumes
+     to that run's ``state_digest``, and ``--replay-journal`` gives the
+     same digest; ``launch.serve --workload
      queries`` and ``examples/quickstart_torch.py`` run in their own
      processes; and times ``tspm_delta`` at the fit's largest
      slab and ``seq_hist`` at the stream's largest tick (beside its plain
@@ -285,7 +286,30 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with
      launch at the local q/k/v shapes rank 0's attention op saw in
      gemma2-2b's trace, held against their plain versions (phase 3b's
      limits): the forward on every batch row, the backward on the first
-     and the last.
+     and the last;
+ 13. a real process group (last): 4 processes spawned on ``cuda:0``,
+     joined over ``gloo`` with a ``file://`` rendezvous, each mesh a
+     ``DeviceMesh`` of type ``cuda``, the world under its own time limit
+     (``MESH_WORLD_LIMIT_S``): (a) tspm-mlho at full size (12 layers,
+     float32) on phase 10's batch (8 x 256) on a 2 x 2 ``('data',
+     'model')`` mesh (``pipeline.shard_batch``, ``param_shardings``):
+     the loss within ``TRAIN_RTOL`` and every gathered gradient within
+     ``TRAIN_GRAD_SHARE`` of the one-process step on the card, each
+     rank's attention launches by route (forward and backward, not zero),
+     the step's seconds and, in a profiled repeat, the host seconds in
+     collective ops; (b) ``tree_compressed_psum_mean`` of the step's local
+     gradients over 'data': each mean within half its quantization step of
+     the exact all-reduced mean, each error ``g - q * scale`` exactly; (c)
+     the full train state (parameters and seeded moments) resharded onto
+     the 2 x 2 mesh, saved (``checkpoint.save``: gathered, rank 0 writes),
+     restored and resharded onto the 1 x 2 mesh of ranks 0-1: byte-equal,
+     ranks 2-3 holding no shard; (d) the Table 1 cohort sliced by
+     ``pipeline.balance_buckets``, each rank's patients mined on the card
+     and screened by ``screen_hash(..., axis_names=('data',))``: the
+     all-reduced 2^20 table byte-equal to the one-process table and the
+     kept rows summing to the one-process count; (e) the reference's
+     convergence drill (300 steps, final MSE under 1e-3); each rank's
+     peak device memory.
 
 Every failed check raises, so the script exits non-zero.  The last three
 lines of its output are the ``nvidia-smi`` line, the ``kernels`` JSON line
@@ -325,6 +349,8 @@ STREAM_BUDGET_BYTES = 1 << 30  # budget_bytes of phase 8's evicting replay
 # (padded to 304 events, 2.4 MB each), so the replay still spills and
 # restores through the host tier
 STREAM_BUDGET_PATIENTS = 1248
+# (e) and (f) replay the same first quarter through 4 shards (28.8 and 53.5
+# + 40.6 s of journal verify at the whole cohort; cut for phase 13's room)
 FUSED_PASS_LIMIT = 10**9       # the corpus-free counting pass's peak (1 GB)
 # phase 5's cohort, with both budgets above sized to it so that every
 # tier is still used: at 256 patients the phase's CPU side took 110-224 s
@@ -1107,8 +1133,9 @@ SERVE_DISTINCT = 24     # distinct plans of the serving mix (phase 5)
 # phase 4c draws from a sixth as many: each distinct plan's frame-chain
 # oracle takes ~2.8 s at Table 1 on the host (H100 80GB HBM3 machine, 8
 # cores); 24 of them pushed the smoke past 900 s, and 12 left too little
-# room for phase 10 (d)-(e) under the 1,200 s limit on a slow host
-STATIC_SERVE_DISTINCT = 4
+# room for phase 10 (d)-(e) under the 1,200 s limit on a slow host; 4 (11.97 s
+# of oracle) left too little for phase 13
+STATIC_SERVE_DISTINCT = 2
 SERVE_QUERIES = 2048    # queries drawn from them with zipf weights (phase 4c)
 SERVE_CLIENTS = 32      # client threads of phase 4c
 SERVE_SEED = 7
@@ -1705,7 +1732,9 @@ def check_stream(torch, db, device) -> tuple[dict, dict]:
     fit, (b) a ``STREAM_WAVES``-wave replay, (c) the same replay of the first
     ``STREAM_BUDGET_PATIENTS`` patients under a 1 GiB budget
     (eviction and restores through the host tier), (d) the fused screen
-    on the stream engine; every check on the card, no host sort."""
+    on the stream engine, (e) and (f) the replay of those first patients
+    through 4 shards (``check_sharded``); every check on the card, no host
+    sort."""
     batch = fit_engine(torch, db, device, engine="batch", screen="hash",
                        threshold=THRESHOLD)
     b_rows, b_table = engine_rows(batch["frame"]), batch["frame"]._corpus.counts()
@@ -1746,7 +1775,9 @@ def check_stream(torch, db, device) -> tuple[dict, dict]:
                 f"evicting replay differs from the replay in {name}")
     sub_batch = fit_engine(torch, sub, device, engine="batch", screen="hash",
                            threshold=THRESHOLD)
-    require(np.array_equal(fc._corpus.counts(), sub_batch["frame"]._corpus.counts()),
+    sub_table = sub_batch["frame"]._corpus.counts()
+    sub_rows = engine_rows(sub_batch["frame"])
+    require(np.array_equal(fc._corpus.counts(), sub_table),
             "evicting replay's table != the batch table of its patients")
     require(out["c_budget"]["evictions"] > 0 and out["c_budget"]["host_restores"] > 0,
             "the 1 GiB budget spilled or restored nothing")
@@ -1761,11 +1792,11 @@ def check_stream(torch, db, device) -> tuple[dict, dict]:
     require(np.array_equal(fd._corpus.counts(), b_table), "stream fused table")
     out["d_fused"]["kept_rows"] = int(keep.sum())
     print(f"phase 8 (d, fused): {json.dumps(out['d_fused'])}", flush=True)
-    del fd, kept, b_rows
+    del fd, kept, b_rows, want
     torch.cuda.empty_cache()
-    out["e_sharded"], out["f_devices_checkpoint"] = check_sharded(torch, db, device,
-                                                                  want, b_table)
-    del want
+    out["e_sharded"], out["f_devices_checkpoint"] = check_sharded(
+        torch, sub, device, card_sorted(torch, sub_rows, device), sub_table)
+    del sub_rows
     torch.cuda.empty_cache()
     return out, launches
 
@@ -1969,10 +2000,11 @@ def sharded_readings(torch, session, wall: float, launches: dict, ticks: int) ->
 
 
 def check_sharded(torch, db, device, want, b_table) -> tuple[dict, dict]:
-    """Phase 8 (e): the ``STREAM_WAVES``-wave Table 1 replay through 4
-    shards ('host' placement, hash router, rebalancing every 32 ticks), the
-    64 heaviest patients migrated after wave 2; its merged table must equal
-    the batch table and its rows the batch rows as multisets.  (f): the
+    """Phase 8 (e): the ``STREAM_WAVES``-wave replay of ``db`` (the first
+    ``STREAM_BUDGET_PATIENTS`` Table 1 patients) through 4 shards ('host'
+    placement, hash router, rebalancing every 32 ticks), the 64 heaviest
+    patients migrated after wave 2; its merged table must equal the batch
+    table of ``db`` and its rows the batch rows as multisets.  (f): the
     same replay under 'devices' placement (every shard on the card,
     two-pass ticks, async admits), checkpointed after wave
     ``STREAM_CHECKPOINT_WAVE``, restored in this process into a new
@@ -2094,21 +2126,21 @@ LAUNCHER_ARGS = ["--shards", "4", "--router", "hash", "--rebalance-every", "4"]
 
 
 def check_launcher(tmp_root: str) -> dict:
-    """The streaming launcher on the card at its default cohort, five
-    times: through all waves, then checkpointing and stopping after wave 3,
-    then resuming; the resumed run's ``state_digest=`` must equal the
-    uninterrupted run's.  Then through all waves with ``--journal-dir``
-    (the run verifies its journal), and ``--replay-journal`` on that
-    journal in a new process: both digests must equal the uninterrupted
-    run's."""
+    """The streaming launcher on the card at its default cohort, four
+    times: through all waves with ``--journal-dir`` (the uninterrupted run;
+    it verifies its journal), then checkpointing and stopping after wave 3,
+    then resuming, and ``--replay-journal`` on the first run's journal in
+    a new process: the resumed and the replayed run's ``state_digest=``
+    must equal the uninterrupted run's (a run without a journal, once
+    more, no longer runs: the resumed run has none)."""
     import re
 
     env = {**os.environ, "PYTHONPATH": str(SRC)}
     ckpt_dir = os.path.join(tmp_root, "launcher_ckpt")
     journal_dir = os.path.join(tmp_root, "launcher_journal")
-    runs = {"whole": [], "stopped": ["--checkpoint-dir", ckpt_dir, "--stop-after-wave", "3"],
+    runs = {"journaled": ["--journal-dir", journal_dir],
+            "stopped": ["--checkpoint-dir", ckpt_dir, "--stop-after-wave", "3"],
             "resumed": ["--checkpoint-dir", ckpt_dir, "--resume"],
-            "journaled": ["--journal-dir", journal_dir],
             "replayed": ["--replay-journal", journal_dir]}
     out = {}
     for name, extra in runs.items():
@@ -2123,12 +2155,13 @@ def check_launcher(tmp_root: str) -> dict:
         out[name] = {"s": time.perf_counter() - t0, "digest": digest[0],
                      "ingested": [ln for ln in proc.stdout.splitlines()
                                   if ln.startswith(("ingested", "journal ", "replayed "))]}
-    require(out["resumed"]["digest"] == out["whole"]["digest"],
+    whole = out["journaled"]["digest"]
+    require(out["resumed"]["digest"] == whole,
             "launcher: the resumed run's digest != the uninterrupted run's")
-    require(out["stopped"]["digest"] != out["whole"]["digest"],
+    require(out["stopped"]["digest"] != whole,
             "launcher: stopping after wave 3 changed nothing")
-    require(out["journaled"]["digest"] == out["replayed"]["digest"] == out["whole"]["digest"],
-            "launcher: the journaled run, its replay and the uninterrupted run differ")
+    require(out["replayed"]["digest"] == whole,
+            "launcher: the journal's replay and the uninterrupted run differ")
     print(f"phase 8 (launcher {' '.join(LAUNCHER_ARGS)}): {json.dumps(out)}", flush=True)
     return out
 
@@ -4701,6 +4734,325 @@ def check_production_meshes(torch, dev) -> dict:
     return out
 
 
+# ---- phase 13: a real process group of four ranks on the card -------------------
+
+MESH_WORLD = 4                 # ranks, every one on cuda:0, joined over gloo
+MESH_WORLD_LIMIT_S = 400       # the world's own time limit: a rank that hangs fails the phase
+MESH_CONVERGE_STEPS = 300      # (e): the reference's drill
+MESH_GRAD_STEPS = 3            # (a): the checked step, a timed one and a profiled one
+COLLECTIVE_OPS = ("c10d", "gloo", "wait_tensor", "all_reduce", "all_gather", "reduce_scatter",
+                  "allreduce", "allgather", "broadcast", "barrier")
+
+
+def bytes_equal(torch, a, b) -> bool:
+    """Whether two tensors hold the same dtype, shape and bytes."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    return torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def collective_seconds(prof) -> float:
+    """Host seconds inside collective ops (their self CPU time, the wait
+    included) of a ``torch.profiler`` run."""
+    return sum(e.self_cpu_time_total for e in prof.key_averages()
+               if any(k in e.key.lower() for k in COLLECTIVE_OPS)) / 1e6
+
+
+def mesh_state_tree(torch, model, seed: int) -> dict:
+    """A full train state as a plain host tree (``train_loop.state_tree``'s
+    layout): ``model``'s parameters and moments drawn from ``seed``, so
+    that no leaf is all zeros, step 1."""
+    from repro_torch.training import optimizer as opt_lib, train_loop
+
+    gen = torch.Generator("cpu").manual_seed(seed)
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    mu = {n: torch.randn(p.shape, generator=gen) * 1e-3 for n, p in params.items()}
+    nu = {n: torch.rand(p.shape, generator=gen) * 1e-6 for n, p in params.items()}
+    step = torch.tensor(1, dtype=torch.int32)
+    return train_loop.TrainState(params, opt_lib.OptState(mu, nu, step))
+
+
+def mesh_world_rank(rank: int, world: int, tmp: str, layers) -> None:
+    """Phase 13, one rank of a ``world``-rank ``gloo`` group whose ranks all
+    use ``cuda:0``; each mesh is a ``DeviceMesh`` of type ``cuda``.  Rank 0
+    holds the comparisons (a failed one raises, and the parent raises with
+    its traceback); every rank writes its readings to ``tmp``."""
+    sys.path.insert(0, str(SRC))
+    import copy
+    import faulthandler
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import DTensor
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import mining, sparsity
+    from repro_torch.data import pipeline
+    from repro_torch.distributed import compression, sharding
+    from repro_torch.distributed.sharding import NamedSharding, P
+    from repro_torch.launch.mesh import gloo_cuda_all_gather, make_test_mesh
+    from repro_torch.models import layers as layers_lib, model as model_lib
+    from repro_torch.training import checkpoint, elastic, train_loop
+
+    faulthandler.enable()          # a rank that crashes prints where
+    all_gather = gloo_cuda_all_gather()   # noqa: F841 (registered while it lives)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous", rank=rank,
+                            world_size=world)
+    out = {"rank": rank}
+    t_rank = time.perf_counter()
+    try:
+        # (a) tspm-mlho, one train step's loss and gradients on a 2 x 2 mesh
+        batches, vocab = train_batches(1)
+        cfg = get_config("tspm-mlho")
+        cfg = cfg.replace(vocab_size=max(cfg.vocab_size, vocab),
+                          **({"n_layers": layers} if layers else {}))
+        mdl = model_lib.build(cfg)
+        base = mdl.init(torch.Generator("cpu").manual_seed(SEED), "cpu")
+        loss_fn = train_loop.make_loss_fn(mdl)
+
+        def loss_and_grads(model, batch):
+            names, ps = zip(*model.named_parameters())
+            loss, _ = loss_fn(model, batch)
+            return loss, dict(zip(names, torch.autograd.grad(loss, ps)))
+
+        if rank == 0:
+            one = train_loop.trainable(copy.deepcopy(base).to(dev))
+            ref_loss, ref_grads = loss_and_grads(
+                one, {k: torch.as_tensor(v, device=dev) for k, v in batches[0].items()})
+            ref_loss = float(ref_loss)
+            del one
+        named = dict(base.named_parameters())
+        specs = layers_lib.param_specs(base)
+        specs = {n: specs[n] for n in named}
+        mesh = make_test_mesh((2, 2), ("data", "model"), device="cuda")
+        module = train_loop.trainable(copy.deepcopy(base).to(dev))
+        sharding.distribute_module(module, sharding.param_shardings(mesh, specs, named))
+        batch = pipeline.shard_batch(batches[0], mesh)
+        steps = []
+        for i in range(MESH_GRAD_STEPS):
+            profiled = i == MESH_GRAD_STEPS - 1
+            if i == 0:
+                zero_launches()
+            prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) \
+                if profiled else None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if prof:
+                prof.__enter__()
+            with sharding.axis_rules(mesh):
+                loss, grads = loss_and_grads(module, batch)
+            torch.cuda.synchronize()
+            if prof:
+                prof.__exit__(None, None, None)
+            steps.append({"s": time.perf_counter() - t0,
+                          **({"collective_s": collective_seconds(prof)} if prof else {})})
+            if i == 0:
+                launches = read_launches()
+                first = (loss, grads)
+        loss, grads = first
+        out["a"] = {"layers": cfg.n_layers, "d_model": cfg.d_model, "mesh": [2, 2],
+                    "batch": list(batches[0]["tokens"].shape), "steps": steps,
+                    "launches": {k: v for k, v in launches.items()
+                                 if k.startswith("flash_attention") and v}}
+        require(launches["flash_attention"] > 0 and launches["flash_attention_bwd"] > 0,
+                f"phase 13 (a) rank {rank}: attention launches {launches}")
+        full_loss = float(loss.detach().full_tensor() if isinstance(loss, DTensor) else loss)
+        share = {}
+        for n, g in grads.items():
+            full = g.full_tensor()
+            if rank == 0:
+                share[n] = ((full - ref_grads[n]).abs().max() / ref_grads[n].abs().max()).item()
+        if rank == 0:
+            rel = abs(full_loss - ref_loss) / abs(ref_loss)
+            worst = max(share, key=share.get)
+            out["a"].update(loss=full_loss, loss_one_process=ref_loss, loss_rel=rel,
+                            grad_share_max=share[worst], grad_share_worst=worst)
+            require(rel <= TRAIN_RTOL, f"phase 13 (a): loss {full_loss} vs {ref_loss}")
+            require(share[worst] <= TRAIN_GRAD_SHARE,
+                    f"phase 13 (a): the gradient of {worst} differs by {share[worst]}")
+            del ref_grads
+
+        # (b) the int8 compressed mean of the local gradients over 'data'
+        local = {n: g.to_local() for n, g in grads.items()}
+        group = mesh.get_group("data")
+        n_data = dist.get_world_size(group)
+        t0 = time.perf_counter()
+        with sharding.axis_rules(mesh):
+            mean, err = compression.tree_compressed_psum_mean(local, "data")
+        torch.cuda.synchronize()
+        b_s = time.perf_counter() - t0
+        worst_ratio = 0.0
+        for n, g in local.items():
+            exact = funcol.all_reduce(g, "sum", group) / n_data
+            gmax = funcol.all_reduce(g.abs().amax(), "max", group)
+            scale = torch.clamp(gmax, min=1e-12) / 127.0
+            q = compression.quantize(g, scale)
+            require(bytes_equal(torch, err[n], g - q.to(torch.float32) * scale),
+                    f"phase 13 (b) rank {rank}: the error of {n} is not g - q * scale")
+            ratio = ((mean[n] - exact).abs().max() / (scale / 2)).item()
+            worst_ratio = max(worst_ratio, ratio)
+            # half a step, and the float32 rounding of the two sums
+            require(ratio <= 1 + 2 ** -10, f"phase 13 (b) rank {rank}: {n}'s mean is "
+                    f"{ratio} half-steps from the exact mean")
+        out["b"] = {"leaves": len(local), "s": b_s, "worst_half_steps": worst_ratio}
+        del grads, local, mean, err, module, first, loss, batch
+
+        # (c) the elastic drill: the full state from the 2 x 2 mesh through a
+        # checkpoint onto the 1 x 2 mesh of ranks 0-1
+        tree = mesh_state_tree(torch, base, SEED + 1)
+        sp = train_loop.state_pspecs(specs)
+        t0 = time.perf_counter()
+        placed = elastic.reshard(tree, mesh, sp)
+        path = checkpoint.save(f"{tmp}/ckpt", 1, placed)
+        del placed
+        restored, _ = checkpoint.restore(path, tree)
+        small = make_test_mesh((1, 2), ("data", "model"), device="cuda", ranks=[0, 1])
+        resharded = elastic.reshard(restored, small, sp)
+        leaves = tree_leaves(resharded)
+        if rank < 2:
+            same = [bytes_equal(torch, x.full_tensor().cpu(), t)
+                    for x, t in zip(leaves, tree_leaves(tree))]
+            require(all(same), f"phase 13 (c) rank {rank}: {same.count(False)} leaves differ")
+        else:
+            require(all(x.to_local().numel() == 0 for x in leaves),
+                    f"phase 13 (c) rank {rank}: holds a shard of the 1 x 2 mesh")
+        torch.cuda.synchronize()
+        out["c"] = {"leaves": len(leaves), "s": time.perf_counter() - t0,
+                    "state_bytes": sum(t.numel() * t.element_size()
+                                       for t in tree_leaves(tree)),
+                    "new_mesh_ranks": small.mesh.flatten().tolist()}
+        del tree, restored, resharded, leaves, base
+
+        # (d) the Table 1 cohort's hash screen, patient-sharded
+        z = np.load(f"{tmp}/cohort.npz")
+        idx = np.sort(np.asarray(pipeline.balance_buckets(z["nevents"], world)[rank]))
+        e = max(int(z["nevents"][idx].max(initial=0)), 1)
+        data_mesh = make_test_mesh((world,), ("data",), device="cuda")
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mined = mining.mine(*(torch.as_tensor(z[k][idx, :e], device=dev)
+                              for k in ("phenx", "date")),
+                            torch.as_tensor(z["nevents"][idx], device=dev))
+        with sharding.axis_rules(data_mesh):
+            keep = sparsity.screen_hash(mined.seq, mined.mask, THRESHOLD, H_DEFAULT,
+                                        axis_names=("data",))
+            kept = int(funcol.all_reduce(keep.sum(), "sum", data_mesh.get_group("data")))
+        torch.cuda.synchronize()
+        d_s = time.perf_counter() - t0
+        d_launches = read_launches()
+        table = funcol.all_reduce(
+            sparsity.local_bucket_counts(mined.seq, mined.mask, H_DEFAULT), "sum",
+            data_mesh.get_group("data")).cpu().numpy()
+        out["d"] = {"patients": len(idx), "max_events": e, "s": d_s, "kept_rows": kept,
+                    "launches": {k: d_launches[k] for k in ("tspm_pairgen", "seq_hist")}}
+        if rank == 0:
+            want = np.load(f"{tmp}/table.npy")
+            require(table.dtype == want.dtype and table.tobytes() == want.tobytes(),
+                    "phase 13 (d): the all-reduced table differs from the one-process table")
+            require(kept == int(z["kept"]),
+                    f"phase 13 (d): {kept} rows kept, one process keeps {int(z['kept'])}")
+        del mined, keep
+
+        # (e) the reference's convergence drill
+        pod = make_test_mesh((world,), ("pod",), device="cuda")
+        rng = np.random.default_rng(0)
+        X = torch.from_numpy(rng.standard_normal((64, 16)).astype(np.float32)).to(dev)
+        y = X @ torch.from_numpy(rng.standard_normal(16).astype(np.float32)).to(dev)
+        row = P("pod", None)
+        Xd = sharding.distribute(X, NamedSharding(pod, row))
+        yd = sharding.distribute(y, NamedSharding(pod, P("pod")))
+        err = sharding.distribute(torch.zeros(world, 16, device=dev), NamedSharding(pod, row))
+
+        def step(w, Xs, ys, err):
+            g = 2 * Xs.T @ (Xs @ w - ys) / ys.numel()
+            g_mean, new_err = compression.compressed_psum_mean(g, "pod", err[0])
+            return g_mean, new_err[None]
+
+        w = torch.zeros(16, device=dev)
+        t0 = time.perf_counter()
+        with sharding.axis_rules(pod):
+            for _ in range(MESH_CONVERGE_STEPS):
+                g_mean, err = sharding.local_call(step, (w, Xd, yd, err),
+                                                  (None, row, P("pod"), row),
+                                                  (P(None), row), ((16,), (world, 16)))
+                w = w - 0.1 * g_mean.to_local()
+        mse = float(((X @ w - y) ** 2).mean())
+        out["e"] = {"steps": MESH_CONVERGE_STEPS, "mse": mse, "s": time.perf_counter() - t0}
+        require(mse < 1e-3, f"phase 13 (e) rank {rank}: final MSE {mse}")
+        out["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+        out["rank_s"] = time.perf_counter() - t_rank
+        with open(f"{tmp}/rank{rank}.json", "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def check_mesh_world(torch, dev, cohort_npz: str, layers=None) -> dict:
+    """Phase 13: ``MESH_WORLD`` processes spawned on ``cuda:0``, joined over
+    ``gloo`` (``mesh_world_rank``): (a) tspm-mlho's step on a 2 x 2 mesh
+    against one process, (b) the compressed mean of its local gradients,
+    (c) the elastic drill at full size, (d) the Table 1 hash screen
+    patient-sharded against the one-process table computed here first,
+    (e) the convergence drill.  The world has its own time limit."""
+    import torch.multiprocessing as tmp_mp
+
+    from repro_torch.core import mining, sparsity
+
+    t_phase = time.perf_counter()
+    gc_free(torch)
+    z = dict(np.load(cohort_npz))
+    with tempfile.TemporaryDirectory(prefix="tspm_world_") as tmp:
+        mined = mining.mine(*(torch.as_tensor(z[k], device=dev)
+                              for k in ("phenx", "date", "nevents")))
+        table = sparsity.local_bucket_counts(mined.seq, mined.mask, H_DEFAULT)
+        kept = int(sparsity.screen_hash(mined.seq, mined.mask, THRESHOLD, H_DEFAULT).sum())
+        np.save(f"{tmp}/table.npy", table.cpu().numpy())
+        np.savez(f"{tmp}/cohort.npz", **z, kept=kept)
+        del mined, table
+        gc_free(torch)
+        t0 = time.perf_counter()
+        ctx = tmp_mp.start_processes(mesh_world_rank, args=(MESH_WORLD, tmp, layers),
+                                     nprocs=MESH_WORLD, join=False, start_method="spawn")
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > MESH_WORLD_LIMIT_S:
+                for p in ctx.processes:
+                    p.kill()
+                raise RuntimeError(f"phase 13: the {MESH_WORLD}-rank world ran past "
+                                   f"{MESH_WORLD_LIMIT_S} s and was killed")
+        world_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(MESH_WORLD):
+            with open(f"{tmp}/rank{r}.json") as f:
+                ranks.append(json.load(f))
+    out = {"world": MESH_WORLD, "device": "cuda:0 for every rank", "backend": "gloo",
+           "one_process_kept_rows": kept, "world_s": world_s, "ranks": ranks,
+           "peak_device_bytes_by_rank": [r["peak_device_bytes"] for r in ranks],
+           "a_step_s": [r["a"]["steps"] for r in ranks],
+           "d_s": [r["d"]["s"] for r in ranks],
+           "launches": {k: sum(r["a"]["launches"].get(k, 0) + r["d"]["launches"].get(k, 0)
+                               for r in ranks)
+                        for k in ("tspm_pairgen", "seq_hist", "flash_attention.tf32x3",
+                                  "flash_attention_bwd.ffma")},
+           "phase_s": time.perf_counter() - t_phase}
+    for r in ranks:
+        print(f"phase 13 rank {r['rank']}: {json.dumps(r)}", flush=True)
+    print(f"phase 13 (a) step s by rank (the last step profiled, its host seconds in "
+          f"collective ops): {json.dumps(out['a_step_s'])}", flush=True)
+    print(f"phase 13 (d) s by rank: {json.dumps(out['d_s'])}; peak device bytes by rank: "
+          f"{json.dumps(out['peak_device_bytes_by_rank'])}", flush=True)
+    print(f"phase 13 ({MESH_WORLD} ranks over gloo on one card): wall {out['phase_s']:.1f} s, "
+          f"the world {world_s:.1f} s, launches {json.dumps(out['launches'])}; "
+          f"nvidia-smi: {smi()}", flush=True)
+    return out
+
+
 def flash_rows(routes: dict, lm: dict, timing: dict) -> list:
     """The ``kernels`` line's rows of ``flash_attention``'s three routes:
     tf32x3 at tspm-mlho's shape (float32) and ffma timed in turns with it
@@ -4825,6 +5177,9 @@ def main() -> int:
     print(f"cohort: {db.n_patients} patients, E={db.max_events}, "
           f"{db.total_events} events, built in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    work = tempfile.TemporaryDirectory(prefix="tspm_smoke_")
+    cohort_npz = os.path.join(work.name, "table1.npz")   # phase 13's ranks read it
+    np.savez(cohort_npz, phenx=db.phenx, date=db.date, nevents=db.nevents)
     lap("table1_cohort")
     main_path, hash_session = check_main_path(torch, db, dev)
     lap("4_main_path")
@@ -4936,6 +5291,12 @@ def main() -> int:
     lap("11_dry_run")
     dry_run["production_meshes"] = check_production_meshes(torch, dev)
     lap("12_production_meshes")
+    world = check_mesh_world(torch, dev, cohort_npz)
+    work.cleanup()
+    lap("13_mesh_world")
+    for row, key in ((kernels[0], "tspm_pairgen"), (kernels[1], "seq_hist")):
+        row["launches"] += world["launches"][key]
+        row["launches_phase13"] = world["launches"][key]
     kernels.append(kernel_row(
         "tspm_fused", "src/repro/kernels/tspm_fused/fused.py:134", fused_launches,
         err, fused_t2["ms"], fused_t2["plain_ms"], fused_t2["bound"], None,
@@ -4950,11 +5311,18 @@ def main() -> int:
                              **{k: fused_t1[k] for k in fused_keys}}
     kernels += flash_rows(flash_routes, lm, flash_t)
     kernels += flash_bwd_rows(bwd, bwd_t, train)
+    for row in kernels:
+        key = {"flash_attention_tf32x3": "flash_attention.tf32x3",
+               "flash_attention_bwd_ffma": "flash_attention_bwd.ffma"}.get(row["name"])
+        if key:
+            row["launches"] += world["launches"][key]
+            row["launches_phase13"] = world["launches"][key]
     print(json.dumps({"fit_phases": phases, "main_path": main_path,
                       "files_vs_chunked": files_vs_chunked, "card_vs_cpu": card_vs_cpu,
                       "seq_hist_paths": hist_paths, "table2": table2, "stream": stream,
                       "lm_serving": lm, "training": train, "dry_run": dry_run,
-                      "phase_s": laps, "wall_s": time.perf_counter() - t_start}),
+                      "mesh_world": world, "phase_s": laps,
+                      "wall_s": time.perf_counter() - t_start}),
           flush=True)
     print(f"phase seconds: {json.dumps(laps)}", flush=True)
     print(f"nvidia-smi: {smi()}", flush=True)

@@ -23,15 +23,19 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.distributed import _functional_collectives as funcol
 
 from repro_torch.core.encoding import SENTINEL, as_tensor
+from repro_torch.distributed.sharding import current_rules
 from repro_torch.kernels.seq_hist import ops as hist_ops
 
 # ids per patient block of local_bucket_counts' row sort (512 MB of int64)
 BLOCK_ELEMENTS = 1 << 26
 
-# multiply-shift hash constant (odd; splitmix64's golden-gamma), as the
-# signed int64 whose bits are 0x9E3779B97F4A7C15
+# multiply-shift hash constant (odd; splitmix64's golden-gamma), as an
+# unsigned Python int, and as the signed int64 with the same bits that the
+# tensor arithmetic takes (the two must stay equal mod 2^64)
+HASH_MULT = 0x9E3779B97F4A7C15
 _HASH_K = -7046029254386353131
 
 
@@ -177,10 +181,20 @@ def local_bucket_counts(seq, mask, n_buckets_log2: int,
     return counts
 
 
-def screen_hash(seq, mask, threshold, n_buckets_log2: int = 20) -> torch.Tensor:
-    """Keep-mask for [P, T] mined rows (one device; one-sided error under
-    collisions: false-keep only)."""
+def screen_hash(seq, mask, threshold, n_buckets_log2: int = 20,
+                axis_names: tuple[str, ...] | None = None) -> torch.Tensor:
+    """Keep-mask for [P, T] mined rows; one all-reduce when patient-sharded.
+
+    Inside ``sharding.local_call`` pass ``axis_names`` (e.g. ``('pod',
+    'data')``): the local bucket table (int32) is summed over the process
+    group of each of those dimensions of the rules' mesh, as the
+    reference's ``psum``, before it is applied to the local rows.
+    One-sided error under collisions (false-keep only)."""
     counts = local_bucket_counts(seq, mask, n_buckets_log2)
+    if axis_names:
+        mesh, _ = current_rules()
+        for axis in axis_names:
+            counts = funcol.all_reduce(counts, "sum", mesh.get_group(axis))
     keep = counts[hash_bucket(seq, n_buckets_log2).to(torch.int64)] >= threshold
     return keep & as_tensor(mask, torch.bool)
 

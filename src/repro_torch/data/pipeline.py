@@ -8,9 +8,9 @@ balanced router pins (``stream.shard.ShardRouter.balanced``);
 ``ChunkScheduler`` implements work-stealing over chunk queues for the
 host-side (file-based) mode.  All of it is host numpy and threads.
 
-The reference's ``shard_batch`` places an LM batch on a device mesh and
-waits for the sharded execution on real process groups (ROADMAP.md queue
-1 item 17.5b).
+``shard_batch`` places an LM batch on a ``DeviceMesh``: each array
+becomes a DTensor sharded on its leading dim over the mesh's batch axes
+(``('pod', 'data')``, those the mesh has) and replicated over the rest.
 """
 from __future__ import annotations
 
@@ -18,9 +18,11 @@ import threading
 from typing import Callable
 
 import numpy as np
+import torch
 
 from repro_torch.core import chunking
 from repro_torch.data.dbmart import DBMart
+from repro_torch.distributed.sharding import NamedSharding, P, distribute
 
 
 def balance_buckets(nevents: np.ndarray, n_shards: int) -> list[list[int]]:
@@ -53,6 +55,19 @@ def balance_patients(nevents: np.ndarray, n_shards: int) -> np.ndarray:
     return np.concatenate([
         np.asarray(b, np.int64)
         for b in balance_buckets(nevents, n_shards)])
+
+
+def shard_batch(batch: dict, mesh, batch_axes=("pod", "data")) -> dict:
+    """Host batch -> DTensors on ``mesh``, sharded over its batch axes.
+
+    Every rank passes the same global batch and keeps its own slice
+    (nothing is sent); the slices land on the mesh's device type."""
+    axes = tuple(a for a in batch_axes if a in mesh.mesh_dim_names)
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v)
+        out[k] = distribute(t, NamedSharding(mesh, P(axes, *([None] * (t.ndim - 1)))))
+    return out
 
 
 class ChunkScheduler:

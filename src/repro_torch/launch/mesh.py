@@ -16,7 +16,8 @@ module owns that group: a fake group of another size is torn down and
 replaced, a default group that is not fake makes it raise, and
 ``release()`` (or leaving ``production_mesh``) tears it down.
 ``make_test_mesh`` builds over the default group the caller initialised
-(a spawned ``gloo`` world in the tests).
+(a spawned ``gloo`` world in the tests, on the CPU or all ranks on one
+card), or over some of its ranks.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ import math
 
 import torch
 import torch.distributed as dist
-from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 PRODUCTION = {False: ((16, 16), ("data", "model")),
               True: ((2, 16, 16), ("pod", "data", "model"))}
@@ -72,10 +73,43 @@ def production_mesh(*, multi_pod: bool = False, device="cuda"):
         release()
 
 
-def make_test_mesh(shape=(2, 2), axes=("data", "model"), device="cuda"):
-    """A small mesh over the default group the caller initialised (its
-    world size must be the mesh's size)."""
-    return init_device_mesh(torch.device(device).type, tuple(shape), mesh_dim_names=axes)
+def make_test_mesh(shape=(2, 2), axes=("data", "model"), device="cuda", ranks=None):
+    """A small mesh over the default group the caller initialised: over
+    the whole group (its world size must be the mesh's size), or over the
+    group's ``ranks`` in row-major order (the mesh of an elastic restart
+    that lost ranks).  Every rank of the group calls it; one outside
+    ``ranks`` holds no shard of what is placed on the mesh."""
+    kind = torch.device(device).type
+    if ranks is None:
+        return init_device_mesh(kind, tuple(shape), mesh_dim_names=axes)
+    return DeviceMesh(kind, torch.tensor(list(ranks)).reshape(tuple(shape)),
+                      mesh_dim_names=axes)
+
+
+def gloo_cuda_all_gather():
+    """Run the functional all-gather of CUDA tensors through the process
+    group's own ``all_gather_into_tensor``, for a ``gloo`` world whose
+    ranks share a card (NCCL refuses two ranks on one device).
+
+    Over ``gloo``, PyTorch 2.11's ``_c10d_functional.all_gather_into_tensor``
+    (what DTensor's ``redistribute`` and ``full_tensor`` issue) corrupts
+    host memory for CUDA tensors, and the process dies later of a
+    segmentation fault; ``dist.all_gather_into_tensor`` on the same
+    tensors is sound.  This registers, for the CUDA dispatch key, a kernel
+    of that op which calls it and returns the gathered tensor (the wait is
+    then a no-op).  Returns the registration's library: the kernel stays
+    registered while it lives."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    def all_gather_into_tensor(x, group_size: int, group_name: str):
+        out = x.new_empty((x.shape[0] * group_size, *x.shape[1:]))
+        dist.all_gather_into_tensor(out, x.contiguous(),
+                                    group=_resolve_process_group(group_name))
+        return out
+
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    lib.impl("all_gather_into_tensor", all_gather_into_tensor, "CUDA")
+    return lib
 
 
 def make_data_mesh(n: int | None = None, device="cuda") -> tuple:

@@ -19,6 +19,6 @@ from repro_torch.obs.metrics import (Counter, Gauge, Histogram,  # noqa: F401
                                      NOOP_REGISTRY, NoopRegistry)
 from repro_torch.obs.telemetry import (NOOP, RetraceTracker,  # noqa: F401
                                        Telemetry, default_hot_functions,
-                                       specialization_count)
+                                       jit_cache_size, specialization_count)
 from repro_torch.obs.trace import (NOOP_SPAN, NOOP_TRACER,  # noqa: F401
                                    NoopTracer, Span, SpanTracer)

@@ -43,6 +43,11 @@ def specialization_count(fns) -> int:
     return sum(len(fn.shapes) for fn in fns)
 
 
+# the reference's name: its count of compiled variants is the port's count
+# of shape specializations (one per distinct shape either way)
+jit_cache_size = specialization_count
+
+
 class RetraceTracker:
     """Delta sampler over the hot functions' shape specializations.
 

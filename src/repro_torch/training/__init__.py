@@ -1,5 +1,5 @@
 """Training: AdamW (``optimizer``), the train step (``train_loop``),
-checkpoints (``checkpoint``) and the preemption guard and straggler
-watchdog (``elastic``).  ``train_loop.state_pspecs`` gives the train
-state's specs on a mesh; the reference's ``reshard`` waits for the sharded
-execution on real process groups (ROADMAP queue 1, item 17.5b)."""
+checkpoints (``checkpoint``, sharded states included) and the preemption
+guard, re-meshing and straggler watchdog (``elastic``).
+``train_loop.state_pspecs`` gives the train state's specs on a mesh;
+``elastic.reshard`` places a state by them."""

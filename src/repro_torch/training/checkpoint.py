@@ -12,6 +12,15 @@ around leaves (tensors, numpy arrays, scalars).  It flattens as JAX's
 ``tree_util`` flattens it: dict keys in sorted order, ``None`` an empty
 subtree, and the manifest's ``treedef`` is JAX's spelling of the
 structure.  Leaves go to the host with ``.detach().cpu().numpy()``.
+
+A tree with ``DTensor`` leaves (a state sharded over a ``DeviceMesh``) is
+saved by every rank of the default process group together: each DTensor
+is gathered (``full_tensor()``, a collective over its mesh that each of
+its ranks joins), only rank 0 writes, and a barrier follows, so the
+checkpoint is complete on every rank's return (``save_async``: on
+``wait()``, or the next save through the same ``Saver``).  The file is the
+same host numpy, so a sharded state restores into a plain tree on any
+mesh (``elastic.reshard`` places it).
 """
 from __future__ import annotations
 
@@ -22,6 +31,8 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 
 def _is_namedtuple(x) -> bool:
@@ -88,10 +99,38 @@ def _snapshot(x) -> np.ndarray:
     return np.array(x, copy=True)
 
 
+def _gathered(leaves: list, host) -> tuple[list, bool, bool]:
+    """-> (``host`` of each leaf, the tree is sharded, this rank writes).
+
+    A sharded tree's DTensors are gathered on every rank of their meshes;
+    only rank 0 of the default group writes, and it must be in every
+    mesh."""
+    if not any(isinstance(x, DTensor) for x in leaves):
+        return [host(x) for x in leaves], False, True
+    writer = dist.get_rank() == 0
+    hosted = []
+    for x in leaves:
+        if isinstance(x, DTensor):
+            if x.device_mesh.get_coordinate() is None:
+                if writer:
+                    raise ValueError("rank 0 of the default group, which writes the "
+                                     "checkpoint, holds no shard of a DTensor leaf")
+                continue
+            x = x.full_tensor()
+        if writer:
+            hosted.append(host(x))
+    return hosted, True, writer
+
+
 def save(ckpt_dir: str, step: int, tree, extra: dict | None = None) -> str:
-    """Blocking atomic save; returns the checkpoint path."""
+    """Blocking atomic save; returns the checkpoint path.  With DTensor
+    leaves, every rank calls it (see the module's docstring)."""
     leaves, treedef = _flatten(tree)
-    _write(ckpt_dir, step, [_to_host(x) for x in leaves], treedef, extra)
+    hosted, sharded, writer = _gathered(leaves, _to_host)
+    if writer:
+        _write(ckpt_dir, step, hosted, treedef, extra)
+    if sharded:
+        dist.barrier()
     return os.path.join(ckpt_dir, f"step_{step:08d}")
 
 
@@ -121,29 +160,39 @@ class Saver:
 
     def __init__(self):
         self._thread: threading.Thread | None = None
+        self._sharded = False       # the pending write owes a barrier
         self._lock = threading.Lock()
 
     def save_async(self, ckpt_dir: str, step: int, tree,
                    extra: dict | None = None) -> None:
-        """Snapshot to host now, write in the background."""
+        """Snapshot to host now, write in the background.  With DTensor
+        leaves, every rank calls it, and ``wait`` on every rank."""
         leaves, treedef = _flatten(tree)
-        hosted = [_snapshot(x) for x in leaves]  # device->host happens here
+        # device->host (and a sharded tree's gathers) happen here
+        hosted, sharded, writer = _gathered(leaves, _snapshot)
         t = threading.Thread(target=_write, daemon=True,
                              args=(ckpt_dir, step, hosted, treedef, extra))
         # join-then-start under the lock: writes through one Saver are
         # serialized, and a concurrent wait() can never observe (or join)
         # a not-yet-started thread
         with self._lock:
-            if self._thread is not None:
-                self._thread.join()
-            t.start()
-            self._thread = t
+            self._finish()
+            if writer:
+                t.start()
+                self._thread = t
+            self._sharded = sharded
+
+    def _finish(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._sharded:
+            dist.barrier()
+            self._sharded = False
 
     def wait(self) -> None:
         with self._lock:
-            if self._thread is not None:
-                self._thread.join()
-                self._thread = None
+            self._finish()
 
 
 _DEFAULT_SAVER = Saver()

@@ -1,20 +1,27 @@
-"""Fault tolerance: preemption hook and straggler watchdog.
+"""Fault tolerance: preemption hook, elastic re-meshing, straggler watchdog.
 
 * ``PreemptionGuard`` — SIGTERM/SIGINT flips a flag; the train loop
   checkpoints and exits cleanly at the next step boundary (tested by
   setting the flag directly).
+* ``reshard`` — places a (checkpointed or live) state tree onto a NEW
+  ``DeviceMesh``: the elastic-scaling path after losing or gaining ranks.
+  Checkpoints are mesh-agnostic host numpy (``training/checkpoint``), so a
+  restart onto any mesh whose axes divide the tensors' dims is a restore
+  and a ``reshard`` by the new mesh's shardings.  The new mesh may span
+  only some ranks of the group; the others hold no shard of the result.
 * ``StepWatchdog`` — flags steps slower than ``factor`` x the trailing
   median: persistent outliers get reported for replacement.
-
-The reference's ``reshard`` (a state placed onto a new device mesh with
-its parameters' shardings, ``distributed/sharding.param_shardings``)
-waits for the sharded execution on real process groups (ROADMAP queue 1
-item 17.5b).
 """
 from __future__ import annotations
 
 import signal
 import time
+
+import torch
+from torch.distributed.tensor import DTensor
+from torch.utils._pytree import tree_map
+
+from repro_torch.distributed.sharding import NamedSharding, distribute, param_shardings
 
 
 class PreemptionGuard:
@@ -29,6 +36,22 @@ class PreemptionGuard:
 
     def trigger(self):  # tests / external pod-manager hook
         self.preempted = True
+
+
+def _place(x, sharding: NamedSharding):
+    if isinstance(x, DTensor):
+        if x.device_mesh is sharding.mesh:
+            return x.redistribute(sharding.mesh, sharding.placements)
+        x = x.full_tensor()      # every rank of its mesh joins the gather
+    return distribute(torch.as_tensor(x).detach(), sharding)
+
+
+def reshard(tree, new_mesh, spec_tree):
+    """Place a host, tensor or DTensor tree onto ``new_mesh`` with the
+    given specs (``sharding.param_shardings``).  A DTensor on another mesh
+    is gathered first, on every rank of that mesh."""
+    shardings = param_shardings(new_mesh, spec_tree)
+    return tree_map(_place, tree, shardings)
 
 
 class StepWatchdog:

@@ -1387,3 +1387,38 @@ def test_mesh_dry_run_attention_cases_launch_at_their_local_shapes(cuda_device):
         ends = torch.tensor([0, B - 1], device=q.device)
         _assert_bwd_within_limit([g.index_select(0, ends) for g in got],
                                  *(t.index_select(0, ends) for t in (q, k, v, o, do)), kw)
+
+
+def test_two_ranks_on_one_card_give_the_one_process_gradients(cuda_device, tmp_path):
+    """A two-rank ``gloo`` world whose ranks both use ``cuda:0``
+    (tests/torch_mesh_worker.card_dp_rank): tspm-mlho at full width cut
+    to 2 layers on a 1 x 2 ``('data', 'model')`` mesh, the batch placed by
+    ``pipeline.shard_batch``, each rank launching both attention kernels;
+    the loss within 1e-5 relative and every gathered gradient within 1e-4
+    of its largest |g| in one process on the card (chip_smoke.py phase
+    10's ``TRAIN_RTOL`` / ``TRAIN_GRAD_SHARE``)."""
+    import torch_mesh_worker
+
+    from repro_torch.training import train_loop
+
+    layers = 2
+    cfg = get_config("tspm-mlho").replace(n_layers=layers)
+    mdl = model_lib.build(cfg)
+    module = mdl.init(torch.Generator("cpu").manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 256)).astype(np.int32))
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1),
+             "loss_mask": torch.from_numpy(rng.random((8, 256)) < 0.9)}
+    got = torch_mesh_worker.spawn(torch_mesh_worker.card_dp_rank, 2, tmp_path,
+                                  {"params": module.state_dict(), "batch": batch,
+                                   "layers": layers})
+    one = train_loop.trainable(copy.deepcopy(module).to(cuda_device))
+    loss, _ = train_loop.make_loss_fn(mdl)(one, {k: v.to(cuda_device) for k, v in batch.items()})
+    names, params = zip(*one.named_parameters())
+    grads = dict(zip(names, torch.autograd.grad(loss, params)))
+    loss = float(loss.detach())
+    assert abs(float(got["loss"]) - loss) <= 1e-5 * abs(loss)
+    assert set(got["grads"]) == set(grads)
+    for n, g in grads.items():
+        g = g.cpu()
+        assert (got["grads"][n] - g).abs().max() <= 1e-4 * g.abs().max(), n

@@ -26,7 +26,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import torch.multiprocessing as tmp
 
 import torch_mesh_worker
 from repro.analysis import roofline as j_rl
@@ -110,15 +109,6 @@ def test_the_command_line_takes_the_references_mesh_flags(tmp_path):
                         mesh="pod4x4")
 
 
-def _spawn(fn, world, tmp_path, data):
-    """Run ``fn`` on ``world`` spawned ranks; -> what rank 0 saved."""
-    in_path, out_path = str(tmp_path / "in.pt"), str(tmp_path / "out.pt")
-    torch.save(data, in_path)
-    tmp.start_processes(fn, args=(world, str(tmp_path / "rendezvous"), in_path, out_path),
-                        nprocs=world, start_method="spawn")
-    return torch.load(out_path)
-
-
 def _jax_init(arch):
     jcfg = j_get_config(arch, reduced=True)
     params, _ = j_model.build(jcfg).init(jax.random.PRNGKey(0))
@@ -175,7 +165,7 @@ def test_expert_parallel_moe_matches_the_dense_moe_and_the_reference(tmp_path):
     prefilled = [dict(c, k=c["k"].clone(), v=c["v"].clone()) for c in caches]
     nxt = torch.from_numpy(_lm_batch(2, s=1)[0])
     decoded, caches = mdl.apply(module, {"tokens": nxt}, mode="decode", caches=caches)
-    got = _spawn(torch_mesh_worker.ep_rank, 8, tmp_path,
+    got = torch_mesh_worker.spawn(torch_mesh_worker.ep_rank, 8, tmp_path,
                  {"params": module.state_dict(), **batch, "caches": prefilled, "next": nxt})
     logits = got["logits"].numpy()
     np.testing.assert_allclose(logits, np.asarray(ref), atol=3e-4, rtol=3e-4)
@@ -210,7 +200,7 @@ def test_slstm_on_the_local_shard_matches_one_device(tmp_path):
         params, {k: jnp.asarray(v) for k, v in batch.items()})
     cfg = dryrun.get_config("xlstm-125m", reduced=True)
     module = convert.from_jax_params(cfg, params)
-    got = _spawn(torch_mesh_worker.slstm_rank, 8, tmp_path,
+    got = torch_mesh_worker.spawn(torch_mesh_worker.slstm_rank, 8, tmp_path,
                  {"params": module.state_dict(),
                   **{k: torch.from_numpy(v) for k, v in batch.items()}})
     _assert_loss_and_grads(got, ref_l, convert.named_arrays(cfg, ref_g))
