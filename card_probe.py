@@ -5,7 +5,7 @@ Run from the root of a checkout, with one visible CUDA device:
 
     python3 card_probe.py [idle] [share] [price] [scratch] [flex] [psplit] [tf32] [count]
                           [logits] [bwd] [lse] [widths] [step] [steptrace] [moe]
-                          [binding] [gloo]
+                          [binding] [gloo] [plans] [steps]
 
 (all when none is named; ``lse``, ``widths`` and ``step`` only with
 ``CARD_PROBE_BASE`` set).
@@ -80,16 +80,24 @@ Each prints one JSON line:
          such as the commit before the pointer), timed in turns (base,
          null, pointer, pointer, null, base), with ``o`` of the three
          compared byte for byte;
-  widths the forward at the widths served before D 160, in turns with
-         the checkout at ``$CARD_PROBE_BASE``'s build of
+  widths the forward at every served shape of the tensor-core routes, in
+         turns with the checkout at ``$CARD_PROBE_BASE``'s build of
          ``flash_attention.cu`` (its entries take the log-sum-exp pointer,
          as this one's do; built with the port's flags into
-         ``build/probes/``): the wgmma route at gemma2-2b's global layer
-         (D 256), deepseek-moe-16b's and pixtral-12b's prefill shapes (D
-         128), the tf32x3 route at tspm-mlho's (D 64), each launched as
-         serving launches it (null log-sum-exp pointer), in turns (base,
-         this, this, base), with ``o`` compared byte for byte; and this
-         build alone at zamba2-2.7b's (D 160);
+         ``build/probes/``): the wgmma route at the seamless-m4t-large-v2
+         encoder and cross-attention (D 64), deepseek-moe-16b's and
+         pixtral-12b's prefill shapes (D 128), zamba2-2.7b's (D 160) and
+         gemma2-2b's local and global layers (D 256), the tf32x3 route at tspm-mlho's
+         (D 64), each launched as serving launches it (null log-sum-exp
+         pointer), in turns (base, this, this, base), both held to the
+         plain version's limit, with whether ``o`` is byte-equal (it is
+         where the schedule keeps the summation order);
+  plans  the wgmma route's plans against each other (``probe_plans``):
+         builds, edge cases, and the served shapes timed by events, by
+         device time and by the host's enqueue time, beside SDPA and the
+         plan with P as one bf16 term;
+  steps  where a step of the pipelined schedule spends its cycles
+         (``probe_steps``): an in-kernel ``clock64()`` trace of CTA 0;
   bwd    each kernel's device time of ``flash_attention_bwd`` at
          tspm-mlho's and gemma2-2b's training layers (the smoke's
          ``BWD_MODEL_SHAPES``), from a ``torch.profiler`` trace taken first
@@ -122,8 +130,9 @@ Each prints one JSON line:
          the expert product alone (one ``torch.bmm`` at the decode's and
          the prefill's capacity) against its bound.
 
-``psplit`` and ``tf32`` build ``csrc/flash_attention.cu`` once more with
-``-DFLASH_PROBES`` into ``build/probes/``, and ``count`` builds
+``psplit``, ``tf32``, ``plans`` and ``steps`` build
+``csrc/flash_attention.cu`` once more with ``-DFLASH_PROBES`` into
+``build/probes/``, and ``count`` builds
 ``seq_hist.cu`` and ``tspm_fused.cu`` with ``-DCOUNT_PROBES``: the
 measurement variants live only in those libraries, never in the ones the
 port loads.
@@ -590,33 +599,57 @@ def probe_lse(torch) -> dict:
     return out
 
 
+# the wgmma route's served shapes at each head width: (name, (B, Hq, Hkv,
+# Sq, Skv), mask); gemma2-2b's two layers are added from its config
+SERVED_SHAPES = {
+    64: (("seamless_enc", (2, 16, 16, 1024, 1024), dict(causal=False)),
+         ("seamless_cross", (2, 16, 16, 64, 1024), dict(causal=False))),
+    128: (("pixtral", (2, 32, 8, 1088, 1088), dict(causal=True)),
+          ("deepseek", (4, 16, 16, 512, 512), dict(causal=True))),
+    160: (("zamba2", (2, 32, 32, 4096, 4096), dict(causal=True)),),
+    256: (),
+}
+
+
+def served_shapes(D: int) -> list:
+    """``SERVED_SHAPES[D]`` with every mask option spelled out, and at D 256
+    gemma2-2b's local and global layers."""
+    from repro_torch.configs import get_config
+
+    out = [(n, s, {"window": None, "softcap": None, **kw}) for n, s, kw in SERVED_SHAPES[D]]
+    if D == 256:
+        cfg = get_config("gemma2-2b")
+        shape = (smoke.GEMMA_REQUESTS, cfg.n_heads, cfg.n_kv_heads, smoke.GEMMA_PROMPT_LEN,
+                 smoke.GEMMA_PROMPT_LEN)
+        out += [("gemma2_local", shape, dict(causal=True, window=cfg.sliding_window,
+                                             softcap=cfg.attn_softcap)),
+                ("gemma2_global", shape, dict(causal=True, window=None,
+                                              softcap=cfg.attn_softcap))]
+    return out
+
+
+def bf16_qkv(torch, gen, B, Hq, Hkv, Sq, Skv, D):
+    return [torch.randn(B, H, S, D, generator=gen, device=gen.device).to(torch.bfloat16)
+            for H, S in ((Hq, Sq), (Hkv, Skv), (Hkv, Skv))]
+
+
 def probe_widths(torch) -> dict:
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention import ops, ref
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(dev).manual_seed(smoke.SEED)
-
-    def qkv(B, Hq, Hkv, S, D, dtype):
-        return [torch.randn(B, H, S, D, generator=gen, device=dev).to(dtype)
-                for H in (Hq, Hkv, Hkv)]
-
-    (gq, gk, gv), _ = gemma_layers(torch, dev)
-    gemma = get_config("gemma2-2b")
     tspm = get_config("tspm-mlho")
-    cases = {
-        "gemma2_global": ((gq, gk, gv), dict(causal=True, window=None,
-                                             softcap=gemma.attn_softcap)),
-        "deepseek": (qkv(smoke.DEEPSEEK_BATCH, 16, 16, smoke.DEEPSEEK_PROMPT_LEN, 128,
-                         torch.bfloat16), dict(causal=True, window=None, softcap=None)),
-        "pixtral": (qkv(2, 32, 8, 1088, 128, torch.bfloat16),
-                    dict(causal=True, window=None, softcap=None)),
-        "tspm_mlho": (qkv(smoke.LM_BATCH, tspm.n_heads, tspm.n_kv_heads, smoke.LM_PROMPT_LEN,
-                          tspm.hd, torch.float32), dict(causal=True, window=None, softcap=None)),
-    }
+    cases = {name: (bf16_qkv(torch, gen, *shape, D), kw)
+             for D in ops.WGMMA_HEAD_DIMS for name, shape, kw in served_shapes(D)}
+    cases["tspm_mlho"] = ([torch.randn(smoke.LM_BATCH, H, smoke.LM_PROMPT_LEN, tspm.hd,
+                                       generator=gen, device=dev)
+                           for H in (tspm.n_heads, tspm.n_kv_heads, tspm.n_kv_heads)],
+                          dict(causal=True, window=None, softcap=None))
     out = {"card": smoke.smi(), "base": os.environ["CARD_PROBE_BASE"]}
     for name, ((q, k, v), kw) in cases.items():
         route = ops.route(q.dtype, q.shape[3])
+        dtype = str(q.dtype).removeprefix("torch.")
         outs = {n: torch.empty_like(q) for n in ("base", "this")}
         scratch = torch.empty(ops.tf32x3_scratch_elems(k.shape), dtype=torch.float32,
                               device=dev) if route == "tf32x3" else None
@@ -633,19 +666,206 @@ def probe_widths(torch) -> dict:
                  "this": lambda: ops._launch(q, k, v, outs["this"], scratch=scratch, **kw)}
         turns = smoke.in_turns(torch, calls, 20)
         ms = {n: sum(t) / len(t) for n, t in turns.items()}
+        want = ref.attention_ref(q, k, v, **kw)
+        errs = {n: smoke.flash_err(torch, outs[n], want, dtype) for n in outs}
+        del want
         out[name] = {"route": route, "shape": f"q {list(q.shape)} k {list(k.shape)} {kw}",
                      **{f"{n}_ms": t for n, t in turns.items()},
                      "base_mean_ms": ms["base"], "this_mean_ms": ms["this"],
                      "this_over_base": ms["this"] / ms["base"],
-                     "o_identical": torch.equal(outs["base"], outs["this"])}
+                     "o_identical": torch.equal(outs["base"], outs["this"]),
+                     "max_abs_err": errs}
         del q, k, v, outs, scratch
-    zq, zk, zv = qkv(2, 32, 32, 4096, 160, torch.bfloat16)
-    zo = torch.empty_like(zq)
-    kw = dict(causal=True, window=None, softcap=None)
-    turns = smoke.in_turns(torch, {"this": lambda: ops._launch(zq, zk, zv, zo, **kw)}, 20)
-    out["zamba2"] = {"route": ops.route(zq.dtype, 160), "shape": f"q {list(zq.shape)} {kw}",
-                     "this_ms": turns["this"],
-                     "this_mean_ms": sum(turns["this"]) / len(turns["this"])}
+        torch.cuda.empty_cache()
+    return out
+
+
+PLAN_INFO = ("registers", "local_bytes", "shared_bytes", "key_rows", "pv_n", "stages",
+             "turns")
+
+
+@functools.cache
+def plan_entries():
+    """``flash_attention.cu``'s plan variants (``FLASH_PROBES``): the launch
+    of variant v at D and its build's facts (``PLAN_INFO``)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops
+
+    dll = _build.load_probe("flash_attention", "FLASH_PROBES")
+    launch = dll.flash_attention_wgmma_variant
+    launch.argtypes, launch.restype = [ctypes.c_int] + ops.ENTRIES["wgmma"][1], ctypes.c_int
+    info = dll.flash_attention_variant_info
+    info.argtypes, info.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    return launch, info
+
+
+def plan_launch(torch, variant: int, q, k, v, out, lse=None, **kw) -> None:
+    from repro_torch.kernels.flash_attention import ops
+
+    ptrs, mask = ops.entry_args(q, k, v, out, lse=lse, **kw)
+    rc = plan_entries()[0](variant, *ptrs, *mask, torch.cuda.current_stream(q.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"plan {variant} at D={q.shape[3]}: CUDA error {rc}")
+
+
+def probe_plans(torch) -> dict:
+    """The wgmma route's plans against each other (``wgmma_variants`` of
+    ``flash_attention.cu``, variant 0 the plan the route ships),
+    at the widths in ``$CARD_PROBE_WIDTHS`` (default all): each build's
+    registers, spill and shared memory; each plan over phase 3b's edge
+    cases at its width (``chip_smoke.flash_edge_cases``), o and its
+    log-sum-exp against ``attention_ref`` (elements beyond
+    ``smoke.flash_limit`` counted, not raised), a second launch byte-equal;
+    then each served shape (``served_shapes``) timed in turns across the
+    plans, the shipped plan with P as one bf16 term (``p_bf16``, the probe
+    entry: what the lo term costs) and ``scaled_dot_product_attention``
+    (where it computes the same function), by CUDA events over back-to-back
+    calls, by the device time of each call's kernels (a profiler trace) and
+    by the host's time to enqueue a call; with the bound (4*D a visible
+    pair at 989 TFLOP/s) and the split bound (6*D)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ref
+
+    dev = torch.device("cuda", 0)
+    widths = [int(w) for w in os.environ.get("CARD_PROBE_WIDTHS", "64,128,160,256").split(",")]
+    out = {"card": smoke.smi()}
+    for D in widths:
+        plans = {}
+        for variant in range(16):
+            vals = (ctypes.c_int * len(PLAN_INFO))()
+            if plan_entries()[1](D, variant, ctypes.addressof(vals)):
+                break
+            plans[variant] = dict(zip(PLAN_INFO, vals))
+        checks = {v: {"cases": 0, "beyond_limit": 0, "max_abs_err": 0.0, "lse_beyond": 0,
+                      "repeat_equal": True, "lse_leaves_o": True} for v in plans}
+        gen = torch.Generator(dev).manual_seed(0)
+        for B, Hq, Hkv, Sq, Skv, d, kw in smoke.flash_edge_cases():
+            if d != D:
+                continue
+            kw = {"window": None, "softcap": None, **kw}
+            q, k, v = bf16_qkv(torch, gen, B, Hq, Hkv, Sq, Skv, D)
+            want, want_lse = ref.attention_ref(q, k, v, return_lse=True, **kw)
+            w = want.float()
+            seen = torch.isfinite(want_lse)
+            for variant, c in checks.items():
+                o1, o2, o3 = (torch.empty_like(q) for _ in range(3))
+                lse = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
+                plan_launch(torch, variant, q, k, v, o1, **kw)
+                plan_launch(torch, variant, q, k, v, o2, **kw)
+                plan_launch(torch, variant, q, k, v, o3, lse=lse, **kw)
+                diff = (o1.float() - w).abs()
+                ldiff = (lse[seen] - want_lse[seen]).abs()
+                c["cases"] += 1
+                c["beyond_limit"] += (diff > smoke.flash_limit(w, "bfloat16")).sum().item()
+                c["max_abs_err"] = max(c["max_abs_err"], diff.max().item())
+                c["lse_beyond"] += (ldiff > smoke.LSE_TOL + smoke.LSE_TOL
+                                    * want_lse[seen].abs()).sum().item() + \
+                    (lse[~seen] != torch.inf).sum().item()
+                c["repeat_equal"] &= torch.equal(o1, o2)
+                c["lse_leaves_o"] &= torch.equal(o1, o3)
+        timing = {}
+        for name, shape, kw in served_shapes(D):
+            q, k, v = bf16_qkv(torch, gen, *shape, D)
+            outs = {variant: torch.empty_like(q) for variant in plans}
+            calls = {f"plan_{variant}": (lambda variant=variant: plan_launch(
+                torch, variant, q, k, v, outs[variant], **kw)) for variant in plans}
+            p_bf16 = torch.empty_like(q)
+            calls["p_bf16"] = lambda: probe_launch(torch, q, k, v, p_bf16, **kw)
+            if kw["window"] is None and kw["softcap"] is None:
+                calls["sdpa"] = lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=kw["causal"], enable_gqa=True)
+            turns = smoke.in_turns(torch, calls, 10)
+            device = {n: sum(smoke.kernel_device_ms(torch, fn, 10).values())
+                      for n, fn in calls.items()}
+            host = {}
+            for n, fn in calls.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(10):
+                    fn()
+                host[n] = (time.perf_counter() - t0) / 10 * 1e3
+                torch.cuda.synchronize()
+            want = ref.attention_ref(q, k, v, **kw).float()
+            pairs = shape[0] * shape[1] * smoke.visible_pairs(shape[3], shape[4], kw["causal"],
+                                                              kw["window"])
+            bound = max(sum(t.numel() * 2 for t in (q, k, v, q)) / smoke.HBM_BYTES_PER_S,
+                        4 * D * pairs / smoke.BF16_OPS_PER_S) * 1e3
+            timing[name] = {
+                "shape": f"q {list(q.shape)} k {list(k.shape)} {kw}",
+                "ms": {n: sum(t) / len(t) for n, t in turns.items()}, "turns": turns,
+                "device_ms": device, "host_enqueue_ms": host,
+                "bound_ms": bound,
+                "bound_split_ms": max(bound, 1.5 * 4 * D * pairs / smoke.BF16_OPS_PER_S * 1e3),
+                "max_abs_err": {variant: (o.float() - want).abs().max().item()
+                                for variant, o in outs.items()}}
+            del q, k, v, outs, want
+            torch.cuda.empty_cache()
+        out[D] = {"plans": plans, "checks": checks, "timing": timing}
+        print(json.dumps({"plans_width": D, **out[D]}), flush=True)
+    return out
+
+
+STEP_MARKS = ("start", "kv_landed", "turn_taken", "issued", "s_landed", "softmax_done",
+              "pv_landed", "p_ready")
+STEP_SHAPES = ("seamless_enc", "pixtral", "zamba2", "gemma2_global")
+
+
+def probe_steps(torch) -> dict:
+    """Where a step of the wgmma route's pipelined schedule spends its
+    cycles: the shipped plan at one served shape a width
+    (``STEP_SHAPES``), built with TRACE = 1 (the probe entry
+    ``flash_attention_wgmma_trace``), so that thread 0 of each consumer of
+    CTA 0 (the longest causal band) writes ``clock64()`` at ``STEP_MARKS``
+    of each step that issues both products.  Per consumer: the median
+    cycles between consecutive marks and of a whole step over the steps
+    after the first two and before the last, the step count, and the
+    tensor-core cycles a step needs (both consumers' S and P V at the
+    card's dense bf16 rate, 4,096 flops a cycle an SM); with the SM clock
+    that ``nvidia-smi`` reads."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(dev).manual_seed(1)
+    dll = _build.load_probe("flash_attention", "FLASH_PROBES")
+    fn = dll.flash_attention_wgmma_trace
+    fn.argtypes, fn.restype = [ctypes.c_void_p] + ops.ENTRIES["wgmma"][1], ctypes.c_int
+    steps, marks = 256, len(STEP_MARKS)
+    out = {"card": smoke.smi(), "sm_clock": smoke.smi("clocks.sm,clocks.max.sm")}
+    for D in ops.WGMMA_HEAD_DIMS:
+        for name, shape, kw in served_shapes(D):
+            if name not in STEP_SHAPES:
+                continue
+            q, k, v = bf16_qkv(torch, gen, *shape, D)
+            o = torch.empty_like(q)
+            info = ops.kernel_info(q.dtype, D)
+            trace = torch.zeros(2 * steps * marks, dtype=torch.int32, device=dev)
+            ptrs, mask = ops.entry_args(q, k, v, o, **kw)
+            for _ in range(3):   # the last launch's marks stay
+                rc = fn(trace.data_ptr(), *ptrs, *mask, torch.cuda.current_stream(dev).cuda_stream)
+                if rc:
+                    raise RuntimeError(f"trace at D={D}: CUDA error {rc}")
+            torch.cuda.synchronize()
+            tr = trace.view(2, steps, marks).cpu().numpy().astype(np.int64) & 0xFFFFFFFF
+            rows = {}
+            for cw in range(2):
+                used = tr[cw][tr[cw, :, 0] != 0]
+                n = len(used)
+                mid = used[2:n - 1] if n > 4 else used
+                gaps = (np.diff(mid, axis=1) % 2**32)
+                whole = (np.diff(mid[:, 0]) % 2**32) if len(mid) > 1 else np.zeros(1)
+                rows[f"consumer_{cw}"] = {
+                    "steps": n,
+                    "median_cycles": {f"{STEP_MARKS[i]}->{STEP_MARKS[i + 1]}":
+                                      float(np.median(gaps[:, i])) for i in range(marks - 1)},
+                    "median_step_cycles": float(np.median(whole))}
+            bk = info["key_rows"]
+            flops = 2 * 64 * bk * D * 2 + 2 * 2 * 64 * bk * D * 2   # both consumers' S and hi + lo P V
+            out[name] = {"shape": f"q {list(q.shape)} k {list(k.shape)} {kw}", "key_rows": bk,
+                         "tensor_cycles_a_step": flops / 4096, **rows}
+            del q, k, v, o
+            torch.cuda.empty_cache()
     return out
 
 
@@ -1171,7 +1391,7 @@ def main(argv: list[str]) -> int:
               "tf32": probe_tf32, "count": probe_count, "logits": probe_logits,
               "bwd": probe_bwd, "lse": probe_lse, "widths": probe_widths, "step": probe_step,
               "steptrace": probe_steptrace, "moe": probe_moe, "binding": probe_binding,
-              "gloo": probe_gloo}
+              "gloo": probe_gloo, "plans": probe_plans, "steps": probe_steps}
     if not argv and "CARD_PROBE_BASE" not in os.environ:
         for name in ("lse", "widths", "step"):
             probes.pop(name)

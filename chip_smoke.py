@@ -41,7 +41,8 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with
      1/63/127/128/129/1,000, Sq != Skv (63/1,000, 1,000/129) causal and
      not, GQA groups 1/2/4/8, windows 1 and 300 with softcap 50 and rows
      that see no key, its last 32 columns also held on their own; each
-     case must launch the route ``ops.route`` names for it; every forward
+     case must launch the route ``ops.route`` names for it and give the
+     same bytes when launched again; every forward
      build's registers, spill and shared memory printed (the tensor-core
      builds and float32 D 160 must spill nothing); then
      ``flash_attention_bwd`` (each build's registers, spill and shared
@@ -165,7 +166,9 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with
      tspm-mlho's 24 launches must all take the tf32x3 route and gemma2-2b's
      26 the wgmma route; the kernel is timed at these three shapes beside
      its bound, its plain version and (tspm-mlho)
-     ``scaled_dot_product_attention``, and at tspm-mlho's shape the ffma
+     ``scaled_dot_product_attention`` (every ``time_flash`` of phase 9
+     times that call in turns with the kernel, and records both device
+     times from a profiler trace), and at tspm-mlho's shape the ffma
      route is timed in turns with tf32x3, and tf32x3's pre-pass and main
      kernel are timed on the device from a ``torch.profiler`` trace;
      then the MoE and VLM families, each model freed before the next and
@@ -866,8 +869,9 @@ def check_flash_kernel(torch, dev) -> tuple[dict, int, list, dict]:
     last 32 columns also held on their own), with each
     bfloat16 case's reading (``bf16_reading``); each case once more with
     the log-sum-exp, whose ``o`` must be the same bytes and whose lse must
-    be the plain version's within ``LSE_TOL`` (``lse_err``); an empty batch
-    launches nothing.  Returns the largest differences, the comparisons, the
+    be the plain version's within ``LSE_TOL`` (``lse_err``), and a third
+    time without it, bit for bit the first; an empty batch launches
+    nothing.  Returns the largest differences, the comparisons, the
     readings and the comparisons by route."""
     from repro_torch.kernels.flash_attention import ops as flash_ops, ref as flash_ref
 
@@ -886,6 +890,8 @@ def check_flash_kernel(torch, dev) -> tuple[dict, int, list, dict]:
             o_lse, lse = flash_ops.attention(q, k, v, return_lse=True, **kw)
             require(flash_ops.attention.route_launches[route] == before + 2,
                     f"{dtype} D={D} with its log-sum-exp did not launch the {route} route")
+            require(torch.equal(flash_ops.attention(q, k, v, **kw), got),
+                    f"{route} {[B, Hq, Hkv, Sq, Skv, D]} {kw}: a second launch differs")
             want, want_lse = flash_ref.attention_ref(q, k, v, return_lse=True, **kw)
             e = flash_err(torch, got, want, dtype)
             if D == 160:      # the third box's 32 columns on their own
@@ -2518,12 +2524,18 @@ def time_flash(torch, q, k, v, *, causal, window, softcap, sdpa: bool,
     """``flash_attention`` on ``q/k/v [B,H,S,D]`` with CUDA events: the
     launch alone into an allocated output (the route ``ops.route`` names,
     with a null log-sum-exp pointer as serving launches it), in turns with
-    the same launch writing the log-sum-exp (``ms_lse``, training's form)
-    and, with ``beside``, that route at the same shape,
-    the plain version, and (where it computes the same function: no
-    softcap, no window) one ``scaled_dot_product_attention`` call as the
-    yardstick.  The bound is the larger of q, k, v and o over 3.35 TB/s and
-    the operations over the card's peak for their type: for bfloat16 4*D a
+    the same launch writing the log-sum-exp (``ms_lse``, training's form),
+    with ``beside``, that route at the same shape, and (where it computes
+    the same function: no softcap, no window) one
+    ``scaled_dot_product_attention`` call as the yardstick; then the plain
+    version.  ``device_ms`` and ``library_device_ms`` are the device time
+    of the route's and of the library call's kernels in a profiler trace
+    (events around back-to-back calls also count the host's time between
+    launches where a call is short), None where the trace holds none of
+    them: late in this script a trace misses the kernels launched through
+    ``ctypes`` (``card_probe.py plans`` times them in a fresh process).
+    The bound is the larger of q, k, v and o over 3.35 TB/s and the
+    operations over the card's peak for their type: for bfloat16 4*D a
     visible pair on bf16 tensor cores (``bound_split_ms`` also counts the
     wgmma route's second P V product of its bf16 hi + lo split, 6*D a pair);
     for float32 3xTF32, float32-accurate work at the card's highest rate:
@@ -2542,8 +2554,15 @@ def time_flash(torch, q, k, v, *, causal, window, softcap, sdpa: bool,
              for r in outs}
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     calls["lse"] = lambda: flash_ops._launch(q, k, v, torch.empty_like(q), lse=lse, **kw)
+    if sdpa:
+        import torch.nn.functional as F
+
+        calls["sdpa"] = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                               enable_gqa=True)
     turns = in_turns(torch, calls)
     ms = {r: sum(t) / len(t) for r, t in turns.items()}
+    device = {r: sum(kernel_device_ms(torch, calls[r], 10).values()) or None
+              for r in (route, "sdpa") if r in calls}
     dtype = str(q.dtype).removeprefix("torch.")
     want = flash_ref.attention_ref(q, k, v, **kw)
     errs = {r: flash_err(torch, outs[r], want, dtype) for r in outs}
@@ -2551,18 +2570,11 @@ def time_flash(torch, q, k, v, *, causal, window, softcap, sdpa: bool,
     reading = bf16_reading(torch, out, want, "layer") if dtype == "bfloat16" else None
     del want
     plain = cuda_ms(torch, lambda: flash_ref.attention_ref(q, k, v, **kw), 2)
-    lib = None
     if sdpa:
-        import torch.nn.functional as F
-
-        def call():
-            return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
-                                                  enable_gqa=True)
-        lib_err = (call().float() - out.float()).abs().max().item()
+        lib_err = (calls["sdpa"]().float() - out.float()).abs().max().item()
         require(lib_err < SDPA_SAME_FUNCTION[dtype],
                 f"scaled_dot_product_attention computes another function here "
                 f"(max |diff| {lib_err})")
-        lib = cuda_ms(torch, call, 10)
     pairs = B * Hq * visible_pairs(Sq, k.shape[2], causal, window)
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, out))
     f32 = q.dtype == torch.float32
@@ -2573,7 +2585,9 @@ def time_flash(torch, q, k, v, *, causal, window, softcap, sdpa: bool,
     split = max(bound["bytes"], 1.5 * bound["operations"]) if route == "wgmma" else None
     r = {"route": route, "ms": ms[route], "ms_turns": turns[route],
          "ms_lse": ms["lse"], "ms_lse_turns": turns["lse"], "plain_ms": plain,
-         "library_ms": lib, "bound_ms": bound[by], "bound_by": by,
+         "library_ms": ms.get("sdpa"), "library_ms_turns": turns.get("sdpa"),
+         "device_ms": device[route], "library_device_ms": device.get("sdpa"),
+         "bound_ms": bound[by], "bound_by": by,
          "bound_split_ms": split, "max_abs_err": errs[route], "bf16_reading": reading,
          "visible_pairs": pairs,
          "shape": f"q {list(q.shape)} k {list(k.shape)} {dtype} causal={causal} "

@@ -52,38 +52,58 @@
 // (zamba2's shared attention, held against the CPU in float32) is ten
 // accumulator columns a thread.
 //
-// ---- Route "wgmma" (flash_attention_wgmma): bfloat16 at D 64, 128, 256
+// ---- Route "wgmma" (flash_attention_wgmma): bfloat16 at D 64, 128, 160, 256
 //
 // Its bound is the bf16 tensor-core rate (989 TFLOP/s dense on an H100
 // SXM), 1.5x the work with P split in two (hazard 1).  One CTA of 384
 // threads per (batch x query head, 128-row query tile): two consumer
 // warpgroups of 64 query rows each and one producer warpgroup, of which
-// one thread issues every copy.  The producer loads the query tile once
-// and keeps K and V tiles of BK keys in flight with TMA
-// (cp.async.bulk.tensor) into a ring of STAGES stages, each stage with a
-// K-full, a V-full and an empty mbarrier.  Per K/V tile each consumer
-//   1. issues wgmma S = Q K^T (D/16 k-steps, S in fp32 registers),
-//   2. scales, softcaps and masks S in registers,
-//   3. runs the online softmax: row max and row sum over the four threads
-//      that share a row in the accumulator layout,
-//   4. turns P into bf16 A-fragments in registers (the accumulator's
-//      layout is the A operand's, so P never touches shared memory),
-//   5. issues wgmma O += P V, with V the B operand in MN-major form,
-//   6. releases the stage (one arrival per warp).
-// The two consumers share the SM's tensor cores: one's softmax overlaps
-// the other's products (nothing orders them; a consumer's own softmax
-// does not overlap its next QK^T).  A 384-thread CTA starts at 168
-// registers a thread; setmaxnreg gives each consumer thread 240 (O is D/2
-// of them, 128 at D = 256) and leaves the producer 24.
-// Kept from the ffma route: the loop over only the keys a tile can see,
-// wholly masked tiles skipped (per consumer), query tiles walked
-// longest-first, the GQA head map.  Masks are evaluated only on tiles
-// that cut a boundary (Skv's end, the diagonal, the window's edge).
-// Tiles: BK = 64 keys and 2 stages at D = 256 (Q 64 KB + 2 x (K + V)
-// 64 KB = 192 KB of shared memory; BK = 128 would need 64 more registers
-// a thread for S and P).  BK = 128 at D <= 128 (3 stages at D = 64, 2 at
-// 128), not tuned: only D = 256 is on a served model's path.  D = 160:
-// BK = 64 and 3 stages (hazard 7).
+// one thread issues every copy.  The producer loads the query tile and
+// keeps K and V tiles of BK keys in flight with TMA (cp.async.bulk.tensor)
+// into a ring of STAGES stages; K and V each have a full and an empty
+// mbarrier a stage, so a stage's K is reloaded once its S has landed and
+// its V once its P V has, and the producer issues K of tile t before V of
+// tile t - 1.  The consumers' schedule is pipelined (flash_pipe_kernel):
+// step t of a consumer
+//   1. waits for K_t and V_{t-1} (and, with turns, for its turn),
+//   2. issues S_t = Q K_t^T (D/16 k-steps, both operands from shared
+//      memory) and commits, issues O += P_{t-1} V_{t-1} (P as bf16 hi,
+//      then lo, A-fragments in registers; V the B operand, MN-major) and
+//      commits, and passes the turn on,
+//   3. waits for S_t alone (wgmma.wait_group 1) while P V runs on,
+//   4. scales, softcaps and masks S_t in registers (the mask on tiles that
+//      cut a boundary only) and runs the online softmax: row max and row
+//      sum over the four threads that share a row in the accumulator
+//      layout (hazard 9),
+//   5. waits for P V, releases V_{t-1}, rescales O by tile t's alpha and
+//      turns S_t into P_t's A-fragments (the accumulator's layout is the
+//      A operand's, so P never touches shared memory).
+// A consumer's first step issues S alone, its last P V alone.  Each
+// consumer steps through every key tile of the CTA but issues products
+// only for the tiles its rows see, [ta, tb): wholly masked tiles cost it
+// two barrier waits.  With turns the two consumers issue alternately
+// through two named barriers, so that one's softmax runs under the
+// other's products.  A 384-thread CTA starts at 168 registers a thread;
+// setmaxnreg gives each consumer thread 240 (O DA/2, S BK/2 and P hi + lo
+// BK/2 a thread) and leaves the producer 24.  Kept from the ffma route:
+// the loop over only the keys a tile can see, query tiles walked
+// longest-first, the GQA head map.  A persistent grid (a CTA an SM
+// walking work tiles, the query tile released when both consumers' S
+// products are done) was 3-4% faster at the seamless encoder and
+// pixtral-12b, 2-6% slower at zamba2-2.7b and gemma2-2b, and the build
+// with its loop spilled at D = 256 (card_probe.py plans on an H100): one
+// CTA a 128-row query tile it stays.
+// Plans (wgmma_tiles), timed against each other on the card with
+// card_probe.py plans:
+//   D = 64: BK = 64, 4 stages, no turns (Q 16 KB + 4 x 16 KB);
+//   D = 128: BK = 64, 3 stages, no turns (Q 32 KB + 3 x 32 KB);
+//   D = 160: BK = 96, 2 stages, turns, P V at N = 160 (hazard 7);
+//   D = 256: BK = 64, 2 stages, turns (Q 64 KB + 2 x 64 KB).
+// BK = 128 (S at N = 128, S and P 128 registers a thread) was 27% slower
+// at D 128 and spilled at D 64; BK = 96 was 5% slower at D 128 and 2-3%
+// faster at D 160 than BK = 64.  PR 15's serial schedule (S, softmax and
+// P V one after another per consumer, through run_cta) is gone from this
+// route; card_probe.py widths times the parent's build beside this one.
 //
 // Hazards, and what the design does about each:
 //  1. P in bf16.  Rounding p to bf16 costs 2^-9 relative on each term;
@@ -96,7 +116,9 @@
 //     PTERMS = 1 (single bf16 P) is built only with -DFLASH_PROBES, for
 //     card_probe.py's measurement.
 //  2. The softcap's tanh.  tanh.approx.f32 (~2^-11 relative) would move s
-//     by ~0.025 at softcap 50, p by ~2.5%; tanhf is kept.  The order is
+//     by ~0.025 at softcap 50, p by ~2.5%; tanhf is kept.  (A branch-free
+//     1 - 2 / (e^2x + 1) within 1.5e-7 of tanh was 3% faster at gemma2-2b's
+//     layers, but the build that had it spilled at D = 256.)  The order is
 //     the reference's: scale, softcap, mask, with scale / softcap folded
 //     into one multiply before tanhf and softcap * log2(e) into one after
 //     (scale * log2(e) without a softcap); ex2.approx (2^-22 relative)
@@ -129,16 +151,32 @@
 //     starts at column 128 and the map's OOB fill writes zeros for columns
 //     160-191 (a box's transaction bytes count the fill, so q_bytes and
 //     kv_bytes are whole boxes).  QK^T runs D/16 = 10 k-steps and never
-//     reads the zeros.  P V runs at N = 192 (m64n192k16, V MN-major across
-//     three whole boxes: the same descriptors, LBO one box, as at D = 128
-//     and 256), so its accumulator holds 96 floats a consumer thread, of
-//     which the last 16 (columns 160-191, products with zeros) stay 0 and
-//     are never stored.  Chosen over a 32-column tail box with its own
-//     swizzle and descriptors: one layout, one descriptor form, at 20%
-//     more P V work.  Registers: O 96 + S 32 + P hi/lo 32 a consumer
-//     thread at BK = 64 (BK = 128 would add 64), under setmaxnreg's 240;
-//     shared memory: Q 48 KB + 3 stages x (K 24 KB + V 24 KB) = 192 KB.
-//
+//     reads the zeros.  P V runs at N = 160 (m64n160k16, V MN-major: the
+//     same descriptors as at D = 128 and 256, LBO one box; the third box
+//     is read to its 32nd column), 80 accumulator floats a consumer
+//     thread; PR 23's N = 192 (20% more P V work, 16 floats of products
+//     with zeros) is one of card_probe.py's plans (wgmma_variants).
+//     Registers at BK = 96: O 80 + S 48 + P hi/lo 48; shared memory: Q
+//     48 KB + 2 stages x (K 36 KB + V 36 KB) = 192 KB.
+//  8. ptxas and the products' waits.  ptxas tracks which registers an
+//     in-flight wgmma reads or writes; a wait on a path that depends on
+//     which products were issued, or a product on a path it takes to be
+//     divergent, makes it serialize every wgmma of the kernel
+//     ("wgmma.mma_async instructions are serialized", C7520), which made a
+//     first pipelined build 12-30% slower than the serial one on an H100.
+//     So each step's products are fenced, issued, committed and waited
+//     for on one path (first, middle and last steps are separate code),
+//     cw is broadcast from lane 0 (warp-uniform to the compiler), and
+//     fence_regs pins O and P across the waits.  `nvcc -Xptxas -v` shows
+//     no C7520 for any plan.
+//  9. The softmax's uniform tests.  A test of the softcap or of the
+//     boundary inside the loop over a tile's scores split the unrolled loop
+//     into a block per score, and the scores' chains no longer
+//     interleaved.  Each pass is now a loop of its own, the tests outside
+//     the loops (online_softmax): 22-42% off the route's device time at
+//     the served shapes, 19% off the tf32x3 route's, which shares it
+//     (card_probe.py plans and widths on an H100).
+
 // ---- Route "tf32x3" (flash_attention_tf32x3): float32 at D 64
 //
 // float32 on tensor cores.  One TF32 product keeps ~11 bits of each operand
@@ -156,9 +194,9 @@
 //     so it is split once here; each query tile is read once, so the main
 //     kernel splits q in shared memory (a fence.proxy.async and a
 //     warpgroup barrier order those stores before wgmma's reads).
-//   * The main kernel (flash_tf32x3_kernel) runs the wgmma route's
-//     skeleton (run_cta; the two kernels differ only in their loads, their
-//     products and the q split):
+//   * The main kernel (flash_tf32x3_kernel) runs PR 15's serial skeleton
+//     (run_cta, the wgmma route's before PR 28) with the wgmma route's
+//     softmax and epilogue:
 //     one 384-thread CTA per (batch x head, 128-row query tile), a producer
 //     warpgroup whose one thread loads the query tile once and keeps K hi + lo
 //     and V^T hi + lo tiles of 64 keys in a 2-stage TMA ring, two consumer
@@ -441,14 +479,17 @@ cudaError_t ffma_types(int dtype, int D, F&& f) {
 constexpr int kWgBQ = 128;          // query rows of a CTA (two consumers x 64)
 constexpr int kWgThreads = 384;     // warpgroups 0, 1 compute; warpgroup 2 loads
 
-// ---- the skeleton both tensor-core routes (wgmma, tf32x3) share
+// ---- what both tensor-core routes (wgmma, tf32x3) share, and the tf32x3
+// route's skeleton
 //
 // One CTA of kWgThreads per (batch x query head, kWgBQ-row query tile): a
 // producer warpgroup whose one thread loads the query tile once and keeps K
 // and V tiles in a TMA ring of STAGES stages, and two consumer warpgroups of
-// 64 query rows that run the mask, the online softmax, the row sums and the
-// store.  A route gives its tile loads, its S = Q K^T, its O update from P
-// and (tf32x3) its work on the query tile as lambdas to run_cta.
+// 64 query rows that run the mask, the online softmax (online_softmax),
+// the row sums and the store (store_rows).  The tf32x3 route gives its
+// tile loads, its S = Q K^T, its O update from P and its work on the query
+// tile as lambdas to run_cta, which runs each consumer's tile serially;
+// the wgmma route pipelines them (flash_pipe_kernel).
 
 // this CTA's query tile: batch x query head bh, rows q0 .. q0 + kWgBQ - 1
 // (walked from the last tile, so the longest causal rows start first), and
@@ -464,9 +505,115 @@ __device__ __forceinline__ CtaTile cta_tile(int BH, int Hq, int Hkv, int Sq) {
           (bh / Hq) * Hkv + (bh % Hq) / (Hq / Hkv)};
 }
 
-// One CTA of a tensor-core route.  The producer's thread issues load_q(bar)
+// Scale, softcap and mask the scores sc of keys k0 .. k0 + BK - 1 (the
+// m64nBK accumulator layout: rows qi0, qi1, columns c2, c2 + 1 of each 8)
+// in log2 units, the mask on boundary tiles only, then the online
+// softmax: the running row maxima (m0, m1) and this thread's share of the
+// row sums (l0, l1) move on, sc becomes P, and alpha0, alpha1 are what the
+// accumulator's rows qi0, qi1 are to be rescaled by.
+template <int BK>
+__device__ __forceinline__ void online_softmax(float (&sc)[BK / 2], const Mask& mk, int k0,
+                                               int wq0, int wq_last, int qi0, int qi1, int c2,
+                                               float& m0, float& m1, float& l0, float& l1,
+                                               float& alpha0, float& alpha1) {
+  // scores in log2 units: s * scale * log2(e), or, with a softcap,
+  // softcap * log2(e) * tanh(s * scale / softcap)
+  const float pre = mk.use_softcap ? mk.scale / mk.softcap : mk.scale * kLog2e;
+  const float post = mk.softcap * kLog2e;
+  // does any (row, key) of this tile fall outside the visible band?
+  const bool edge = k0 + BK > mk.Skv || (mk.causal && k0 + BK - 1 > wq0) ||
+                    (mk.use_window && static_cast<long long>(wq_last) - k0 >= mk.window);
+  // rows past Sq are not tested: they are never stored (testing them
+  // through Mask::visible made the route 18% slower at gemma2-2b's
+  // global layer on an H100, chip_smoke.py)
+  auto visible = [&](int qi, int kj) {
+    return kj < mk.Skv && (!mk.causal || qi >= kj) &&
+           (!mk.use_window || static_cast<long long>(qi) - kj < mk.window);
+  };
+  // each step a loop of its own, the uniform tests (softcap, edge) outside
+  // the loops: a test inside one splits it into a block per score, and the
+  // scores' chains no longer interleave
+  if (mk.use_softcap) {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sc[i] = post * tanhf(sc[i] * pre);
+  } else {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sc[i] *= pre;
+  }
+  if (edge) {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i)
+      if (!visible((i & 2) ? qi1 : qi0, k0 + 8 * (i / 4) + c2 + (i & 1))) sc[i] = kNegInf;
+  }
+  float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    if (i & 2) mx1 = fmaxf(mx1, sc[i]);
+    else mx0 = fmaxf(mx0, sc[i]);
+  }
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
+  alpha0 = exp2_approx(m0 - n0);
+  alpha1 = exp2_approx(m1 - n1);
+  m0 = n0;
+  m1 = n1;
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) sc[i] = exp2_approx(sc[i] - ((i & 2) ? n1 : n0));
+  if (edge) {  // a row that sees no key of the tile has n = -1e30 and 2^0 = 1 there
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i)
+      if (!visible((i & 2) ? qi1 : qi0, k0 + 8 * (i / 4) + c2 + (i & 1))) sc[i] = 0.f;
+  }
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    if (i & 2) sum1 += sc[i];
+    else sum0 += sc[i];
+  }
+  l0 = alpha0 * l0 + sum0;
+  l1 = alpha1 * l1 + sum1;
+}
+
+// The epilogue of a consumer thread: the row sums over the four threads of
+// a row, o = acc / max(l, 1e-30) in T for rows qi0, qi1 below Sq (the
+// first D of the accumulator's DA columns), and, given lse, each row's
+// (m + log2 l) ln 2 (m is in log2 units), +inf for a row that saw no key.
+template <int D, int DA, typename T>
+__device__ __forceinline__ void store_rows(const float (&acc)[DA / 2], float m0, float m1,
+                                           float l0, float l1, const Mask& mk, int bh, int qi0,
+                                           int qi1, int c2, int lane, T* __restrict__ o,
+                                           float* __restrict__ lse) {
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  T* og = o + static_cast<size_t>(bh) * mk.Sq * D;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + c2;
+    if (qi0 < mk.Sq)
+      store_pair(og + static_cast<size_t>(qi0) * D + col, acc[4 * j] / d0, acc[4 * j + 1] / d0);
+    if (qi1 < mk.Sq)
+      store_pair(og + static_cast<size_t>(qi1) * D + col, acc[4 * j + 2] / d1,
+                 acc[4 * j + 3] / d1);
+  }
+  if (lse != nullptr && lane % 4 == 0) {
+    constexpr float kLn2 = 0.6931471805599453f;
+    float* row = lse + static_cast<size_t>(bh) * mk.Sq;
+    if (qi0 < mk.Sq) row[qi0] = l0 > 0.f ? (m0 + log2f(l0)) * kLn2 : INFINITY;
+    if (qi1 < mk.Sq) row[qi1] = l1 > 0.f ? (m1 + log2f(l1)) * kLn2 : INFINITY;
+  }
+}
+
+// One CTA of the tf32x3 route.  The producer's thread issues load_q(bar)
 // (q_bytes), then for key tile t (keys from k0 = band.begin + t*BK, the
-// band's first key rounded down to a multiple of ALIGN) load_k(s, k0, bar)
+// band's first key rounded down to a multiple of BK) load_k(s, k0, bar)
 // and load_v(s, k0, bar) into stage s = t % STAGES (kv_bytes each), once
 // the eight consumer warps have released the stage.  Each consumer runs
 // on_q() once the query tile has landed, then per tile whose keys its rows
@@ -480,17 +627,15 @@ __device__ __forceinline__ CtaTile cta_tile(int BH, int Hq, int Hkv, int Sq) {
 //                   waits for V on (v_bar, parity) and adds P V to the
 //                   accumulator acc rescaled by alpha (row qi0, qi1);
 // then releases the stage, and last stores o = acc / max(l, 1e-30) in T
-// and, given lse, each row's (m + log2 l) ln 2 (m is in log2 units).  The
-// accumulator spans DA >= D columns (the wgmma route pads D = 160 to 192);
-// only the first D are stored.
-template <int D, int DA, int BK, int STAGES, int ALIGN, typename T, typename LoadQ,
+// and, given lse, each row's (m + log2 l) ln 2 (m is in log2 units).
+template <int D, int BK, int STAGES, typename T, typename LoadQ,
           typename LoadK, typename LoadV, typename OnQ, typename Scores, typename Values>
 __device__ __forceinline__ void run_cta(const Ring<STAGES> ring, const Mask& mk, const CtaTile& ct,
                                         uint32_t q_bytes, uint32_t kv_bytes, T* __restrict__ o,
                                         float* __restrict__ lse, LoadQ load_q, LoadK load_k,
                                         LoadV load_v, OnQ on_q, Scores scores, Values values) {
   KeyBand band = key_band(mk, ct.q0, min(ct.q0 + kWgBQ, mk.Sq) - 1);
-  band.begin = band.begin / ALIGN * ALIGN;
+  band.begin = band.begin / BK * BK;
   const int n_tiles =
       band.end > band.begin ? static_cast<int>((band.end - band.begin + BK - 1) / BK) : 0;
 
@@ -537,14 +682,10 @@ __device__ __forceinline__ void run_cta(const Ring<STAGES> ring, const Mask& mk,
   const int c2 = 2 * (lane % 4);                       // and columns c2, c2 + 1 of each 8
   const KeyBand wk = key_band(mk, wq0, wq_last);
 
-  float acc[DA / 2];
+  float acc[D / 2];
 #pragma unroll
-  for (int i = 0; i < DA / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // l: this thread's share
-  // scores in log2 units: s * scale * log2(e), or, with a softcap,
-  // softcap * log2(e) * tanh(s * scale / softcap)
-  const float pre = mk.use_softcap ? mk.scale / mk.softcap : mk.scale * kLog2e;
-  const float post = mk.softcap * kLog2e;
 
   if (n_tiles > 0) {
     mbar_wait(ring.q, 0);
@@ -559,47 +700,8 @@ __device__ __forceinline__ void run_cta(const Ring<STAGES> ring, const Mask& mk,
     if (active) {
       float sc[BK / 2];
       scores(s, sc);
-
-      // does any (row, key) of this tile fall outside the visible band?
-      const bool edge = k0 + BK > mk.Skv || (mk.causal && k0 + BK - 1 > wq0) ||
-                        (mk.use_window && static_cast<long long>(wq_last) - k0 >= mk.window);
-      // rows past Sq are not tested: they are never stored (testing them
-      // through Mask::visible made the route 18% slower at gemma2-2b's
-      // global layer on an H100, chip_smoke.py)
-      auto visible = [&](int qi, int kj) {
-        return kj < mk.Skv && (!mk.causal || qi >= kj) &&
-               (!mk.use_window || static_cast<long long>(qi) - kj < mk.window);
-      };
-      float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-      for (int i = 0; i < BK / 2; ++i) {
-        float x = sc[i] * pre;
-        if (mk.use_softcap) x = post * tanhf(x);
-        if (edge && !visible((i & 2) ? qi1 : qi0, k0 + 8 * (i / 4) + c2 + (i & 1))) x = kNegInf;
-        sc[i] = x;
-        if (i & 2) mx1 = fmaxf(mx1, x);
-        else mx0 = fmaxf(mx0, x);
-      }
-#pragma unroll
-      for (int off = 1; off <= 2; off <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-      }
-      const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
-      const float alpha0 = exp2_approx(m0 - n0), alpha1 = exp2_approx(m1 - n1);
-      m0 = n0;
-      m1 = n1;
-      float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-      for (int i = 0; i < BK / 2; ++i) {
-        float p = exp2_approx(sc[i] - ((i & 2) ? n1 : n0));
-        if (edge && !visible((i & 2) ? qi1 : qi0, k0 + 8 * (i / 4) + c2 + (i & 1))) p = 0.f;
-        sc[i] = p;
-        if (i & 2) sum1 += p;
-        else sum0 += p;
-      }
-      l0 = alpha0 * l0 + sum0;
-      l1 = alpha1 * l1 + sum1;
+      float alpha0, alpha1;
+      online_softmax<BK>(sc, mk, k0, wq0, wq_last, qi0, qi1, c2, m0, m1, l0, l1, alpha0, alpha1);
       values(s, ring.v_full(s), parity, sc, alpha0, alpha1, acc);
     } else {
       mbar_wait(ring.v_full(s), parity);
@@ -607,33 +709,23 @@ __device__ __forceinline__ void run_cta(const Ring<STAGES> ring, const Mask& mk,
     __syncwarp();
     if (lane == 0) mbar_arrive(ring.empty(s));
   }
-
-  // the row sums over the four threads of a row; o = acc / max(l, 1e-30)
-#pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-  T* og = o + static_cast<size_t>(ct.bh) * mk.Sq * D;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int col = 8 * j + c2;
-    if (qi0 < mk.Sq)
-      store_pair(og + static_cast<size_t>(qi0) * D + col, acc[4 * j] / d0, acc[4 * j + 1] / d0);
-    if (qi1 < mk.Sq)
-      store_pair(og + static_cast<size_t>(qi1) * D + col, acc[4 * j + 2] / d1,
-                 acc[4 * j + 3] / d1);
-  }
-  if (lse != nullptr && lane % 4 == 0) {
-    constexpr float kLn2 = 0.6931471805599453f;
-    float* row = lse + static_cast<size_t>(ct.bh) * mk.Sq;
-    if (qi0 < mk.Sq) row[qi0] = l0 > 0.f ? (m0 + log2f(l0)) * kLn2 : INFINITY;
-    if (qi1 < mk.Sq) row[qi1] = l1 > 0.f ? (m1 + log2f(l1)) * kLn2 : INFINITY;
-  }
+  store_rows<D, D>(acc, m0, m1, l0, l1, mk, ct.bh, qi0, qi1, c2, lane, o, lse);
 }
 
 // ---- the wgmma route's CTA
+
+// the barriers of a pipelined CTA, 8 bytes each from q: q, k_full[STAGES],
+// v_full[STAGES], k_empty[STAGES], v_empty[STAGES] (K and V are released
+// apart: a tile's K when its S has landed, its V when its P V has)
+template <int STAGES>
+struct PipeRing {
+  static constexpr uint32_t kBytes = 8 * (1 + 4 * STAGES);
+  uint32_t q;
+  __device__ __forceinline__ uint32_t k_full(int s) const { return q + 8u * (1 + s); }
+  __device__ __forceinline__ uint32_t v_full(int s) const { return q + 8u * (1 + STAGES + s); }
+  __device__ __forceinline__ uint32_t k_empty(int s) const { return q + 8u * (1 + 2 * STAGES + s); }
+  __device__ __forceinline__ uint32_t v_empty(int s) const { return q + 8u * (1 + 3 * STAGES + s); }
+};
 
 // Shared memory of a CTA, from a 1024-byte aligned base: the query tile
 // (kBoxes boxes of 128 rows x 128 B), then STAGES K tiles and STAGES V tiles
@@ -649,70 +741,177 @@ struct WgLayout {
   static constexpr uint32_t kK = kQBytes;
   static constexpr uint32_t kV = kK + STAGES * kKVBytes;
   static constexpr uint32_t kBar = kV + STAGES * kKVBytes;
-  static constexpr size_t kSmemBytes = kBar + Ring<STAGES>::kBytes + 1024;  // + alignment slack
+  static constexpr size_t kSmemBytes = kBar + PipeRing<STAGES>::kBytes + 1024;  // + slack
 };
 
-// PTERMS = 2 is the route; 1 adds P as one bf16 term (hazard 1)
-template <int D, int BK, int STAGES, int PTERMS>
+// P as bf16 A-fragments (the accumulator's layout is the A operand's):
+// fragment kk covers keys 16kk .. 16kk + 15; with PTERMS = 2 p_lo holds
+// bf16(p - p_hi) (hazard 1)
+template <int BK, int PTERMS>
+__device__ __forceinline__ void p_frags(const float (&p)[BK / 2], uint32_t (&p_hi)[BK / 16][4],
+                                        uint32_t (&p_lo)[BK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float a = p[8 * kk + 2 * e], b = p[8 * kk + 2 * e + 1];
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(a, b);
+      p_hi[kk][e] = bf16x2_bits(hi);
+      if (PTERMS == 2)
+        p_lo[kk][e] = bf16x2_bits(__floats2bfloat162_rn(a - __low2float(hi),
+                                                        b - __high2float(hi)));
+    }
+}
+
+constexpr int kTurnBar = 3;  // named barrier kTurnBar + cw: consumer cw's turn to issue
+constexpr int kTraceSteps = 256, kTraceMarks = 8;
+
+// The pipelined schedule.  Consumer step t issues S_t = Q K_t^T and then
+// O += P_{t-1} V_{t-1}, waits for S_t alone, runs tile t's softmax while
+// the tensor cores take P V, waits for P V, rescales O by tile t's alpha and
+// turns S_t into P_t.  Both consumers step through every key tile of the
+// CTA (with PINGPONG they take turns to issue through two named barriers,
+// so that one's softmax runs under the other's products); a consumer
+// issues products only for its own tiles [ta, tb).  P V's N is DA: D, or D
+// rounded up to whole boxes (hazard 7).  PTERMS = 2 is the route; 1 adds P
+// as one bf16 term (hazard 1).
+// TRACE = 1 (card_probe.py's build only) has thread 0 of each consumer of
+// CTA 0 write clock64() at kTraceMarks points of each of its first
+// kTraceSteps steps ta < t < tb into trace[(cw * kTraceSteps + step) *
+// kTraceMarks + mark]: the step's start, K and V landed, the turn taken,
+// the products issued, S landed, the softmax done, P V landed, P ready.
+template <int D, int DA, int BK, int STAGES, int PINGPONG, int PTERMS, int TRACE>
 __global__ void __launch_bounds__(kWgThreads, 1)
-flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                   const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
-                   float* __restrict__ lse, int BH, int Hq, int Hkv, const Mask mk) {
+flash_pipe_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                  float* __restrict__ lse, int BH, int Hq, int Hkv, const Mask mk,
+                  uint32_t* __restrict__ trace) {
   using L = WgLayout<D, BK, STAGES>;
+  static_assert(DA == L::kPadD || DA == D, "P V's N is D or D rounded up to whole boxes");
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const CtaTile ct = cta_tile(BH, Hq, Hkv, mk.Sq);
-  const uint32_t q_tile = base + (threadIdx.x / 128) * 64 * 128;  // a consumer's 64 rows
-  const CUtensorMap *map_q = &tq, *map_k = &tk, *map_v = &tv;
+  const PipeRing<STAGES> ring{base + L::kBar};
+  const KeyBand band = key_band(mk, ct.q0, min(ct.q0 + kWgBQ, mk.Sq) - 1);
+  const int n_tiles =
+      band.end > band.begin ? static_cast<int>((band.end - band.begin + BK - 1) / BK) : 0;
 
-  auto load_q = [&](uint32_t bar) {
-    for (int b = 0; b < L::kBoxes; ++b)
-      tma_load_3d(base + b * kWgBQ * 128, map_q, bar, 64 * b, ct.q0, ct.bh);
+  if (threadIdx.x == 0) {
+    mbar_init(ring.q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(ring.k_full(s), 1);
+      mbar_init(ring.v_full(s), 1);
+      mbar_init(ring.k_empty(s), 8);  // one arrival per consumer warp
+      mbar_init(ring.v_empty(s), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 2 * 128) {
+    // ---- producer warpgroup: one thread issues every copy, K of tile t
+    // before V of tile t - 1 (the consumers' step t reads both)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 2 * 128 && n_tiles > 0) {
+      const CUtensorMap *map_q = &tq, *map_k = &tk, *map_v = &tv;
+      mbar_expect_tx(ring.q, L::kQBytes);
+      for (int b = 0; b < L::kBoxes; ++b)
+        tma_load_3d(base + b * kWgBQ * 128, map_q, ring.q, 64 * b, ct.q0, ct.bh);
+      for (int t = 0; t <= n_tiles; ++t) {
+        if (t < n_tiles) {
+          const int s = t % STAGES;
+          if (t >= STAGES) mbar_wait(ring.k_empty(s), (t / STAGES - 1) & 1);
+          const int k0 = static_cast<int>(band.begin + static_cast<long long>(t) * BK);
+          mbar_expect_tx(ring.k_full(s), L::kKVBytes);
+          for (int b = 0; b < L::kBoxes; ++b)
+            tma_load_3d(base + L::kK + s * L::kKVBytes + b * BK * 128, map_k, ring.k_full(s),
+                        64 * b, k0, ct.kvh);
+        }
+        if (t > 0) {
+          const int u = t - 1, s = u % STAGES;
+          if (u >= STAGES) mbar_wait(ring.v_empty(s), (u / STAGES - 1) & 1);
+          const int k0 = static_cast<int>(band.begin + static_cast<long long>(u) * BK);
+          mbar_expect_tx(ring.v_full(s), L::kKVBytes);
+          for (int b = 0; b < L::kBoxes; ++b)
+            tma_load_3d(base + L::kV + s * L::kKVBytes + b * BK * 128, map_v, ring.v_full(s),
+                        64 * b, k0, ct.kvh);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup cw: query rows q0 + 64*cw .. + 63
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  // cw broadcast from lane 0, so that the compiler knows it (and every
+  // branch on it) to be warp-uniform
+  const int cw = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  const int tid = threadIdx.x % 128;
+  const int lane = tid % 32;
+  const int wq0 = ct.q0 + 64 * cw;
+  const int wq_last = min(wq0 + 63, mk.Sq - 1);
+  const int qi0 = wq0 + 16 * (tid / 32) + lane / 4;  // this thread's rows qi0, qi0 + 8
+  const int qi1 = qi0 + 8;
+  const int c2 = 2 * (lane % 4);                       // and columns c2, c2 + 1 of each 8
+  const uint32_t q_tile = base + cw * 64 * 128;        // this consumer's 64 rows of Q
+  // the tiles whose keys this consumer's rows can see: [ta, tb)
+  int ta = 0, tb = 0;
+  if (wq0 <= wq_last) {
+    const KeyBand wk = key_band(mk, wq0, wq_last);
+    if (wk.end > wk.begin) {
+      ta = static_cast<int>((wk.begin - band.begin) / BK);
+      tb = min(n_tiles, static_cast<int>((wk.end - band.begin + BK - 1) / BK));
+    }
+  }
+
+  float acc[DA / 2];
+#pragma unroll
+  for (int i = 0; i < DA / 2; ++i) acc[i] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // l: this thread's share
+  uint32_t p_hi[BK / 16][4], p_lo[BK / 16][4];  // P of the tile before, bf16 A-fragments
+
+  // Step t reads K_t (t < n_tiles) and V_{t-1} (t > 0): wait for them, take
+  // this consumer's turn to issue, pass it on, release them.  Consumer 1's
+  // last step passes no turn on: consumer 0 takes none after it.
+  auto wait_step = [&](int t) {
+    if (t < n_tiles) mbar_wait(ring.k_full(t % STAGES), (t / STAGES) & 1);
+    if (t > 0) mbar_wait(ring.v_full((t - 1) % STAGES), ((t - 1) / STAGES) & 1);
   };
-  auto load_k = [&](int s, int k0, uint32_t bar) {
-    for (int b = 0; b < L::kBoxes; ++b)
-      tma_load_3d(base + L::kK + s * L::kKVBytes + b * BK * 128, map_k, bar, 64 * b, k0, ct.kvh);
+  auto take_turn = [&] {
+    if (PINGPONG) named_sync(kTurnBar + cw, 256);
   };
-  auto load_v = [&](int s, int k0, uint32_t bar) {
-    for (int b = 0; b < L::kBoxes; ++b)
-      tma_load_3d(base + L::kV + s * L::kKVBytes + b * BK * 128, map_v, bar, 64 * b, k0, ct.kvh);
+  auto pass_turn = [&](int t) {
+    if (PINGPONG && !(cw == 1 && t == n_tiles)) named_arrive(kTurnBar + 1 - cw, 256);
   };
-  // S = Q K^T over D's D/16 k-steps (at D = 160 the zero columns past 160
-  // are not read)
-  auto scores = [&](int s, float (&sc)[BK / 2]) {
-    const uint32_t k_tile = base + L::kK + s * L::kKVBytes;
-    wgmma_fence();
+  auto release_k = [&](int t) {
+    __syncwarp();
+    if (t < n_tiles && lane == 0) mbar_arrive(ring.k_empty(t % STAGES));
+  };
+  auto release_v = [&](int t) {
+    __syncwarp();
+    if (t > 0 && lane == 0) mbar_arrive(ring.v_empty((t - 1) % STAGES));
+  };
+  auto pass_step = [&](int t) {  // a step without products
+    wait_step(t);
+    take_turn();
+    pass_turn(t);
+    release_k(t);
+    release_v(t);
+  };
+  // S_t = Q K_t^T over D's D/16 k-steps (at D = 160 the zero columns past
+  // 160 are not read)
+  auto issue_s = [&](int t, float (&sc)[BK / 2]) {
+    const uint32_t k_tile = base + L::kK + (t % STAGES) * L::kKVBytes;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t off = (kk % 4) * 32;
       wgmma_ss<BK>(sc, desc_sw128(q_tile + (kk / 4) * kWgBQ * 128 + off, 16, 1024),
                    desc_sw128(k_tile + (kk / 4) * BK * 128 + off, 16, 1024), kk > 0);
     }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(sc);
   };
-  constexpr int DA = L::kPadD;   // P V's N: D rounded up to whole boxes
-  auto values = [&](int s, uint32_t v_bar, uint32_t parity, float (&p)[BK / 2], float alpha0,
-                    float alpha1, float (&acc)[DA / 2]) {
-#pragma unroll
-    for (int i = 0; i < DA / 2; ++i) acc[i] *= (i & 2) ? alpha1 : alpha0;
-    // P as bf16 A-fragments: fragment kk covers keys 16kk .. 16kk + 15
-    uint32_t p_hi[BK / 16][4], p_lo[BK / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float a = p[8 * kk + 2 * e], b = p[8 * kk + 2 * e + 1];
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(a, b);
-        p_hi[kk][e] = bf16x2_bits(hi);
-        if (PTERMS == 2)
-          p_lo[kk][e] = bf16x2_bits(__floats2bfloat162_rn(a - __low2float(hi),
-                                                          b - __high2float(hi)));
-      }
-    const uint32_t v_tile = base + L::kV + s * L::kKVBytes;
-    mbar_wait(v_bar, parity);
-    wgmma_fence();
+  // O += P_{t-1} V_{t-1} (P as bf16 hi, then lo), V the B operand MN-major
+  auto issue_pv = [&](int t) {
+    const uint32_t v_tile = base + L::kV + ((t - 1) % STAGES) * L::kKVBytes;
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
       wgmma_rs<DA>(acc, p_hi[kk], desc_sw128(v_tile + kk * 16 * 128, BK * 128, 1024));
@@ -721,12 +920,97 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
       for (int kk = 0; kk < BK / 16; ++kk)
         wgmma_rs<DA>(acc, p_lo[kk], desc_sw128(v_tile + kk * 16 * 128, BK * 128, 1024));
     }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(acc);
   };
-  run_cta<D, DA, BK, STAGES, 1>(Ring<STAGES>{base + L::kBar}, mk, ct, L::kQBytes, L::kKVBytes,
-                                o, lse, load_q, load_k, load_v, [] {}, scores, values);
+  // keep the registers a P V product reads or writes where it finds them
+  // until its wait (the compiler does not know that the product runs on)
+  auto fence_pv = [&] {
+    fence_regs(acc);
+    fence_regs(p_hi);
+    if (PTERMS == 2) fence_regs(p_lo);
+  };
+  auto key0 = [&](int t) { return static_cast<int>(band.begin + static_cast<long long>(t) * BK); };
+
+  // The steps before ta and after tb only pass the ring and the turns on.
+  // Step ta issues S alone, steps ta < t < tb issue S_t and then P V of the
+  // tile before and run tile t's softmax while P V runs, step tb issues the
+  // last P V alone.  Each step's products are fenced, issued, committed and
+  // waited for on one path: a wait that depends on which products were
+  // issued makes ptxas serialize them all (hazard 8).
+  if (PINGPONG && cw == 1) named_arrive(kTurnBar, 256);  // consumer 0 takes the first turn
+  int t = 0;
+  for (; t < ta; ++t) pass_step(t);
+  if (ta < tb) {
+    mbar_wait(ring.q, 0);
+    {
+      wait_step(t);
+      take_turn();
+      float sc[BK / 2];
+      wgmma_fence();
+      issue_s(t, sc);
+      wgmma_commit();
+      pass_turn(t);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      float alpha0, alpha1;  // acc is still 0: nothing to rescale
+      online_softmax<BK>(sc, mk, key0(t), wq0, wq_last, qi0, qi1, c2, m0, m1, l0, l1, alpha0,
+                         alpha1);
+      release_k(t);
+      release_v(t);
+      p_frags<BK, PTERMS>(sc, p_hi, p_lo);
+    }
+    for (++t; t < tb; ++t) {
+      auto mark = [&](int m) {
+        if (TRACE && blockIdx.x == 0 && tid == 0 && t - ta - 1 < kTraceSteps)
+          trace[(cw * kTraceSteps + t - ta - 1) * kTraceMarks + m] =
+              static_cast<uint32_t>(clock64());
+      };
+      mark(0);
+      wait_step(t);
+      mark(1);
+      take_turn();
+      mark(2);
+      float sc[BK / 2];
+      fence_pv();
+      wgmma_fence();
+      issue_s(t, sc);
+      wgmma_commit();
+      issue_pv(t);
+      wgmma_commit();
+      pass_turn(t);
+      mark(3);
+      wgmma_wait<1>();  // S_t has landed; P V runs on
+      fence_regs(sc);
+      mark(4);
+      float alpha0, alpha1;
+      online_softmax<BK>(sc, mk, key0(t), wq0, wq_last, qi0, qi1, c2, m0, m1, l0, l1, alpha0,
+                         alpha1);
+      mark(5);
+      release_k(t);
+      wgmma_wait<0>();
+      fence_pv();
+      mark(6);
+      release_v(t);
+#pragma unroll
+      for (int i = 0; i < DA / 2; ++i) acc[i] *= (i & 2) ? alpha1 : alpha0;
+      p_frags<BK, PTERMS>(sc, p_hi, p_lo);
+      mark(7);
+    }
+    // step tb: the last P V alone
+    wait_step(t);
+    take_turn();
+    fence_pv();
+    wgmma_fence();
+    issue_pv(t);
+    wgmma_commit();
+    pass_turn(t);
+    wgmma_wait<0>();
+    fence_pv();
+    release_k(t);
+    release_v(t);
+    ++t;
+  }
+  for (; t <= n_tiles; ++t) pass_step(t);
+  store_rows<D, DA>(acc, m0, m1, l0, l1, mk, ct.bh, qi0, qi1, c2, lane, o, lse);
 }
 
 // --------------------------------------------------------------- tf32x3 route
@@ -968,50 +1252,53 @@ flash_tf32x3_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
     for (int i = 0; i < D / 2; ++i) acc[i] = fmaf(acc[i], (i & 2) ? alpha1 : alpha0, pv[i]);
   };
   // key tiles start on a multiple of BK, so V^T's groups of 8 never straddle one (hazard 2)
-  run_cta<D, D, BK, kTfStages, BK>(Ring<kTfStages>{base + L::kBar}, mk, ct, L::kQHalf,
-                                   L::kKVBytes, o, lse, load_q, load_k, load_v, split_q, scores,
-                                   values);
+  run_cta<D, BK, kTfStages>(Ring<kTfStages>{base + L::kBar}, mk, ct, L::kQHalf, L::kKVBytes, o,
+                            lse, load_q, load_k, load_v, split_q, scores, values);
 }
 
-template <int D, int BK, int STAGES, int PTERMS>
+// A plan of the wgmma route at head width D: P V's N (DA), keys of a tile
+// (BK), ring stages and whether the two consumers take turns to issue
+template <int D_, int DA_, int BK_, int STAGES_, bool TURNS>
+struct WgPlan {
+  static constexpr int D = D_, DA = DA_, BK = BK_, STAGES = STAGES_;
+  static constexpr bool kTurns = TURNS;
+  static constexpr size_t kSmemBytes = WgLayout<D_, BK_, STAGES_>::kSmemBytes;
+  template <int PTERMS, int TRACE = 0>
+  static constexpr auto kernel() {
+    return flash_pipe_kernel<D_, DA_, BK_, STAGES_, TURNS, PTERMS, TRACE>;
+  }
+};
+
+template <class P, int PTERMS, int TRACE = 0>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
-                         int B, int Hq, int Hkv, const Mask& mk, cudaStream_t stream) {
-  constexpr size_t bytes = WgLayout<D, BK, STAGES>::kSmemBytes;
+                         int B, int Hq, int Hkv, const Mask& mk, cudaStream_t stream,
+                         uint32_t* trace = nullptr) {
+  constexpr size_t bytes = P::kSmemBytes;
   static_assert(bytes <= 232448, "tiles exceed a block's shared memory");
+  constexpr auto kernel = P::template kernel<PTERMS, TRACE>();
   CUtensorMap tq, tk, tv;
-  cudaError_t err = make_map(&tq, q, B * Hq, mk.Sq, D, kWgBQ);
-  if (err == cudaSuccess) err = make_map(&tk, k, B * Hkv, mk.Skv, D, BK);
-  if (err == cudaSuccess) err = make_map(&tv, v, B * Hkv, mk.Skv, D, BK);
+  cudaError_t err = make_map(&tq, q, B * Hq, mk.Sq, P::D, kWgBQ);
+  if (err == cudaSuccess) err = make_map(&tk, k, B * Hkv, mk.Skv, P::D, P::BK);
+  if (err == cudaSuccess) err = make_map(&tv, v, B * Hkv, mk.Skv, P::D, P::BK);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_wgmma_kernel<D, BK, STAGES, PTERMS>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   const int BH = B * Hq;
   const unsigned blocks = static_cast<unsigned>(BH) * ((mk.Sq + kWgBQ - 1) / kWgBQ);
-  flash_wgmma_kernel<D, BK, STAGES, PTERMS><<<blocks, kWgThreads, bytes, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, BH, Hq, Hkv, mk);
+  kernel<<<blocks, kWgThreads, bytes, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse,
+                                                BH, Hq, Hkv, mk, trace);
   return cudaGetLastError();
 }
 
-// f(integral_constant<D>, <BK>, <STAGES>): the wgmma route's tiles at D
-// (hazard 7 for D = 160)
+// f(WgPlan): the wgmma route's plan at D (the top of this file)
 template <typename F>
 cudaError_t wgmma_tiles(int D, F&& f) {
-  using std::integral_constant;
   switch (D) {
-    case 64:
-      return f(integral_constant<int, 64>{}, integral_constant<int, 128>{},
-               integral_constant<int, 3>{});
-    case 128:
-      return f(integral_constant<int, 128>{}, integral_constant<int, 128>{},
-               integral_constant<int, 2>{});
-    case 160:
-      return f(integral_constant<int, 160>{}, integral_constant<int, 64>{},
-               integral_constant<int, 3>{});
-    case 256:
-      return f(integral_constant<int, 256>{}, integral_constant<int, 64>{},
-               integral_constant<int, 2>{});
+    case 64: return f(WgPlan<64, 64, 64, 4, false>{});
+    case 128: return f(WgPlan<128, 128, 64, 3, false>{});
+    case 160: return f(WgPlan<160, 160, 96, 2, true>{});
+    case 256: return f(WgPlan<256, 256, 64, 2, true>{});
   }
   return cudaErrorInvalidValue;
 }
@@ -1020,9 +1307,8 @@ template <int PTERMS>
 cudaError_t dispatch_wgmma(int D, const void* q, const void* k, const void* v, void* o,
                            float* lse, int B, int Hq, int Hkv, const Mask& mk,
                            cudaStream_t stream) {
-  return wgmma_tiles(D, [&](auto d, auto bk, auto stages) {
-    return launch_wgmma<decltype(d)::value, decltype(bk)::value, decltype(stages)::value,
-                        PTERMS>(q, k, v, o, lse, B, Hq, Hkv, mk, stream);
+  return wgmma_tiles(D, [&](auto plan) {
+    return launch_wgmma<decltype(plan), PTERMS>(q, k, v, o, lse, B, Hq, Hkv, mk, stream);
   });
 }
 
@@ -1136,6 +1422,72 @@ extern "C" int flash_attention_wgmma_p_bf16(const void* q, const void* k, const 
                                             static_cast<cudaStream_t>(stream)));
 }
 
+// The plans card_probe.py times against each other at D: variant 0 is
+// wgmma_tiles' plan, the others take or drop the turns, or other tiles
+// and stages (at D = 160 PR 23's: BK = 64, 3 stages, P V at N = 192).
+template <typename F>
+cudaError_t wgmma_variants(int D, int variant, F&& f) {
+  switch (D * 16 + variant) {
+    case 64 * 16 + 0: return f(WgPlan<64, 64, 64, 4, false>{});
+    case 64 * 16 + 1: return f(WgPlan<64, 64, 64, 4, true>{});
+    case 64 * 16 + 2: return f(WgPlan<64, 64, 64, 3, false>{});
+    case 128 * 16 + 0: return f(WgPlan<128, 128, 64, 3, false>{});
+    case 128 * 16 + 1: return f(WgPlan<128, 128, 64, 3, true>{});
+    case 128 * 16 + 2: return f(WgPlan<128, 128, 96, 3, false>{});
+    case 160 * 16 + 0: return f(WgPlan<160, 160, 96, 2, true>{});
+    case 160 * 16 + 1: return f(WgPlan<160, 160, 96, 2, false>{});
+    case 160 * 16 + 2: return f(WgPlan<160, 192, 64, 3, true>{});
+    case 256 * 16 + 0: return f(WgPlan<256, 256, 64, 2, true>{});
+    case 256 * 16 + 1: return f(WgPlan<256, 256, 64, 2, false>{});
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The wgmma route on plan `variant` of wgmma_variants; arguments as
+// flash_attention_wgmma's.
+extern "C" int flash_attention_wgmma_variant(int variant, const void* q, const void* k,
+                                             const void* v, void* o, float* lse, int B, int Hq,
+                                             int Hkv, int Sq, int Skv, int D, float scale,
+                                             int causal, int use_window, int window,
+                                             int use_softcap, float softcap, void* stream) {
+  const Mask mk{Sq, Skv, scale, causal, use_window, window, use_softcap, softcap};
+  return static_cast<int>(wgmma_variants(D, variant, [&](auto plan) {
+    return launch_wgmma<decltype(plan), 2>(q, k, v, o, lse, B, Hq, Hkv, mk,
+                                           static_cast<cudaStream_t>(stream));
+  }));
+}
+
+// The wgmma route's plan at D with TRACE = 1, writing `trace` (uint32,
+// 2 * kTraceSteps * kTraceMarks); arguments as flash_attention_wgmma's.
+extern "C" int flash_attention_wgmma_trace(uint32_t* trace, const void* q, const void* k,
+                                           const void* v, void* o, float* lse, int B, int Hq,
+                                           int Hkv, int Sq, int Skv, int D, float scale,
+                                           int causal, int use_window, int window,
+                                           int use_softcap, float softcap, void* stream) {
+  const Mask mk{Sq, Skv, scale, causal, use_window, window, use_softcap, softcap};
+  return static_cast<int>(wgmma_tiles(D, [&](auto plan) {
+    return launch_wgmma<decltype(plan), 2, 1>(q, k, v, o, lse, B, Hq, Hkv, mk,
+                                              static_cast<cudaStream_t>(stream), trace);
+  }));
+}
+
+// Plan `variant` at D: out[0..4) as flash_attention_info's, then DA,
+// stages and turns (0/1).
+extern "C" int flash_attention_variant_info(int D, int variant, int* out) {
+  cudaFuncAttributes attr;
+  return static_cast<int>(wgmma_variants(D, variant, [&](auto plan) {
+    using P = decltype(plan);
+    const cudaError_t err = cudaFuncGetAttributes(&attr, P::template kernel<2>());
+    if (err == cudaSuccess) {
+      fill_info(attr, P::kSmemBytes, P::BK, out);
+      out[4] = P::DA;
+      out[5] = P::STAGES;
+      out[6] = P::kTurns;
+    }
+    return err;
+  }));
+}
+
 extern "C" int flash_attention_tf32x3_pv_hi(const void* q, const void* k, const void* v,
                                             void* o, float* lse, int B, int Hq, int Hkv,
                                             int Sq, int Skv, int D, void* scratch, float scale,
@@ -1157,11 +1509,10 @@ extern "C" int flash_attention_info(int route, int dtype, int D, int* out) {
   cudaFuncAttributes attr;
   if (route == 1) {
     if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(wgmma_tiles(D, [&](auto d, auto bk, auto stages) {
-      constexpr int DD = decltype(d)::value, BK = decltype(bk)::value;
-      constexpr int ST = decltype(stages)::value;
-      const cudaError_t err = cudaFuncGetAttributes(&attr, flash_wgmma_kernel<DD, BK, ST, 2>);
-      if (err == cudaSuccess) fill_info(attr, WgLayout<DD, BK, ST>::kSmemBytes, BK, out);
+    return static_cast<int>(wgmma_tiles(D, [&](auto plan) {
+      using P = decltype(plan);
+      const cudaError_t err = cudaFuncGetAttributes(&attr, P::template kernel<2>());
+      if (err == cudaSuccess) fill_info(attr, P::kSmemBytes, P::BK, out);
       return err;
     }));
   }

@@ -5,12 +5,13 @@ For a CUDA tensor it launches one of the three routes of
 ``csrc/flash_attention.cu`` (causal mask, sliding window, tanh softcap, GQA
 by head group, any Sq and Skv), chosen by ``route(dtype, D)`` alone:
 ``"wgmma"`` for bfloat16 at D in ``WGMMA_HEAD_DIMS`` (tensor cores fed by
-TMA, warp-specialized), ``"tf32x3"`` for float32 at D in
+TMA, warp-specialized, each consumer's softmax run while its own value
+product is on the tensor cores), ``"tf32x3"`` for float32 at D in
 ``TF32X3_HEAD_DIMS`` (the same skeleton on TF32 tensor cores, each operand
 split into TF32 hi + lo, three products; a pre-pass writes k's and v's
 split operands into scratch that the wrapper allocates), ``"ffma"`` for
 the rest: float32 at D 16/32/128/160/256 and bfloat16 at D 16 and 32.
-D 160 (zamba2-2.7b's shared attention) pads its rows to three 64-column
+D 160 (zamba2-2.7b's shared attention) loads its rows as three 64-column
 boxes on the wgmma route (the source's hazard 7).  For a CPU tensor
 it takes the plain version (``ref.attention_ref``).  Any other device
 raises, and so does anything the kernels do not take: there is no
@@ -49,8 +50,10 @@ asked for) and ``repro_torch::flash_attention_bwd`` (``(dq, dk, dv)``):
 their CUDA implementation is the ``ctypes`` launch above, their CPU one
 the plain version, and any other device raises.  Each registers a fake
 implementation (the outputs' shapes and dtypes, after the same checks of
-shapes, dtypes and head widths the card makes), so a step traces on fake
-tensors through the card's route without allocating (``launch/dryrun``),
+shapes, dtypes, head widths and grids the card makes, for any tensor not
+on the CPU: a fake ``cuda`` tensor, or a meta tensor standing for one), so
+a step traces on fake tensors through the card's route without allocating
+(``launch/dryrun``),
 and a FLOP formula for ``torch.utils.flop_counter.FlopCounterMode``: the
 forward ``4 B Hq Sq Skv D`` (``analysis/costmodel``'s convention: the full
 ``Sq x Skv`` rectangle, masked pairs included, as
@@ -244,7 +247,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causa
 @flash_attention_fwd.register_fake
 def _(q, k, v, causal, window, softcap, with_lse):
     _check_shapes(q, k, v)
-    if q.device.type == "cuda":
+    if q.device.type != "cpu":      # the card's limits (a meta tensor stands for one)
         kernel_route(q, k, v)
     lse = (torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
            if with_lse else _no_lse(q))
@@ -346,7 +349,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 @flash_attention_bwd.register_fake
 def _(q, k, v, o, do, lse, causal, window, softcap):
-    if q.device.type == "cuda":
+    if q.device.type != "cpu":
         _check_bwd(q, k, v, o, do, lse)
     return tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
                  for t in (q, k, v))

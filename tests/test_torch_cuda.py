@@ -761,17 +761,83 @@ def test_flash_bwd_refuses_what_it_does_not_take(cuda_device):
 
 
 def test_flash_forward_builds_spill_nothing(cuda_device):
-    """Every tensor-core build of the forward (wgmma at each of its widths,
-    D 160's three boxes among them; tf32x3) and the ffma build at float32 D
-    160 keep their registers (no local bytes) and fit a block's shared
-    memory; D 160 streams 64-key tiles."""
+    """Every tensor-core build of the forward (wgmma's pipelined plan at each
+    of its widths, D 160's three boxes among them; tf32x3), the ffma build
+    at float32 D 160 and every plan the probe build holds beside them
+    (``flash_attention_variant_info``: the alternatives card_probe.py
+    times) keep their registers (no local bytes) and fit a block's shared
+    memory; D 160 streams 96-key tiles, the other widths 64-key tiles."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
     builds = [(torch.bfloat16, D) for D in flash_ops.WGMMA_HEAD_DIMS]
     builds += [(torch.float32, 64), (torch.float32, 160)]
     for dtype, D in builds:
         info = flash_ops.kernel_info(dtype, D)
         assert info["local_bytes"] == 0, (dtype, D, info)
         assert 0 < info["shared_bytes"] <= 232448
-    assert flash_ops.kernel_info(torch.bfloat16, 160)["key_rows"] == 64
+    assert {D: flash_ops.kernel_info(torch.bfloat16, D)["key_rows"]
+            for D in flash_ops.WGMMA_HEAD_DIMS} == {64: 64, 128: 64, 160: 96, 256: 64}
+    fn = _build.load_probe("flash_attention", "FLASH_PROBES").flash_attention_variant_info
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    for D in flash_ops.WGMMA_HEAD_DIMS:
+        plans = 0
+        while True:
+            vals = (ctypes.c_int * 7)()
+            if fn(D, plans, ctypes.addressof(vals)):
+                break
+            assert vals[1] == 0 and 0 < vals[2] <= 232448, (D, plans, list(vals))
+            plans += 1
+        assert plans >= 2, (D, plans)
+
+
+# the wgmma route's served shapes at batch 1: (B, Hq, Hkv, Sq, Skv, D, mask)
+SERVED_SHAPES = {
+    "pixtral": (1, 32, 8, 1088, 1088, 128, dict(causal=True)),
+    "zamba2": (1, 32, 32, 4096, 4096, 160, dict(causal=True)),
+    "seamless_enc": (1, 16, 16, 1024, 1024, 64, dict(causal=False)),
+    "deepseek": (1, 16, 16, 512, 512, 128, dict(causal=True)),
+}
+
+
+@pytest.mark.parametrize("name", list(SERVED_SHAPES))
+def test_flash_served_shapes_match_plain_version(cuda_device, name):
+    """The wgmma route's pipelined schedule at pixtral-12b's, zamba2-2.7b's,
+    seamless-m4t-large-v2's encoder and deepseek-moe-16b's prefill shapes
+    (batch 1) against the plain version within 2e-5 + 2^-6 |want|, o and its
+    log-sum-exp; one launch each on the wgmma route."""
+    B, Hq, Hkv, Sq, Skv, D, kw = SERVED_SHAPES[name]
+    g = torch.Generator(cuda_device).manual_seed(D)
+    q = torch.randn(B, Hq, Sq, D, generator=g, device=cuda_device).bfloat16()
+    k, v = (torch.randn(B, Hkv, Skv, D, generator=g, device=cuda_device).bfloat16()
+            for _ in range(2))
+    before = flash_ops.attention.route_launches["wgmma"]
+    o, lse = flash_ops.attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert flash_ops.attention.route_launches["wgmma"] == before + 1
+    want, want_lse = flash_ref.attention_ref(q, k, v, return_lse=True, **kw)
+    torch.testing.assert_close(o.float(), want.float(), atol=2e-5, rtol=2.0 ** -6)
+    torch.testing.assert_close(lse, want_lse, atol=LSE_TOL, rtol=LSE_TOL)
+
+
+@pytest.mark.parametrize("D", [64, 128, 160, 256])
+def test_flash_forward_repeats_bit_for_bit(cuda_device, D):
+    """The pipelined schedule sums in a fixed order: a second launch on the
+    same inputs (causal, GQA 4, a window and a softcap, ragged length) gives
+    the same bytes, with and without the log-sum-exp."""
+    g = torch.Generator(cuda_device).manual_seed(D + 3)
+    q = torch.randn(1, 8, 777, D, generator=g, device=cuda_device).bfloat16()
+    k, v = (torch.randn(1, 2, 777, D, generator=g, device=cuda_device).bfloat16()
+            for _ in range(2))
+    for kw in (dict(causal=True), dict(causal=True, window=300, softcap=50.0)):
+        first = flash_ops.attention(q, k, v, **kw)
+        assert_same(flash_ops.attention(q, k, v, **kw), first, f"D={D} {kw}")
+        o, lse = flash_ops.attention(q, k, v, return_lse=True, **kw)
+        o2, lse2 = flash_ops.attention(q, k, v, return_lse=True, **kw)
+        assert_same(o, first, f"D={D} {kw} with the log-sum-exp")
+        assert_same(o2, o, f"D={D} {kw}")
+        assert_same(lse2, lse, f"D={D} {kw} log-sum-exp")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -767,3 +767,84 @@ def test_attention_backward_at_d160_runs_the_plain_version_on_cpu(dtype):
     assert got[3:] == (None, None, None, None)
     for g, w in zip(got, ref.attention_bwd_ref(q, k, v, o, do, lse, **kw)):
         assert torch.equal(g, w)
+
+
+# ---- the wgmma route's served head layouts, and the limits the card sets
+
+# (name, B, Hq, Hkv, Sq, Skv, D, options, bq, bk): pixtral-12b's GQA 32/8 at
+# D 128, zamba2-2.7b's MHA at D 160, seamless-m4t-large-v2's non-causal
+# encoder (and its cross-attention, Sq != Skv) at D 64, deepseek-moe-16b's
+# MHA at D 128, at lengths no multiple of 64 or 128; the reference kernel's
+# tiles (bq, bk) divide them
+SERVED_LAYOUTS = [
+    ("gqa_32_8_d128", 1, 32, 8, 72, 72, 128, dict(causal=True), 72, 72),
+    ("mha_d160", 1, 4, 4, 100, 100, 160, dict(causal=True), 50, 50),
+    ("noncausal_d64", 2, 4, 4, 136, 136, 64, dict(causal=False), 68, 68),
+    ("noncausal_cross_d64", 2, 4, 4, 40, 136, 64, dict(causal=False), 40, 68),
+    ("mha_d128", 2, 4, 4, 200, 200, 128, dict(causal=True), 100, 40),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name,B,Hq,Hkv,Sq,Skv,D,kw,bq,bk", SERVED_LAYOUTS)
+def test_served_layouts_match_the_reference_kernel(name, B, Hq, Hkv, Sq, Skv, D, kw, bq, bk,
+                                                   dtype):
+    """The port's attention (the plain version on CPU tensors; the card's
+    wgmma route is held against it in tests/test_torch_cuda.py and the
+    smoke's phase 3b) at each served head layout of the wgmma route,
+    against the reference's Pallas kernel in interpret mode and its oracle,
+    within the file's tolerances."""
+    jdt, tdt, tol = DTYPES[dtype]
+    arrays = _inputs(B, Hq, Hkv, Sq, Skv, D, seed=Sq + D)
+    got = _f32(ops.attention(*(torch.from_numpy(a).to(tdt) for a in arrays), **kw))
+    jq, jk, jv = (jnp.asarray(a, jdt) for a in arrays)
+    kern = _f32(j_flash.flash_attention(jq, jk, jv, interpret=True, bq=bq, bk=bk, **kw))
+    want = _f32(j_ref.attention_ref(jq, jk, jv, **kw))
+    assert got.shape == (B, Hq, Sq, D)
+    _close(got, kern, tol)
+    _close(got, want, tol)
+
+
+def test_fake_refuses_what_the_card_refuses():
+    """The forward op's fake implementation (what a traced step runs in
+    place of a launch) raises where the wrapper raises before a launch
+    (``ops.kernel_route``), with the same message, on meta tensors standing
+    for the card's: a head width no route takes, a dtype, and each route's
+    int32 grid of query tiles (``TILE_ROWS`` rows a tile); one tile short
+    of a grid's limit it gives the card's output shapes."""
+    def meta(*shape, dtype=torch.bfloat16):
+        return torch.empty(*shape, dtype=dtype, device="meta")
+
+    f32, f16 = torch.float32, torch.float16
+    refused = [
+        (meta(1, 2, 8, 48), meta(1, 2, 8, 48)),                                 # head width
+        (meta(1, 2, 8, 64, dtype=f16), meta(1, 2, 8, 64, dtype=f16)),           # dtype
+        (meta(1, 2**24, 2**14, 64), meta(1, 1, 8, 64)),                         # wgmma grid
+        (meta(1, 2**23, 2**14, 32, dtype=f32), meta(1, 1, 8, 32, dtype=f32)),   # ffma grid
+        (meta(1, 2**24, 2**14, 64, dtype=f32), meta(1, 1, 8, 64, dtype=f32)),   # tf32x3 grid
+    ]
+    for q, kv in refused:
+        with pytest.raises(ValueError) as card:
+            ops.kernel_route(q, kv, kv)
+        with pytest.raises(ValueError) as fake:
+            ops.flash_attention_fwd(q, kv, kv, True, None, None, False)
+        assert str(fake.value) == str(card.value)
+    for q, kv in ((meta(1, 2**23, 2**14, 160), meta(1, 1, 8, 160)),
+                  (meta(1, 2**22, 2**14, 32, dtype=f32), meta(1, 1, 8, 32, dtype=f32))):
+        o, lse = ops.flash_attention_fwd(q, kv, kv, True, None, None, True)
+        assert o.shape == q.shape and lse.shape == q.shape[:3] and o.device.type == "meta"
+
+
+def test_tile_rows_are_the_kernels():
+    """``ops.TILE_ROWS``, what the wrapper's and the fake's grid limits count
+    in, are the source's query rows a block: ``kBQ`` of the ffma route,
+    ``kWgBQ`` of the wgmma and tf32x3 CTAs."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    rows = {name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+            for name in ("kBQ", "kWgBQ")}
+    assert ops.TILE_ROWS == {"ffma": rows["kBQ"], "wgmma": rows["kWgBQ"],
+                             "tf32x3": rows["kWgBQ"]}
