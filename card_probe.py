@@ -7,7 +7,7 @@ Run from the root of a checkout, with one visible CUDA device:
                           [logits] [bwd] [lse] [widths] [step] [steptrace] [moe]
                           [binding] [gloo] [plans] [steps]
 
-(all when none is named; ``lse``, ``widths`` and ``step`` only with
+(all when none is named; ``lse`` and ``widths`` only with
 ``CARD_PROBE_BASE`` set).
 Each prints one JSON line:
 
@@ -98,12 +98,19 @@ Each prints one JSON line:
          plan with P as one bf16 term;
   steps  where a step of the pipelined schedule spends its cycles
          (``probe_steps``): an in-kernel ``clock64()`` trace of CTA 0;
-  bwd    each kernel's device time of ``flash_attention_bwd`` at
-         tspm-mlho's and gemma2-2b's training layers (the smoke's
-         ``BWD_MODEL_SHAPES``), from a ``torch.profiler`` trace taken first
-         in a fresh process (late in the smoke a trace keeps few events);
-  step   gemma2-2b's training step (the smoke's phase 10 (c): 3 steps at
-         full width under remat) run by this checkout and by the one at
+  bwd    each kernel's device time of ``flash_attention_bwd`` at the
+         training layers of the smoke's ``BWD_MODEL_SHAPES``, from a
+         ``torch.profiler`` trace taken first in a fresh process (late in
+         the smoke a trace keeps few events); then at tspm-mlho's layer the
+         tf32x3 route in turns with ffma forced (``force_route``) and, with
+         ``CARD_PROBE_BASE``, with the parent's build of the ffma entry,
+         each held to the backward's limit, with device ms by kernel, the
+         tf32x3 plans tried and its CTAs against the card's SMs;
+  step   tspm-mlho's full-size training step under a ``torch.profiler``
+         trace on the tf32x3 backward and with ffma forced, in turns: the
+         attention backward's share of the step; with ``CARD_PROBE_BASE``
+         also gemma2-2b's training step (the smoke's phase 10 (c): 3 steps
+         at full width under remat) run by this checkout and by the one at
          ``$CARD_PROBE_BASE``, each in its own process, in turns (base,
          this, this, base), each checkout's kernels built beforehand;
   steptrace where that step's time goes: two warm steps, then one under
@@ -869,8 +876,49 @@ def probe_steps(torch) -> dict:
     return out
 
 
-def probe_bwd(torch) -> dict:
+BWD_TURN_ROUNDS, BWD_TURN_ITERS = 3, 20
+# the tf32x3 backward's plans: (resident rows, streamed rows BN, stages) and
+# why each was or was not built (csrc/flash_attention_bwd.cu, hazard 11)
+BWD_TF32X3_PLANS = {
+    "128 x 32 x 2 (shipped)": "resident 128 KB + 2 stages x 48 KB = 230,968 B",
+    "128 x 32 x 3": "not built: 278 KB > 227 KB",
+    "128 x 64 x 2": "not built: 128 KB + 2 x 96 KB = 320 KB > 227 KB",
+    "64 x 32 x 2": "not built: one consumer warpgroup a CTA, 160 KB, still 1 CTA an SM",
+}
+
+
+def base_bwd_entry():
+    """The ffma backward's entry as ``$CARD_PROBE_BASE``'s
+    ``flash_attention_bwd.cu`` has it (the parent's route at float32 D 64),
+    built with the port's flags into ``build/probes/``."""
+    import subprocess
+
+    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops
+
+    src = os.path.join(os.environ["CARD_PROBE_BASE"],
+                       "src/repro_torch/csrc/flash_attention_bwd.cu")
+    dest = _build.PROBE_DIR / "flash_attention_bwd-base.so"
+    dest.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(dest), src],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed on {src}: {proc.stdout}{proc.stderr}")
+    name, argtypes = ops.BWD_ENTRIES["ffma"]
+    fn = getattr(ctypes.CDLL(str(dest)), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def probe_bwd(torch) -> dict:
+    """The backward at each ``BWD_MODEL_SHAPES`` shape (device ms by kernel
+    and CUDA-event ms), then at tspm-mlho's layer the tf32x3 route in turns
+    with ffma forced (``force_route``) and, given ``$CARD_PROBE_BASE``, with
+    the parent's build (its ffma entry), ``BWD_TURN_ROUNDS`` rounds of
+    ``BWD_TURN_ITERS`` calls each way; device ms by kernel of each; the
+    tf32x3 plans tried and its CTAs against the card's SMs."""
+    from repro_torch.kernels.flash_attention import ops, ref
 
     dev = torch.device("cuda", 0)
     out = {"card": smoke.smi()}
@@ -887,6 +935,44 @@ def probe_bwd(torch) -> dict:
                      "event_ms": smoke.cuda_ms(
                          torch, lambda: ops.attention_bwd(q, k, v, o, do, lse, **kw), 20),
                      "profiler_kernels": sorted(dev_ms)}
+        del q, k, v, do, o, lse
+    shape, dtype, kw = smoke.BWD_MODEL_SHAPES["tspm_mlho"]
+    B, Hq, Hkv, Sq, Skv, D = shape
+    q, k, v, do = smoke.bwd_inputs(torch, dev, shape, dtype, 11)
+    o, lse = ops.attention(q, k, v, return_lse=True, **kw)
+    mask = {"window": None, "softcap": None, **kw}
+    calls = {"ffma": lambda: ops._backward(q, k, v, o, do, lse, force_route="ffma", **mask),
+             "tf32x3": lambda: ops.attention_bwd(q, k, v, o, do, lse, **kw)}
+    if "CARD_PROBE_BASE" in os.environ:
+        fn = base_bwd_entry()
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        scratch = torch.empty(B * Hq * Sq, device=dev)
+        ptrs, args = ops.entry_args(q, k, v, o, causal=True, window=None, softcap=None)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def parent():
+            rc = fn(*ptrs[:4], do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                    dv.data_ptr(), scratch.data_ptr(), *ptrs[5:], 0, *args, stream)
+            assert rc == 0, rc
+            return dq, dk, dv
+        calls["parent_ffma"] = parent
+    want64, _, _, limits = ref.attention_bwd_limit(q, k, v, o, do, **kw)
+    ratio = {n: max(((g.double() - w).abs() / lim).max().item()
+                    for g, w, lim in zip(fn_(), want64, limits)) for n, fn_ in calls.items()}
+    turns = {n: [] for n in calls}
+    for _ in range(BWD_TURN_ROUNDS):
+        for n, t in smoke.in_turns(torch, calls, BWD_TURN_ITERS).items():
+            turns[n] += t
+    device = {n: smoke.kernel_device_ms(torch, fn_, 10) for n, fn_ in calls.items()}
+    key_ctas = B * Hkv * -(-Skv // 128)
+    out["tspm_mlho_turns"] = {
+        "shape": f"q {[B, Hq, Sq, D]} k/v {[B, Hkv, Skv, D]} {dtype} {kw}",
+        "ms": {n: sum(t) / len(t) for n, t in turns.items()}, "turns_ms": turns,
+        "ratio_to_limit": ratio, "device_ms": device,
+        "device_sum_ms": {n: sum(d.values()) for n, d in device.items()},
+        "plans": BWD_TF32X3_PLANS, "info": ops.bwd_kernel_info(torch.float32, 64),
+        "ctas": {"dK": key_ctas, "dV": key_ctas, "dQ": B * Hq * -(-Sq // 128),
+                 "sms": torch.cuda.get_device_properties(dev).multi_processor_count}}
     return out
 
 
@@ -951,7 +1037,64 @@ def probe_binding(torch) -> dict:
     return out
 
 
+def tspm_step_trace(torch, force_ffma: bool) -> dict:
+    """One full-size tspm-mlho training step (12 layers, float32, a batch of
+    ``smoke.TRAIN_BATCH`` x ``smoke.TRAIN_SEQ`` seeded tokens) under the
+    profiler after two warm steps (``traced``): device ms by family, the
+    attention backward's among them; with ``force_ffma`` every backward
+    takes the ffma route (``ops._backward``'s ``force_route``), the
+    parent's route at this width."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import model as model_lib
+    from repro_torch.training import optimizer as opt_lib, train_loop
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config("tspm-mlho")
+    mdl = model_lib.build(cfg)
+    state = train_loop.init_state(mdl, torch.Generator(dev).manual_seed(smoke.SEED))
+    toks = np.random.default_rng(smoke.SEED).integers(
+        4, cfg.vocab_size, (smoke.TRAIN_BATCH, smoke.TRAIN_SEQ + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "loss_mask": np.ones((smoke.TRAIN_BATCH, smoke.TRAIN_SEQ), bool)}
+    step = train_loop.make_train_step(mdl, opt_lib.OptConfig(
+        peak_lr=1e-4, warmup_steps=0, decay_steps=100))
+    original = ops._backward
+    if force_ffma:
+        ops._backward = functools.partial(original, force_route="ffma")
+    try:
+        for _ in range(2):
+            state, _ = step(state, batch)
+        before = dict(ops.attention_bwd.route_launches)
+        metrics = {}
+        r = traced(torch, lambda: metrics.update(step(state, batch)[1]), {
+            "attention_bwd": ("bwd_tf32x3_kernel", "tf32x3_bwd_split_kernel", "prepass_kernel",
+                              "dq_kernel", "dkv_kernel", "bwd_wgmma_kernel"),
+            "attention_fwd": ATTENTION_FWD, "matmul": MATMUL})
+        launches = {n: c - before[n] for n, c in ops.attention_bwd.route_launches.items()}
+    finally:
+        ops._backward = original
+    bwd = r["device_ms_by_family"]["attention_bwd"]
+    return {**r, "bwd_launches": launches, "loss": float(metrics["loss"]),
+            "attention_bwd_share_of_busy": bwd / r["device_busy_ms"],
+            "attention_bwd_share_of_wall": bwd / r["wall_ms"]}
+
+
 def probe_step(torch) -> dict:
+    """tspm-mlho's training step under the profiler on the tf32x3 backward
+    and, in turns, with the ffma backward forced (tf32x3, ffma, ffma,
+    tf32x3): the attention backward's share of the step read off the trace.
+    Given ``$CARD_PROBE_BASE``, also gemma2-2b's phase 10 (c) steps as this
+    checkout and the parent run them, in turns."""
+    out = {"card": smoke.smi(), "tspm_mlho": {"tf32x3": [], "ffma": []}}
+    for key in ("tf32x3", "ffma", "ffma", "tf32x3"):
+        out["tspm_mlho"][key].append(tspm_step_trace(torch, key == "ffma"))
+    if "CARD_PROBE_BASE" in os.environ:
+        out["gemma2_2b"] = gemma_steps_against_base()
+    return out
+
+
+def gemma_steps_against_base() -> dict:
     import subprocess
 
     here, base = str(smoke.ROOT), os.path.abspath(os.environ["CARD_PROBE_BASE"])
@@ -969,7 +1112,7 @@ def probe_step(torch) -> dict:
 
     for root in (base, here):
         run(root, "from repro_torch.kernels import _build; _build.build_all()")
-    out = {"card": smoke.smi(), "base": base, "base_steps": [], "this_steps": []}
+    out = {"base": base, "base_steps": [], "this_steps": []}
     for root, key in ((base, "base_steps"), (here, "this_steps"), (here, "this_steps"),
                       (base, "base_steps")):
         line = [ln for ln in run(root, code).splitlines() if ln.startswith("STEP ")][-1]
@@ -1393,7 +1536,7 @@ def main(argv: list[str]) -> int:
               "steptrace": probe_steptrace, "moe": probe_moe, "binding": probe_binding,
               "gloo": probe_gloo, "plans": probe_plans, "steps": probe_steps}
     if not argv and "CARD_PROBE_BASE" not in os.environ:
-        for name in ("lse", "widths", "step"):
+        for name in ("lse", "widths"):
             probes.pop(name)
     for name in argv or list(probes):
         t0 = time.perf_counter()

@@ -46,18 +46,22 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with
      build's registers, spill and shared memory printed (the tensor-core
      builds and float32 D 160 must spill nothing); then
      ``flash_attention_bwd`` (each build's registers, spill and shared
-     memory printed once; the wgmma builds and float32 D 160 must spill
-     nothing) against ``attention_bwd_ref`` in float64 at
+     memory printed once; the wgmma and tf32x3 builds and float32 D 160
+     must spill nothing) against ``attention_bwd_ref`` in float64 at
      S = 1/127/128/129, Sq != Skv causal and not, D = 16/32/64/128/256,
      GQA groups 1/2/3/8, windows 1/16, softcap 50 and rows that see no key,
-     in both dtypes; at D 160 (wgmma's three boxes in bfloat16, ffma in
+     in both dtypes (float32 at D 64 is the tf32x3 route, whose pre-pass
+     must also write its plain twin ``ref.tf32x3_bwd_operands`` byte for
+     byte); at D 160 (wgmma's three boxes in bfloat16, ffma in
      float32) S = 1/127/128/129, Sq != Skv causal and not, GQA groups
      1/2/4/8, windows 1/16, softcap 50 and rows that see no key, its last
      32 columns also held on their own; and at tspm-mlho's (q
      [8,12,256,64], float32, causal), gemma2-2b's (q [1,8,2048,256],
      bfloat16, window 4,096, softcap 50), zamba2-2.7b's (q
-     [1,32,4096,160], bfloat16, causal) and seamless-m4t-large-v2's
-     encoder (q [2,16,1024,64], bfloat16, not causal) training shapes, each
+     [1,32,4096,160], bfloat16, causal, and [1,32,256,160] in float32),
+     seamless-m4t-large-v2's encoder (q [2,16,1024,64], bfloat16, not
+     causal), deepseek-moe-16b's (q [4,16,512,128]) and pixtral-12b's (q
+     [2,32,1088,128], kv heads 8) bfloat16 training shapes, each
      run twice for identical bytes; the limit
      (``ref.attention_bwd_limit``) is ``BWD_ERR_FACTOR`` times the float32
      plain version's own distance from
@@ -65,7 +69,8 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with
      planted fault (the first query row's output gradient dropped) that it
      must catch; and times the backward at those training shapes beside its
      bound, its plain version and ``scaled_dot_product_attention``'s
-     backward;
+     backward, and at tspm-mlho's the tf32x3 route in turns with ffma
+     (``force_route``);
   4. drives the main path — ``MiningSession(...).fit(db)`` then
      ``frame.screen().collect()`` — on the paper's Table 1 cohort (4,985
      patients at ~471 events, first-occurrence filter) with
@@ -2625,6 +2630,13 @@ BWD_MODEL_SHAPES = {   # (B, Hq, Hkv, Sq, Skv, D), dtype, mask: a training step'
     # seamless-m4t-large-v2's encoder self-attention and its decoder's
     # cross-attention at 2 x (1,024 + 1,024) (phase 10 (e)): non-causal
     "seamless_enc": ((2, 16, 16, 1024, 1024, 64), "bfloat16", dict(causal=False)),
+    # deepseek-moe-16b's and pixtral-12b's layers at phase 10 (e)'s batches
+    # (4 x 512 tokens; 2 x (1,024 patches + 64 text tokens)): bf16 at D 128
+    "deepseek_moe_16b": ((4, 16, 16, 512, 512, 128), "bfloat16", dict(causal=True)),
+    "pixtral_12b": ((2, 32, 8, 1088, 1088, 128), "bfloat16", dict(causal=True)),
+    # zamba2-2.7b's shared attention in float32 at phase 10 (d)'s 1 x 256
+    # tokens: the ffma route at D 160
+    "zamba2_2_7b_f32": ((1, 32, 32, 256, 256, 160), "float32", dict(causal=True)),
 }
 
 
@@ -2633,13 +2645,15 @@ def flash_bwd_edge_cases():
     and ragged tiles (S = 1/127/128/129), Sq != Skv causal and not, every
     head width, GQA groups 1, 2, 3 and 8, windows 1 and 16, softcap 50 (with
     a window at D = 256, where the ffma route takes 32-key tiles), and rows
-    that see no key (non-causal with a window, Sq > Skv).  Then the wgmma
-    route's own edges (bfloat16 at D 64/128/256, 128-row resident tiles,
-    32- or 64-row streamed tiles): at each width S = 1/63/127/128/129/1,000
-    and Sq != Skv causal and not; at D = 256 GQA groups 1, 2, 4 and 8,
-    windows 1 and 300 with softcap 50, and rows that see no key; then D
-    160's (``flash_bwd_d160_cases``).  Each case runs in float32 (the ffma
-    route) and bfloat16."""
+    that see no key (non-causal with a window, Sq > Skv).  Then the
+    tensor-core routes' own edges (bfloat16 at D 64/128/256 on wgmma,
+    float32 at D 64 on tf32x3; 128-row resident tiles, 32- or 64-row
+    streamed tiles): at each width S = 1/63/127/128/129/1,000 and Sq != Skv
+    causal and not; at D 64 a GQA group of 3 under a window of 100 with
+    softcap 50; at D = 256 GQA groups 1, 2, 4 and 8, windows 1 and 300
+    with softcap 50, and rows that see no key; then D 160's
+    (``flash_bwd_d160_cases``).  Each case runs in float32 (the ffma
+    route; tf32x3 at D 64) and bfloat16."""
     for S in (1, 127, 128, 129):
         yield 2, 4, 2, S, S, 64, dict(causal=True)
     for Sq, Skv in ((100, 260), (260, 100)):
@@ -2660,6 +2674,7 @@ def flash_bwd_edge_cases():
         for Sq, Skv in ((63, 1000), (1000, 129)):
             for causal in (True, False):
                 yield 1, 4, 2, Sq, Skv, D, dict(causal=causal)
+    yield 1, 6, 2, 300, 300, 64, dict(causal=True, window=100, softcap=50.0)
     for Hkv in (8, 4, 2, 1):
         yield 1, 8, Hkv, 200, 200, 256, dict(causal=True)
     for window in (1, 300):
@@ -2734,22 +2749,26 @@ def bwd_reading(torch, got, q, k, v, o, do, kw) -> dict:
 
 def check_flash_bwd_kernel(torch, dev) -> dict:
     """Phase 3b for ``flash_attention_bwd``: each build's registers, spill
-    and shared memory (once; every kernel of the wgmma route, and the ffma
-    route's at float32 D 160, must spill nothing), the kernel against the
-    plain version at every edge case in both dtypes and at tspm-mlho's,
-    gemma2-2b's, zamba2-2.7b's and seamless-m4t-large-v2's training shapes, each
-    call through the route ``ops.bwd_route`` names (one count a call) with
-    the log-sum-exp the forward wrote, each run twice: identical bytes."""
+    and shared memory (once; every kernel of the wgmma and tf32x3 routes,
+    and the ffma route's at float32 D 160, must spill nothing), the kernel
+    against the plain version at every edge case in both dtypes and at the
+    training shapes of ``BWD_MODEL_SHAPES``, each call through the route
+    ``ops.bwd_route`` names (one count a call) with the log-sum-exp the
+    forward wrote, each run twice: identical bytes.  On tf32x3 a third call
+    is given its scratch, which must then hold the pre-pass's plain twin
+    (``ref.tf32x3_bwd_operands``, on the card) byte for byte."""
     from repro_torch.kernels.flash_attention import ops as flash_ops, ref as flash_ref
 
     info = {f"{dt} D={D}": flash_ops.bwd_kernel_info(getattr(torch, dt), D)
             for dt in ("float32", "bfloat16") for D in flash_ops.BWD_HEAD_DIMS}
+    info["float32 D=64 ffma"] = flash_ops.bwd_kernel_info(torch.float32, 64, "ffma")
     print(f"phase 3b flash_attention_bwd builds: {json.dumps(info)}", flush=True)
     for build, kernels in info.items():
-        if "bwd_wgmma" in kernels or build.endswith("D=160"):
+        if "bwd_wgmma" in kernels or "bwd_tf32x3" in kernels or build.endswith("D=160"):
             require(all(k["local_bytes"] == 0 for k in kernels.values()),
                     f"flash_attention_bwd spills at {build}: {kernels}")
     cases, worst, routes = [], {}, {}
+    prepass = {"compared": 0, "floats": 0}
 
     def check(shape, dtype, kw, seed):
         q, k, v, do = bwd_inputs(torch, dev, shape, dtype, seed)
@@ -2763,6 +2782,19 @@ def check_flash_bwd_kernel(torch, dev) -> dict:
                 f"{shape} {dtype}: a backward call did not launch the {route} route")
         require(all(torch.equal(a, b) for a, b in zip(got, again)),
                 f"{shape} {dtype} {kw}: two backward runs differ")
+        if route == "tf32x3":
+            B, Hq, Hkv, Sq, Skv, _ = shape
+            scratch = torch.full((flash_ops.bwd_scratch_elems(route, B, Hq, Sq, Hkv, Skv),),
+                                 float("nan"), device=dev)
+            flash_ops._backward(q, k, v, o, do, lse, scratch=scratch,
+                                **{"window": None, "softcap": None, **kw})
+            twin = torch.cat([t.flatten() for t in flash_ref.tf32x3_bwd_operands(
+                q, k, v, o, do, lse)])
+            require(torch.equal(scratch.view(torch.int32), twin.view(torch.int32)),
+                    f"{shape} {kw}: the tf32x3 pre-pass differs from its plain twin")
+            prepass["compared"] += 1
+            prepass["floats"] += scratch.numel()
+            del scratch, twin
         r = bwd_reading(torch, got, q, k, v, o, do, kw)
         for n, x in r.items():
             w = worst.setdefault(f"{route} {dtype} {n}", {"ratio": 0.0, "max_abs_err": 0.0})
@@ -2786,8 +2818,10 @@ def check_flash_bwd_kernel(torch, dev) -> dict:
         models[name] = check(shape, dtype, kw, 7)[1]
     torch.cuda.empty_cache()
     require(set(routes) == set(flash_ops.BWD_ROUTES), f"the edge cases miss a route: {routes}")
+    require(prepass["compared"] > 0, "no tf32x3 pre-pass was held against its twin")
     out = {"comparisons": len(cases) + len(models), "by_route": routes, "worst": worst,
-           "models": models, "repeat_identical": True, "factor": flash_ref.BWD_ERR_FACTOR,
+           "models": models, "repeat_identical": True, "tf32x3_prepass_identical": prepass,
+           "factor": flash_ref.BWD_ERR_FACTOR,
            "bf16_rel": flash_ref.BWD_BF16_REL,
            "max_abs_err": max(w["max_abs_err"] for w in worst.values()),
            "max_abs_err_by_route": {r: max(w["max_abs_err"] for k, w in worst.items()
@@ -2811,7 +2845,10 @@ def time_flash_bwd(torch, dev, name: str) -> dict:
     tensor-core rate as 3xTF32 (three TF32 products each) or the bf16 rate,
     or the bytes (q, k, v, o, do and the log-sum-exp read, dq, dk, dv
     written) over 3.35 TB/s if larger; ``bound_ffma_ms`` the same
-    operations at the FFMA rate."""
+    operations at the FFMA rate.  Where the route is tf32x3 (tspm-mlho's
+    layer) the ffma route forced at the same shape (``force_route``) is
+    timed in turns with it (ffma, tf32x3, tf32x3, ffma), with its device
+    time by kernel and its distance from the plain version (``beside``)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as flash_ops, ref as flash_ref
@@ -2827,6 +2864,23 @@ def time_flash_bwd(torch, dev, name: str) -> dict:
     by_kernel = {n: sum(t for kn, t in dev_ms.items() if f"{n}_kernel" in kn)
                  for n in flash_ops.BWD_KERNELS[route]}
     plain = cuda_ms(torch, lambda: flash_ref.attention_bwd_ref(q, k, v, o, do, lse, **kw), 2)
+    beside = None
+    if route == "tf32x3":
+        mask = {"window": None, "softcap": None, **kw}
+        ffma = lambda: flash_ops._backward(q, k, v, o, do, lse, force_route="ffma",  # noqa: E731
+                                           **mask)
+        turns = {"ffma": [], "tf32x3": []}
+        for r_, fn in (("ffma", ffma), ("tf32x3", call), ("tf32x3", call), ("ffma", ffma)):
+            turns[r_].append(cuda_ms(torch, fn, 20))
+        f_dev = kernel_device_ms(torch, ffma, 10)
+        want32 = flash_ref.attention_bwd_ref(q, k, v, o, do, lse, **kw)
+        beside = {"route": "ffma", "ms": sum(turns["ffma"]) / 2, "ms_turns": turns["ffma"],
+                  "tf32x3_ms_turns": turns["tf32x3"],
+                  "device_ms": {n: sum(t for kn, t in f_dev.items() if f"{n}_kernel" in kn)
+                                for n in flash_ops.BWD_KERNELS["ffma"]},
+                  "max_abs_err": max((g - w).abs().max().item()
+                                     for g, w in zip(ffma(), want32))}
+        del want32
     qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
     so = F.scaled_dot_product_attention(qr, kr, vr, is_causal=kw["causal"], enable_gqa=True)
     lib = cuda_ms(torch, lambda: torch.autograd.grad(so, (qr, kr, vr), do,
@@ -2845,11 +2899,15 @@ def time_flash_bwd(torch, dev, name: str) -> dict:
          "plain_ms": plain, "library_ms": lib, "library_same_function": "softcap" not in kw
          or kw["softcap"] is None, "bound_ms": bound[by], "bound_by": by,
          "bound_ffma_ms": max(bound["bytes"], flops / FP32_OPS_PER_S * 1e3),
-         "visible_pairs": pairs,
+         "visible_pairs": pairs, "beside": beside,
          "shape": f"q {[B, Hq, Sq, D]} k/v {[B, Hkv, Skv, D]} {dtype} {kw}"}
     print(f"phase 3b flash_attention_bwd timing ({name}): {json.dumps(r)}", flush=True)
     require(r["ms"] < plain, f"flash_attention_bwd at {name} is slower than its plain "
                              f"version: {r['ms']} ms against {plain} ms")
+    if beside:
+        require(max(beside["tf32x3_ms_turns"]) < min(beside["ms_turns"]),
+                f"the tf32x3 backward at {name} is not faster than ffma in turns: "
+                f"{json.dumps(beside)}")
     del q, k, v, do, o, lse, qr, kr, vr, so
     torch.cuda.empty_cache()
     return r
@@ -4151,7 +4209,7 @@ def check_train_card_vs_cpu(torch, dev) -> dict:
            "grad_share_worst": max(share, key=share.get), "rtol": TRAIN_RTOL,
            "grad_share_limit": TRAIN_GRAD_SHARE, "s": time.perf_counter() - t0,
            "launches": {k: launches[k] for k in ("flash_attention", "flash_attention_bwd",
-                                                 "flash_attention_bwd.ffma")}}
+                                                 "flash_attention_bwd.tf32x3")}}
     print(f"phase 10 (a, card vs CPU): {json.dumps(out)}", flush=True)
     require(all(m["rel"] <= TRAIN_RTOL for s in steps for m in s.values()),
             "phase 10 (a): a step's loss, ce or grad norm differs from the CPU's")
@@ -4159,7 +4217,7 @@ def check_train_card_vs_cpu(torch, dev) -> dict:
             f"phase 10 (a): step 1's gradient of {out['grad_share_worst']} differs")
     passes = 1 + TRAIN_CHECK_STEPS                    # the gradient pass + the steps
     require(launches["flash_attention_bwd"] == cfg.n_layers * passes
-            == launches["flash_attention"] == launches["flash_attention_bwd.ffma"],
+            == launches["flash_attention"] == launches["flash_attention_bwd.tf32x3"],
             f"phase 10 (a): {launches} attention launches on the card")
     del card, cpu, params
     torch.cuda.empty_cache()
@@ -4184,12 +4242,15 @@ def run_train_launcher(extra: list, timeout: int = 400) -> dict:
     text = proc.stdout
     m = re.search(r"throughput on (\S+): mean step (\S+)s, tokens/s (\S+), "
                   r"peak_device_bytes (\S+), flash_attention launches (\d+), "
-                  r"flash_attention_bwd launches (\d+)", text)
+                  r"flash_attention_bwd launches (\d+) \(ffma (\d+), wgmma (\d+), "
+                  r"tf32x3 (\d+)\)", text)
     require(m is not None, f"launch.train printed no throughput line: {text[-1500:]}")
     return {"s": time.perf_counter() - t0, "device": m.group(1),
             "step_s": float(m.group(2)), "tokens_per_s": float(m.group(3)),
             "peak_device_bytes": None if m.group(4) == "None" else int(m.group(4)),
             "flash_attention": int(m.group(5)), "flash_attention_bwd": int(m.group(6)),
+            **{f"flash_attention_bwd.{r}": int(m.group(7 + i))
+               for i, r in enumerate(("ffma", "wgmma", "tf32x3"))},
             "ce": [float(x) for x in re.findall(r"^step \d+: loss=\S+ ce=(\S+)", text, re.M)],
             "saved": re.findall(r"^checkpoint (\S+) state_digest=([0-9a-f]{64})$", text, re.M),
             "resumed": re.findall(r"^resumed from (\S+) at step (\d+)$", text, re.M),
@@ -4203,7 +4264,7 @@ def check_train_launcher(tmp_root: str) -> dict:
     ``--ckpt-dir``, stopping at step 50; a rerun resumes at step 50 from
     a state whose digest equals the one saved and trains to step 100.  The
     two runs' 100 steps log falling ce and launch the backward 12 times a
-    step."""
+    step, all on the tf32x3 route."""
     n_layers = 12
     ckpt = os.path.join(tmp_root, "train_ckpt")
     every = ["--ckpt-every", str(TRAIN_CKPT_EVERY)]
@@ -4222,10 +4283,12 @@ def check_train_launcher(tmp_root: str) -> dict:
             f"phase 10 (b): ce does not fall: {ce}")
     for name, r, steps in (("stopped", stopped, TRAIN_STOP),
                            ("resumed", resumed, TRAIN_STEPS - TRAIN_STOP)):
-        require(r["flash_attention_bwd"] == n_layers * steps == r["flash_attention"],
+        require(r["flash_attention_bwd"] == n_layers * steps == r["flash_attention"]
+                == r["flash_attention_bwd.tf32x3"],
                 f"phase 10 (b): the {name} run's launches {r}")
     return {**runs, "launches": {k: stopped[k] + resumed[k]
-                                 for k in ("flash_attention", "flash_attention_bwd")}}
+                                 for k in ("flash_attention", "flash_attention_bwd",
+                                           "flash_attention_bwd.tf32x3")}}
 
 
 def check_gemma_training(torch, dev) -> dict:
@@ -4344,11 +4407,15 @@ def check_family_train_card_vs_cpu(torch, dev) -> dict:
     1's loss, ce and aux within ``TRAIN_RTOL`` and every parameter's
     gradient within ``TRAIN_GRAD_SHARE`` of its largest |g| on the CPU
     (phase 10 (a)'s bar); deepseek-moe-16b's routing byte-equal on both
-    devices; the card's attention launches counted (zamba2-2.7b's shared
-    attention takes the ffma backward at float32 D 160)."""
+    devices; the card's attention launches counted, each backward on the
+    route ``ops.bwd_route`` names for float32 at the layer's head width
+    (zamba2-2.7b's shared attention: ffma at D 160; deepseek-moe-16b and
+    pixtral-12b: ffma at D 128; the seamless encoder-decoder: tf32x3 at D
+    64)."""
     import copy
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.models import model as model_lib
     from repro_torch.training import train_loop
 
@@ -4398,9 +4465,12 @@ def check_family_train_card_vs_cpu(torch, dev) -> dict:
         require(out[arch]["routing_equal"] and (len(c["eid"]) > 0) == bool(cfg.n_experts),
                 f"phase 10 (d) {arch}: the routing differs between the devices")
         n_attn = attention_calls(cfg)
+        hd = 2 * cfg.d_model // cfg.n_heads if cfg.family == "hybrid" else cfg.hd
+        route = flash_ops.bwd_route(torch.float32, hd) if n_attn else "ffma"
+        out[arch]["bwd_route"] = route
         require(launches["flash_attention"] == launches["flash_attention_bwd"] == n_attn
-                == launches["flash_attention_bwd.ffma"],
-                f"phase 10 (d) {arch}: {launches}")
+                == launches[f"flash_attention_bwd.{route}"],
+                f"phase 10 (d) {arch}: {launches}, want {n_attn} backward launches on {route}")
         del card, cpu, runs, c, p, batch
         torch.cuda.empty_cache()
     return out
@@ -5053,7 +5123,7 @@ def check_mesh_world(torch, dev, cohort_npz: str, layers=None) -> dict:
            "launches": {k: sum(r["a"]["launches"].get(k, 0) + r["d"]["launches"].get(k, 0)
                                for r in ranks)
                         for k in ("tspm_pairgen", "seq_hist", "flash_attention.tf32x3",
-                                  "flash_attention_bwd.ffma")},
+                                  "flash_attention_bwd.tf32x3")},
            "phase_s": time.perf_counter() - t_phase}
     for r in ranks:
         print(f"phase 13 rank {r['rank']}: {json.dumps(r)}", flush=True)
@@ -5114,40 +5184,63 @@ def flash_rows(routes: dict, lm: dict, timing: dict) -> list:
 
 def flash_bwd_rows(bwd: dict, timing: dict, train: dict) -> list:
     """The ``kernels`` line's rows of ``flash_attention_bwd``, one a route:
-    ffma timed at tspm-mlho's training shape with launches from the
+    tf32x3 timed at tspm-mlho's training shape with launches from the
     launcher's 100 tspm-mlho steps (phase 10 (b)'s two runs) and phase 10
-    (d)'s float32 families (zamba2-2.7b's at D 160 among them), wgmma at
-    gemma2-2b's, with zamba2-2.7b's (D 160) and seamless-m4t-large-v2's
-    encoder (D 64, non-causal) beside it, launches from phase 10 (c)'s and
-    (e)'s steps; max_abs_err over phase 3b's comparisons on the route
-    against the plain version."""
+    (d)'s float32 families at D 64 (the seamless encoder-decoder); ffma
+    timed at the same shape forced (``force_route``, in turns with
+    tf32x3) and at zamba2-2.7b's float32 D 160, with launches from phase
+    10 (d)'s float32 families at D 128 and 160; wgmma at gemma2-2b's, with
+    zamba2-2.7b's (D 160), seamless-m4t-large-v2's encoder (D 64,
+    non-causal), deepseek-moe-16b's and pixtral-12b's (D 128) beside it,
+    launches from phase 10 (c)'s and (e)'s steps; max_abs_err over phase
+    3b's comparisons on the route against the plain version (and, for
+    ffma, its forced run at tspm-mlho's shape)."""
     def family(phase, key):
         return sum(r["launches"].get(key, 0) for r in train[phase].values())
 
+    tspm = timing["tspm_mlho"]
+    beside = tspm["beside"]
+    require(beside is not None and beside["route"] == "ffma",
+            f"tspm-mlho's backward took {tspm['kernel_route']}")
+    ffma = {"kernel_route": "ffma", "ms": beside["ms"], "device_ms": beside["device_ms"],
+            "device_share": None, "shape": tspm["shape"] + " (force_route)",
+            **{k: tspm[k] for k in ("plain_ms", "bound_ms", "bound_by", "library_ms",
+                                    "library_same_function", "bound_ffma_ms")}}
+    notes = {
+        "tf32x3": "the gradient of that kernel at float32 D 64 on TF32 tensor cores (3xTF32): "
+                  "a pre-pass splitting q, do, k, v and the transposed q, do, k into TF32 hi + "
+                  "lo, then one launch of dK, dV and dQ CTAs; no atomics",
+        "ffma": "the gradient of that kernel on FFMA: a delta pre-pass, a dq and a dk/dv "
+                "kernel; no atomics",
+        "wgmma": "the gradient of that kernel in bf16: a delta pre-pass and one launch of dK, "
+                 "dV and dQ CTAs; no atomics"}
     rows = []
-    for route, name, launches in (
-            ("ffma", "tspm_mlho", train["b_launcher"]["launches"]["flash_attention_bwd"]
-             + family("d_card_vs_cpu", "flash_attention_bwd.ffma")),
-            ("wgmma", "gemma2_2b",
+    for route, t, launches, extra in (
+            ("tf32x3", tspm, train["b_launcher"]["launches"]["flash_attention_bwd.tf32x3"]
+             + train["a_card_vs_cpu"]["launches"]["flash_attention_bwd.tf32x3"]
+             + family("d_card_vs_cpu", "flash_attention_bwd.tf32x3"), {}),
+            ("ffma", ffma, family("d_card_vs_cpu", "flash_attention_bwd.ffma"),
+             {"ms_turns": beside["ms_turns"], "tf32x3_ms_turns": beside["tf32x3_ms_turns"],
+              "zamba2_2_7b_f32": timing["zamba2_2_7b_f32"]}),
+            ("wgmma", timing["gemma2_2b"],
              train["c_gemma2_2b"]["launches"]["flash_attention_bwd.wgmma"]
-             + family("e_families", "flash_attention_bwd.wgmma"))):
-        t = timing[name]
-        require(t["kernel_route"] == route, f"{name}'s backward took {t['kernel_route']}")
+             + family("e_families", "flash_attention_bwd.wgmma"),
+             {n: timing[n] for n in ("zamba2_2_7b", "seamless_enc", "deepseek_moe_16b",
+                                     "pixtral_12b")})):
+        require(t["kernel_route"] == route, f"{route}'s timing took {t['kernel_route']}")
+        err = bwd["max_abs_err_by_route"][route]
+        if route == "ffma":
+            err = max(err, beside["max_abs_err"])
         rows.append({"name": f"flash_attention_bwd_{route}", "route": "cuda",
                      "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
                      "replaces": "src/repro/kernels/flash_attention/flash.py:24",
-                     "note": "the gradient of that kernel, which has no Pallas backward "
-                             "(jax.grad through it fails); a delta pre-pass and, on ffma, a dq "
-                             "and a dk/dv kernel, on wgmma one launch of dK, dV and dQ CTAs; "
-                             "no atomics",
-                     "launches": launches, "max_abs_err": bwd["max_abs_err_by_route"][route],
+                     "note": notes[route] + " (jax.grad through the Pallas kernel fails)",
+                     "launches": launches, "max_abs_err": err,
                      "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                      "library_same_function": t["library_same_function"],
                      "bound_ffma_ms": t["bound_ffma_ms"], "device_ms": t["device_ms"],
-                     "device_share": t["device_share"], "shape": t["shape"],
-                     **({n: timing[n] for n in ("zamba2_2_7b", "seamless_enc")}
-                        if route == "wgmma" else {})})
+                     "device_share": t["device_share"], "shape": t["shape"], **extra})
     return rows
 
 
@@ -5327,7 +5420,7 @@ def main() -> int:
     kernels += flash_bwd_rows(bwd, bwd_t, train)
     for row in kernels:
         key = {"flash_attention_tf32x3": "flash_attention.tf32x3",
-               "flash_attention_bwd_ffma": "flash_attention_bwd.ffma"}.get(row["name"])
+               "flash_attention_bwd_tf32x3": "flash_attention_bwd.tf32x3"}.get(row["name"])
         if key:
             row["launches"] += world["launches"][key]
             row["launches_phase13"] = world["launches"][key]

@@ -1020,26 +1020,11 @@ constexpr int kTfBK = 64;           // keys of a tile
 constexpr int kTfStages = 2;
 constexpr int kSplitThreads = 256;
 
-// x rounded to TF32 (10 explicit mantissa bits; nearest, ties away), as
-// float bits with the low 13 bits clear
-__device__ __forceinline__ float tf32_rna(float x) {
-  uint32_t y;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
-  return __uint_as_float(y);
-}
-
 // hi = tf32(x), lo = tf32(x - hi), four at a time
 __device__ __forceinline__ void split4(const float4 x, float4& h, float4& l) {
   h = make_float4(tf32_rna(x.x), tf32_rna(x.y), tf32_rna(x.z), tf32_rna(x.w));
   l = make_float4(tf32_rna(x.x - h.x), tf32_rna(x.y - h.y), tf32_rna(x.z - h.z),
                   tf32_rna(x.w - h.w));
-}
-
-// the key that position kp of the transposed V holds (hazard 2): inside
-// each group of 8, position c holds key 2c (c < 4) or 2c - 7 (c >= 4)
-__device__ __forceinline__ int vt_key(int kp) {
-  const int c = kp & 7;
-  return (kp & ~7) | (c < 4 ? 2 * c : 2 * c - 7);
 }
 
 // The pre-pass.  Blocks [0, vt_blocks) transpose one 64-key tile of one
@@ -1085,40 +1070,6 @@ tf32x3_split_kernel(const float* __restrict__ k, const float* __restrict__ v,
     reinterpret_cast<float4*>(ks)[i] = h;
     reinterpret_cast<float4*>(ks)[n4 + i] = l;
   }
-}
-
-// ---- wgmma instructions (m64n64k8, tf32 inputs, fp32 accumulators)
-
-// d[0..32) (+)= A[64x8] B[8x64], A and B K-major in shared memory (128-byte swizzle)
-__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t da, uint64_t db,
-                                              int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d[0..32) (+)= A[64x8] B[8x64], A (tf32 bits) in registers, B K-major in shared memory
-__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
-                                              int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
 // Shared memory of a tf32x3 CTA, from a 1024-byte aligned base: Q hi then

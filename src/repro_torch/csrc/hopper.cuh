@@ -1,12 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the attention kernels
 // (flash_attention.cu, flash_attention_bwd.cu): a call's mask and the key
-// band of a tile of query rows, shared-memory addresses,
-// mbarriers, named barriers, TMA tile copies and their tensor maps, wgmma
-// shared-memory descriptors with the 128-byte swizzle, the wgmma
-// instructions with bf16 and fp32 accumulators and their waits, and
-// MUFU.EX2.  Each including source gets its own
-// copy (an anonymous namespace); the build hashes this header into every
-// library's name, so an edit rebuilds them all.
+// band of a tile of query rows, shared-memory addresses, mbarriers, named
+// barriers, TMA tile copies and their tensor maps, wgmma shared-memory
+// descriptors with the 128-byte swizzle, the wgmma instructions (bf16 and
+// tf32 inputs, fp32 accumulators) and their waits, the TF32 rounding and
+// the transposed operands' row order, and MUFU.EX2.  Each including
+// source gets its own copy (an anonymous namespace); the build hashes this
+// header into every library's name, so an edit rebuilds them all.
 #pragma once
 
 #include <cuda.h>
@@ -326,6 +326,70 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   else if constexpr (N == 160) wgmma_rs_n160(d, a, db);
   else if constexpr (N == 192) wgmma_rs_n192(d, a, db);
   else wgmma_rs_n256(d, a, db);
+}
+
+// ---- TF32 (the float32 routes of flash_attention.cu and flash_attention_bwd.cu)
+
+// x rounded to TF32 (10 explicit mantissa bits; nearest, ties away), as
+// float bits with the low 13 bits clear
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return __uint_as_float(y);
+}
+
+// the row that position kp of a transposed operand holds: inside each
+// group of 8, position c holds row 2c (c < 4) or 2c - 7 (c >= 4), so that
+// the TF32 A fragment's k-index t + 4e meets the accumulator's column 2t +
+// e (ref.value_key_order is its plain twin)
+__device__ __forceinline__ int vt_key(int kp) {
+  const int c = kp & 7;
+  return (kp & ~7) | (c < 4 ? 2 * c : 2 * c - 7);
+}
+
+// d[0..16) (+)= A[64x8] B[8x32], A and B K-major in shared memory (128-byte swizzle)
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[16], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[0..32) (+)= A[64x8] B[8x64], A and B K-major in shared memory (128-byte swizzle)
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[0..32) (+)= A[64x8] B[8x64], A (tf32 bits) in registers, B K-major in shared memory
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {

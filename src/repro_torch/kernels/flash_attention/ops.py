@@ -33,11 +33,16 @@ that log-sum-exp and never recomputes it.  The backward's route follows
 ``bwd_route(dtype, D)`` alone, as the forward's: ``"wgmma"`` for bfloat16
 at D in ``BWD_WGMMA_HEAD_DIMS`` (a delta pre-pass, then one launch of
 tensor-core CTAs for dq, dk and dv, P and dS as bfloat16 hi + lo),
-``"ffma"`` for the rest (a delta pre-pass, a dq and a dk/dv kernel on
-FFMA); none uses atomics.  The backward takes D in ``BWD_HEAD_DIMS``, the
-forward's widths: at D 160 (zamba2-2.7b's shared attention) the wgmma
-route pads its rows to three 64-column boxes as the forward does
-(``csrc/flash_attention_bwd.cu``'s hazard 7), and float32 runs ffma.
+``"tf32x3"`` for float32 at D in ``BWD_TF32X3_HEAD_DIMS`` (a pre-pass that
+writes delta, the log-sum-exp in log2 units and q, do, k, v and the
+transposed q, do and k as TF32 hi + lo into scratch the wrapper allocates,
+then the wgmma route's skeleton on TF32 tensor cores, three products each
+way, P and dS as TF32 hi + lo), ``"ffma"`` for the rest (a delta
+pre-pass, a dq and a dk/dv kernel on FFMA); none uses atomics.  The
+backward takes D in ``BWD_HEAD_DIMS``, the forward's widths: at D 160
+(zamba2-2.7b's shared attention) the wgmma route pads its rows to three
+64-column boxes as the forward does (``csrc/flash_attention_bwd.cu``'s
+hazard 7), and float32 runs ffma, as at D 16, 32, 128 and 256.
 Without a gradient to take the path and its launches are the same, so
 serving does not change.  On a CPU tensor
 autograd differentiates the plain version.  ``attention_bwd.launches``
@@ -112,40 +117,63 @@ ENTRIES = {
 
 
 _BWD_NAME = "flash_attention_bwd"
-BWD_ROUTES = ("ffma", "wgmma")
+BWD_ROUTES = ("ffma", "wgmma", "tf32x3")      # the C info entry's route codes 0, 1, 2
 # the backward's head widths: the forward's
 BWD_HEAD_DIMS = HEAD_DIMS
 BWD_WGMMA_HEAD_DIMS = WGMMA_HEAD_DIMS
+# float32 on TF32 tensor cores: at D 64 the resident tiles (hi + lo of two
+# operands) and two stages of three streamed operands fill 225 KB of the
+# 227 KB a CTA has; wider rows stay on ffma
+BWD_TF32X3_HEAD_DIMS = (64,)
 # q, k, v, o, do, lse, dq, dk, dv, scratch, B..D; the ffma entry takes the dtype code
 _BWD_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
 BWD_ENTRIES = {
     "ffma": ("flash_attention_bwd", _BWD_ARGS + [ctypes.c_int] + _MASK_ARGS + [ctypes.c_void_p]),
     "wgmma": ("flash_attention_bwd_wgmma", _BWD_ARGS + _MASK_ARGS + [ctypes.c_void_p]),
+    "tf32x3": ("flash_attention_bwd_tf32x3", _BWD_ARGS + _MASK_ARGS + [ctypes.c_void_p]),
 }
-# rows of the backward's query-major tiles and of its smallest key-major tile
-BWD_TILE_ROWS = {"ffma": (64, 32), "wgmma": (128, 128)}
-BWD_KERNELS = {"ffma": ("prepass", "dq", "dkv"), "wgmma": ("prepass", "bwd_wgmma")}
-BWD_LSE_ROWS = 64         # the wgmma route's log-sum-exp and delta rows are padded to this
+# rows of the backward's query-major tiles and of its smallest key-major
+# tile (tf32x3: its 32-row streamed tiles, which also bound the pre-pass's
+# grid of 64-row tiles of q, do, k and v)
+BWD_TILE_ROWS = {"ffma": (64, 32), "wgmma": (128, 128), "tf32x3": (32, 32)}
+BWD_KERNELS = {"ffma": ("prepass", "dq", "dkv"), "wgmma": ("prepass", "bwd_wgmma"),
+               "tf32x3": ("tf32x3_bwd_split", "bwd_tf32x3")}
+BWD_LSE_ROWS = ref.LSE_ROWS    # the tensor-core routes pad their lse and delta rows to this
 
 
 def bwd_route(dtype: torch.dtype, D: int) -> str:
     """The kernel that computes attention's gradient for ``dtype`` at head
     width ``D``: ``"wgmma"`` for bfloat16 at D in ``BWD_WGMMA_HEAD_DIMS``,
-    else ``"ffma"``; raises for a dtype or width no backward takes."""
+    ``"tf32x3"`` for float32 at D in ``BWD_TF32X3_HEAD_DIMS``, else
+    ``"ffma"``; raises for a dtype or width no backward takes."""
     if dtype not in DTYPES:
         raise ValueError(f"dtype {dtype}: the backward takes one of {DTYPES}")
     if D not in BWD_HEAD_DIMS:
         raise ValueError(f"head dim {D} not in the backward's {BWD_HEAD_DIMS}")
-    return "wgmma" if dtype == torch.bfloat16 and D in BWD_WGMMA_HEAD_DIMS else "ffma"
+    if dtype == torch.bfloat16 and D in BWD_WGMMA_HEAD_DIMS:
+        return "wgmma"
+    if dtype == torch.float32 and D in BWD_TF32X3_HEAD_DIMS:
+        return "tf32x3"
+    return "ffma"
 
 
-def bwd_scratch_elems(r: str, B: int, Hq: int, Sq: int) -> int:
+def bwd_scratch_elems(r: str, B: int, Hq: int, Sq: int, Hkv: int | None = None,
+                      Skv: int | None = None) -> int:
     """float32 elements of the backward's scratch on route ``r``: delta
-    (``ffma``), or the log-sum-exp in log2 units and delta with each row
-    padded to a multiple of ``BWD_LSE_ROWS`` (``wgmma``)."""
+    (``ffma``); the log-sum-exp in log2 units and delta with each row
+    padded to a multiple of ``BWD_LSE_ROWS`` (``wgmma``); those and the
+    TF32 hi + lo operands (``tf32x3``, ``ref.tf32x3_bwd_operands``' parts,
+    which need k's ``Hkv`` and ``Skv`` too)."""
     if r == "ffma":
         return B * Hq * Sq
-    return 2 * B * Hq * -(-Sq // BWD_LSE_ROWS) * BWD_LSE_ROWS
+    lse_delta = 2 * B * Hq * -(-Sq // BWD_LSE_ROWS) * BWD_LSE_ROWS
+    if r == "wgmma":
+        return lse_delta
+    if Hkv is None or Skv is None:
+        raise ValueError("the tf32x3 backward's scratch needs k's Hkv and Skv")
+    D = BWD_TF32X3_HEAD_DIMS[0]
+    sq8, skv8 = -(-Sq // 8) * 8, -(-Skv // 8) * 8
+    return lse_delta + 4 * B * Hq * D * (Sq + sq8) + 2 * B * Hkv * D * (2 * Skv + skv8)
 
 
 @functools.cache
@@ -158,18 +186,20 @@ def _bwd_kernel(r: str):
     return fn
 
 
-def bwd_kernel_info(dtype: torch.dtype, D: int) -> dict:
+def bwd_kernel_info(dtype: torch.dtype, D: int, r: str | None = None) -> dict:
     """Registers a thread, local (spill) bytes, dynamic shared memory and
-    key rows of a tile of each kernel of the backward's route at ``(dtype,
-    D)`` (``BWD_KERNELS``), as the card's runtime reports them
-    (``cudaFuncGetAttributes``)."""
+    key rows of a tile of each kernel of the backward's route ``r``
+    (default ``bwd_route(dtype, D)``) at ``(dtype, D)`` (``BWD_KERNELS``),
+    as the card's runtime reports them (``cudaFuncGetAttributes``)."""
     fn = _build.load(_BWD_NAME).flash_attention_bwd_info
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    r = r or bwd_route(dtype, D)
     out = {}
-    for which, name in enumerate(BWD_KERNELS[bwd_route(dtype, D)]):
+    for which, name in enumerate(BWD_KERNELS[r]):
         vals = (ctypes.c_int * 4)()
-        _build.check(_BWD_NAME, fn(DTYPES.index(dtype), D, which, ctypes.addressof(vals)))
+        _build.check(_BWD_NAME, fn(BWD_ROUTES.index(r), DTYPES.index(dtype), D, which,
+                                   ctypes.addressof(vals)))
         out[name] = dict(zip(("registers", "local_bytes", "shared_bytes", "key_rows"), vals))
     return out
 
@@ -355,18 +385,31 @@ def _(q, k, v, o, do, lse, causal, window, softcap):
                  for t in (q, k, v))
 
 
-def _backward(q, k, v, o, do, lse, *, causal, window, softcap):
-    """The backward launch on checked CUDA tensors, counted."""
+def _backward(q, k, v, o, do, lse, *, causal, window, softcap, force_route: str | None = None,
+              scratch=None):
+    """The backward launch on checked CUDA tensors, counted.
+    ``force_route="ffma"`` launches the ffma route where another takes the
+    dtype and D (chip_smoke.py and card_probe.py time it beside tf32x3 at
+    float32 D = 64; nothing trains with it).  ``scratch`` is the route's
+    float32 scratch (``bwd_scratch_elems``; the smoke reads the tf32x3
+    pre-pass's output there), allocated here when not given."""
     r = _check_bwd(q, k, v, o, do, lse)
-    B, Hq, Sq, _ = q.shape
+    B, Hq, Sq, D = q.shape
+    if force_route is not None and force_route != r:
+        if force_route != "ffma" or not (q.dtype == torch.float32 or D in (16, 32)):
+            raise ValueError(f"backward route {force_route!r} does not take {q.dtype} at D={D}")
+        r = force_route
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     if dq.numel() == 0:         # no query: no key gets a gradient
         return dq, torch.zeros_like(k), torch.zeros_like(v)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     q, k, v, o, do, lse = (_aligned(t) for t in (q, k, v, o, do, lse))
-    scratch = torch.empty(bwd_scratch_elems(r, B, Hq, Sq), dtype=torch.float32,
-                          device=q.device)
+    n = bwd_scratch_elems(r, B, Hq, Sq, k.shape[1], k.shape[2])
+    if scratch is None:
+        scratch = torch.empty(n, dtype=torch.float32, device=q.device)
+    elif scratch.dtype != torch.float32 or scratch.numel() < n or scratch.device != q.device:
+        raise ValueError(f"scratch must be float32 on {q.device} with {n} elements")
     ptrs, mask = entry_args(q, k, v, o, causal=causal, window=window, softcap=softcap)
     args = [*ptrs[:4], do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), scratch.data_ptr(), *ptrs[5:]]
@@ -495,18 +538,20 @@ def launch_scratch_bytes(func, args) -> int:
     frees before it returns: contiguous copies of the inputs that are not
     contiguous, and the tf32x3 route's (``tf32x3_scratch_elems``) or the
     backward's (``bwd_scratch_elems``) float32 scratch.  0 on the CPU and
-    for any other op."""
+    for any other op; a meta tensor stands for the card's, as in the fake
+    implementations."""
     if func not in (torch.ops.repro_torch.flash_attention_fwd.default,
                     torch.ops.repro_torch.flash_attention_bwd.default):
         return 0
     q, k = args[0], args[1]
-    if q.device.type != "cuda" or q.numel() == 0:
+    if q.device.type == "cpu" or q.numel() == 0:
         return 0
     if func is torch.ops.repro_torch.flash_attention_fwd.default:
         tf32x3 = route(q.dtype, q.shape[3]) == "tf32x3"
         return _copies_bytes(*args[:3]) + (4 * tf32x3_scratch_elems(k.shape) if tf32x3 else 0)
     B, Hq, Sq, D = q.shape
-    return _copies_bytes(*args[:6]) + 4 * bwd_scratch_elems(bwd_route(q.dtype, D), B, Hq, Sq)
+    return _copies_bytes(*args[:6]) + 4 * bwd_scratch_elems(bwd_route(q.dtype, D), B, Hq, Sq,
+                                                            k.shape[1], k.shape[2])
 
 
 def _is_dtensor(t) -> bool:

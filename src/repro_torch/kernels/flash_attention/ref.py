@@ -114,6 +114,51 @@ def tf32x3_operands(k, v):
     return ks, torch.cat(tf32_split(vt))
 
 
+
+LSE_ROWS = 64        # the tensor-core backwards pad their log-sum-exp and delta rows to this
+LOG2E = 1.4426950408889634
+
+
+def _transposed(x, S):
+    """``x [P, S, D]`` as the tf32x3 routes' transposed operand ``[P, D,
+    S8]``: rows contiguous, S8 = S rounded up to 8, zero past S, rows in
+    ``value_key_order``."""
+    s8 = -(-S // 8) * 8
+    xp = torch.zeros(x.shape[0], s8, x.shape[2], dtype=torch.float32, device=x.device)
+    xp[:, :S] = x
+    return xp[:, value_key_order(s8).to(x.device)].transpose(1, 2)
+
+
+def tf32x3_bwd_operands(q, k, v, o, do, lse):
+    """What the tf32x3 backward's pre-pass (``tf32x3_bwd_split_kernel``)
+    writes for float32 ``q, o, do [B,Hq,Sq,D]``, ``k, v [B,Hkv,Skv,D]`` and
+    the forward's ``lse [B,Hq,Sq]``, in the scratch's order: ``lse2`` and
+    ``delta`` ``[B*Hq, ld]`` (ld = Sq rounded up to ``LSE_ROWS``; lse in
+    log2 units, a float32 product, +inf past Sq; rowsum(do * o) as a
+    float64 sum in d order rounded once, 0 past Sq), the row operands
+    ``qs, dos [2*B*Hq, Sq, D]`` and ``ks, vs [2*B*Hkv, Skv, D]`` (TF32 hi
+    planes, then lo planes) and the transposed ``qt, dot [2*B*Hq, D, Sq8]``
+    and ``kt [2*B*Hkv, D, Skv8]`` (``_transposed``, hi then lo).  Their
+    elements, flattened in this order, are the route's scratch
+    (``ops.bwd_scratch_elems``)."""
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Skv, _ = k.shape
+    ld = -(-Sq // LSE_ROWS) * LSE_ROWS
+    dev = q.device
+    lse2 = torch.full((B * Hq, ld), torch.inf, dtype=torch.float32, device=dev)
+    lse2[:, :Sq] = lse.reshape(B * Hq, Sq).float() * torch.tensor(LOG2E, dtype=torch.float32,
+                                                                  device=dev)
+    delta = torch.zeros(B * Hq, ld, dtype=torch.float64, device=dev)
+    do64, o64 = (t.reshape(B * Hq, Sq, D).double() for t in (do, o))
+    for d in range(D):
+        delta[:, :Sq] += do64[..., d] * o64[..., d]
+    rows = [x.reshape(-1, x.shape[2], D).float() for x in (q, do, k, v)]
+    qs, dos, ks, vs = (torch.cat(tf32_split(x)) for x in rows)
+    qt, dot, kt = (torch.cat(tf32_split(_transposed(x, x.shape[1])))
+                   for x in (rows[0], rows[1], rows[2]))
+    return lse2, delta.float(), qs, dos, qt, dot, ks, vs, kt
+
+
 # ---- the backward (plain version of csrc/flash_attention_bwd.cu)
 
 def attention_bwd_ref(q, k, v, o, do, lse, *, causal: bool = True,

@@ -14,7 +14,8 @@ Beyond the reference's lines it prints, after each blocking checkpoint
 save and each restore, a ``state_digest=`` over the state's bytes (a
 resumed run's digest equals the saved run's), and at the end the step
 time (host clock around each step, ended by a synchronize), tokens a
-second, peak device memory and the attention kernels' launches.
+second, peak device memory and the attention kernels' launches (the
+backward's by route too).
 """
 from __future__ import annotations
 
@@ -118,6 +119,7 @@ def main(argv=None):
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
     fwd0, bwd0 = flash_ops.attention.launches, flash_ops.attention_bwd.launches
+    routes0 = dict(flash_ops.attention_bwd.route_launches)
     t0 = time.time()
     for step in range(start, args.steps):
         if guard.preempted:
@@ -168,7 +170,10 @@ def main(argv=None):
           f"tokens/s {tokens / max(step_sum.get('sum', 0.0), 1e-12)}, "
           f"peak_device_bytes {peak}, flash_attention launches "
           f"{flash_ops.attention.launches - fwd0}, flash_attention_bwd launches "
-          f"{flash_ops.attention_bwd.launches - bwd0}", flush=True)
+          f"{flash_ops.attention_bwd.launches - bwd0} ("
+          + ", ".join(f"{r} {n - routes0[r]}"
+                      for r, n in flash_ops.attention_bwd.route_launches.items()) + ")",
+          flush=True)
     return state
 
 

@@ -709,11 +709,15 @@ def _assert_bwd_within_limit(got, q, k, v, o, do, kw):
     (1, 8, 1, 200, 200, 64, dict(causal=True)),
     (1, 4, 2, 700, 700, 256, dict(causal=True, window=300, softcap=50.0)),
     (1, 4, 2, 96, 40, 256, dict(causal=False, window=16)),
+    (1, 6, 2, 300, 300, 64, dict(causal=True, window=100, softcap=50.0)),
+    (1, 4, 2, 63, 1000, 64, dict(causal=True)),
+    (1, 4, 2, 1000, 129, 64, dict(causal=False)),
 ])
 def test_flash_bwd_kernel_matches_plain_version(cuda_device, dtype, B, Hq, Hkv, Sq, Skv,
                                                 D, kw):
     """The backward kernel (one count, on the route ``ops.bwd_route``
-    names: wgmma for bfloat16 at D 64/128/256, ffma else) against the plain
+    names: wgmma for bfloat16 at D 64/128/256, tf32x3 for float32 at D 64,
+    ffma else) against the plain
     version in float64, within ``ref.attention_bwd_limit`` (``BWD_ERR_FACTOR``
     times the float32 plain version's own error, plus the rounding to
     bfloat16), given the forward's log-sum-exp: ragged tiles, Sq != Skv
@@ -892,6 +896,71 @@ def test_flash_bwd_wgmma_builds_spill_nothing(cuda_device):
     info = flash_ops.bwd_kernel_info(torch.float32, 160)
     assert all(k["local_bytes"] == 0 for k in info.values()), info
     assert info["dkv"]["key_rows"] == 64 and info["dkv"]["shared_bytes"] <= 232448
+
+
+def test_flash_bwd_tf32x3_builds_spill_nothing(cuda_device):
+    """The tf32x3 backward's two kernels (the split pre-pass and the
+    tensor-core CTA) keep their registers (no local bytes) and fit a
+    block's shared memory, streaming 32-row tiles; the ffma build at the
+    same width (what ``force_route`` times beside it) is still there."""
+    info = flash_ops.bwd_kernel_info(torch.float32, 64)
+    assert set(info) == {"tf32x3_bwd_split", "bwd_tf32x3"}
+    assert all(k["local_bytes"] == 0 for k in info.values()), info
+    assert 0 < info["bwd_tf32x3"]["shared_bytes"] <= 232448
+    assert info["bwd_tf32x3"]["key_rows"] == 32
+    assert set(flash_ops.bwd_kernel_info(torch.float32, 64, "ffma")) == {"prepass", "dq", "dkv"}
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,kw", [
+    (8, 12, 4, 256, 256, dict(causal=True)),
+    (1, 6, 2, 129, 129, dict(causal=True, window=50, softcap=50.0)),
+    (1, 6, 2, 63, 1000, dict(causal=False)),
+    (1, 6, 2, 200, 63, dict(causal=False, window=20)),
+])
+def test_flash_bwd_tf32x3_prepass_and_ffma_beside_it(cuda_device, B, Hq, Hkv, Sq, Skv, kw):
+    """The tf32x3 backward's pre-pass writes its plain twin
+    (``ref.tf32x3_bwd_operands``, computed on the card) byte for byte into
+    the scratch it is given (``ops.bwd_scratch_elems`` floats); the
+    gradients lie within the backward's limit, one count on tf32x3; ffma
+    forced at the same shape (``force_route``) counts on ffma and lies
+    within it too; a route that does not take float32 at D 64 is
+    refused."""
+    q, k, v, do = _bwd_inputs(cuda_device, B, Hq, Hkv, Sq, Skv, 64, torch.float32, Sq + 3)
+    o, lse = flash_ops.attention(q, k, v, return_lse=True, **kw)
+    mask = {"window": None, "softcap": None, **kw}
+    scratch = torch.full((flash_ops.bwd_scratch_elems("tf32x3", B, Hq, Sq, Hkv, Skv),),
+                         float("nan"), device=cuda_device)
+    before = dict(flash_ops.attention_bwd.route_launches)
+    got = flash_ops._backward(q, k, v, o, do, lse, scratch=scratch, **mask)
+    forced = flash_ops._backward(q, k, v, o, do, lse, force_route="ffma", **mask)
+    torch.cuda.synchronize()
+    after = flash_ops.attention_bwd.route_launches
+    assert (after["tf32x3"] - before["tf32x3"], after["ffma"] - before["ffma"]) == (1, 1)
+    want = torch.cat([t.flatten() for t in flash_ref.tf32x3_bwd_operands(q, k, v, o, do, lse)])
+    assert_same(scratch.view(torch.int32), want.view(torch.int32))
+    _assert_bwd_within_limit(got, q, k, v, o, do, kw)
+    _assert_bwd_within_limit(forced, q, k, v, o, do, kw)
+    with pytest.raises(ValueError, match="does not take"):
+        flash_ops._backward(q, k, v, o, do, lse, force_route="wgmma", **mask)
+
+
+def test_flash_bwd_tf32x3_allocates_what_launch_scratch_bytes_says(cuda_device):
+    """At tspm-mlho's training layer a tf32x3 backward call's peak over
+    what was allocated before it is its three outputs and
+    ``ops.launch_scratch_bytes`` (what the dry run adds at the launch),
+    within the caching allocator's rounding of four blocks."""
+    q, k, v, do = _bwd_inputs(cuda_device, 8, 12, 4, 256, 256, 64, torch.float32, 2)
+    o, lse = flash_ops.attention(q, k, v, return_lse=True, causal=True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda_device)
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    got = flash_ops.attention_bwd(q, k, v, o, do, lse, causal=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(cuda_device) - base
+    want = sum(t.numel() * t.element_size() for t in got) + flash_ops.launch_scratch_bytes(
+        torch.ops.repro_torch.flash_attention_bwd.default,
+        (q, k, v, o, do, lse, True, None, None))
+    assert want <= peak <= want + 4 * (2 << 20), (peak, want)
 
 
 def test_attention_gradient_on_card_goes_through_the_kernel(cuda_device, monkeypatch):

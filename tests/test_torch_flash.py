@@ -530,18 +530,21 @@ def test_bwd_wrapper_refusals():
 def test_bwd_route_follows_dtype_and_head_dim():
     """``ops.bwd_route``: the backward takes the forward's head widths; the
     wgmma backward takes bfloat16 at the wgmma forward's (D 160 among
-    them), FFMA the rest (every float32 width, bfloat16 at D 16 and 32);
-    dtypes and widths no backward takes raise."""
-    assert ops.BWD_ROUTES == ("ffma", "wgmma")
+    them), tf32x3 float32 at D 64, FFMA the rest (float32 at D 16, 32, 128,
+    160 and 256, bfloat16 at D 16 and 32); dtypes and widths no backward
+    takes raise."""
+    assert ops.BWD_ROUTES == ("ffma", "wgmma", "tf32x3")
+    assert ops.BWD_TF32X3_HEAD_DIMS == (64,)
     for D in ops.BWD_HEAD_DIMS:
-        assert ops.bwd_route(torch.float32, D) == "ffma"
+        assert ops.bwd_route(torch.float32, D) == ("tf32x3" if D == 64 else "ffma")
         assert ops.bwd_route(torch.bfloat16, D) == ("wgmma" if D in ops.BWD_WGMMA_HEAD_DIMS
                                                     else "ffma")
     assert ops.BWD_WGMMA_HEAD_DIMS == (64, 128, 160, 256)
     assert ops.BWD_HEAD_DIMS == ops.HEAD_DIMS
     assert ops.bwd_route(torch.bfloat16, 160) == "wgmma"
     assert ops.bwd_route(torch.float32, 160) == "ffma"
-    assert set(ops.BWD_KERNELS) == set(ops.BWD_ROUTES) == set(ops.BWD_ENTRIES)
+    assert set(ops.BWD_KERNELS) == set(ops.BWD_ROUTES) == set(ops.BWD_ENTRIES) \
+        == set(ops.BWD_TILE_ROWS) == set(ops.attention_bwd.route_launches)
     with pytest.raises(ValueError, match="head dim"):
         ops.bwd_route(torch.bfloat16, 96)
     with pytest.raises(ValueError, match="dtype"):
@@ -549,6 +552,194 @@ def test_bwd_route_follows_dtype_and_head_dim():
     # the wgmma route's scratch: log2-unit lse and delta, rows padded to 64
     assert ops.bwd_scratch_elems("wgmma", 2, 4, 65) == 2 * 2 * 4 * 128
     assert ops.bwd_scratch_elems("ffma", 2, 4, 65) == 2 * 4 * 65
+    # tf32x3's: those, q and do as rows and transposed, k as rows and
+    # transposed and v as rows, each TF32 hi + lo
+    assert ops.bwd_scratch_elems("tf32x3", 2, 4, 65, 2, 30) == (
+        2 * 2 * 4 * 128 + 4 * 2 * 4 * 64 * (65 + 72) + 2 * 2 * 2 * 64 * (2 * 30 + 32))
+    with pytest.raises(ValueError, match="Hkv and Skv"):
+        ops.bwd_scratch_elems("tf32x3", 2, 4, 65)
+
+
+# ---- the tf32x3 backward (float32 at D 64 on TF32 tensor cores)
+
+# (name, B, Hq, Hkv, Sq, Skv, options): tspm-mlho's training layer, then
+# float32 D 64's edges: a GQA group of 3 under a window and softcap 50,
+# Sq < Skv causal, and rows that see no key (non-causal, window, Sq > Skv)
+TF32X3_BWD_CASES = [
+    ("tspm_mlho", 8, 12, 4, 256, 256, dict(causal=True)),
+    ("gqa3_window_softcap", 1, 6, 2, 129, 129, dict(causal=True, window=50, softcap=50.0)),
+    ("sq_below_skv", 1, 6, 2, 100, 200, dict(causal=True)),
+    ("rows_without_keys", 1, 6, 2, 200, 63, dict(causal=False, window=20)),
+]
+
+
+@functools.cache
+def _tf32x3_bwd_case(name):
+    """float32 inputs of a ``TF32X3_BWD_CASES`` case, the forward's output
+    and log-sum-exp (the plain version's), and the backward's limit."""
+    _, B, Hq, Hkv, Sq, Skv, kw = next(c for c in TF32X3_BWD_CASES if c[0] == name)
+    q, k, v, do = (torch.from_numpy(a)
+                   for a in _bwd_inputs(B, Hq, Hkv, Sq, Skv, 64, seed=Sq + Skv))
+    o, lse = ref.attention_ref(q, k, v, return_lse=True, **kw)
+    return (q, k, v, o, do, lse), kw, ref.attention_bwd_limit(q, k, v, o, do, **kw)
+
+
+def _emulated_tf32x3_bwd(q, k, v, o, do, lse, *, products, causal, window=None,
+                         softcap=None):
+    """The tf32x3 backward's numerics in plain torch: q, k, v and do split
+    into TF32 hi + lo (``ref.tf32_split``), S and dP as a_hi b_lo + a_lo b_hi
+    + a_hi b_hi in float32 (each product of two TF32 values exact), P =
+    2^(S scale log2(e) - lse log2(e)) (the softcap's tanh between), dS = P
+    (dP - delta) dcap in float32, then dQ = dS K, dK = dS^T Q and dV = P^T
+    dO with dS and P split into TF32 hi + lo as well and the same three
+    products.  ``products=1`` keeps a_hi b_hi alone (one TF32 product each
+    way); ``products="f_hi"`` keeps all three but takes dS and P as one
+    TF32 each (F unsplit)."""
+    G, scale = q.shape[1] // k.shape[1], q.shape[3] ** -0.5
+    kq, vq = (t.repeat_interleave(G, 1) for t in (k, v))
+    qs, ks, vs, dos = (ref.tf32_split(t) for t in (q, kq, vq, do))
+
+    def mm(eq, a, b):
+        (a_hi, a_lo), (b_hi, b_lo) = a, b
+        if products == 1:
+            return torch.einsum(eq, a_hi, b_hi)
+        return (torch.einsum(eq, a_hi, b_lo) + torch.einsum(eq, a_lo, b_hi)) \
+            + torch.einsum(eq, a_hi, b_hi)
+
+    s = mm("bhqd,bhkd->bhqk", qs, ks)
+    dp = mm("bhqd,bhkd->bhqk", dos, vs)
+    _, mask, _ = ref._scores(q[..., :1], k[..., :1], causal=causal, window=window)
+    if softcap is None:
+        u, dcap = s * (scale * ref.LOG2E), 1.0
+    else:
+        th = torch.tanh(s * (scale / softcap))
+        u, dcap = softcap * ref.LOG2E * th, 1 - th * th
+    p = torch.where(mask, torch.exp2(u - (lse * ref.LOG2E)[..., None]), 0.0)
+    ds = torch.where(mask, p * (dp - (do * o).sum(-1, keepdim=True)) * dcap, 0.0)
+
+    def operand(x):
+        hi, lo = ref.tf32_split(x)
+        return (hi, torch.zeros_like(lo)) if products == "f_hi" else (hi, lo)
+
+    def per_kv_head(x):
+        return x.reshape(x.shape[0], k.shape[1], G, *x.shape[2:]).sum(2)
+
+    ds, p = operand(ds), operand(p)
+    dq = mm("bhqk,bhkd->bhqd", ds, ks) * scale
+    dk = per_kv_head(mm("bhqk,bhqd->bhkd", ds, qs)) * scale
+    dv = per_kv_head(mm("bhqk,bhqd->bhkd", p, dos))
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("products", [3, 1, "f_hi"])
+@pytest.mark.parametrize("name", [c[0] for c in TF32X3_BWD_CASES])
+def test_tf32x3_bwd_products_against_the_float32_limit(name, products):
+    """The tf32x3 backward's hazard: TF32 keeps ~11 bits of each operand.
+    With q, k, v, do, P and dS split into TF32 hi + lo and three products
+    each way (what the route ships) every gradient holds
+    ``ref.attention_bwd_limit`` (``BWD_ERR_FACTOR`` 16 x the float32 plain
+    version's error) at tspm-mlho's training layer and float32 D 64's edge
+    cases, with room: at most a fifth of it.  One TF32 product each way
+    breaks it by more than 10x at every case, and so does taking P and dS
+    as one TF32 each (why F is split too)."""
+    args, kw, (want64, _, _, limits) = _tf32x3_bwd_case(name)
+    got = _emulated_tf32x3_bwd(*args, products=products, **kw)
+    ratios = [((g.double() - w64).abs() / limit).max().item()
+              for g, w64, limit in zip(got, want64, limits)]
+    if products == 3:
+        assert max(ratios) <= 0.2, ratios
+    else:
+        assert max(ratios) > 10, ratios
+        beyond = sum(((g.double() - w64).abs() > limit).sum().item()
+                     for g, w64, limit in zip(got, want64, limits))
+        assert beyond > 1000, beyond
+
+
+def test_tf32x3_bwd_operands_are_the_split_inputs():
+    """The tf32x3 backward pre-pass's plain version
+    (``ref.tf32x3_bwd_operands``): hi + lo rebuild each input within
+    2^-22 |x| (hi within 2^-11, both with their low 13 bits clear); the
+    transposed q, do and k are the row operands transposed, their rows in
+    ``value_key_order`` (a bijection on each group of 8) and zero past S;
+    lse2 is lse in log2 units and delta rowsum(do * o), +inf and 0 on the
+    rows padded to 64; the parts' sizes add up to the scratch the wrapper
+    allocates (``ops.bwd_scratch_elems``)."""
+    B, Hq, Hkv, Sq, Skv = 2, 6, 2, 13, 21
+    q, k, v, do = (torch.from_numpy(a) for a in _bwd_inputs(B, Hq, Hkv, Sq, Skv, 64, seed=3))
+    o, lse = ref.attention_ref(q, k, v, return_lse=True, causal=False, window=4)
+    lse[0, 0, 0] = torch.inf                          # a row that sees no key
+    parts = ref.tf32x3_bwd_operands(q, k, v, o, do, lse)
+    lse2, delta, qs, dos, qt, dot, ks, vs, kt = parts
+    assert sum(p.numel() for p in parts) == ops.bwd_scratch_elems("tf32x3", B, Hq, Sq, Hkv, Skv)
+    assert all(p.dtype == torch.float32 for p in parts)
+    assert lse2.shape == delta.shape == (B * Hq, 64)
+    assert torch.equal(lse2[:, :Sq], lse.reshape(-1, Sq) * torch.tensor(ref.LOG2E))
+    assert lse2[0, 0] == torch.inf and (lse2[:, Sq:] == torch.inf).all()
+    want = (do.double() * o.double()).sum(-1).reshape(-1, Sq)
+    assert ((delta[:, :Sq].double() - want).abs() <= 2.0 ** -23 * want.abs() + 1e-12).all()
+    assert (delta[:, Sq:] == 0).all()
+    order = ref.value_key_order(24)
+    for g in range(0, 24, 8):
+        assert sorted(order[g:g + 8].tolist()) == list(range(g, g + 8))
+    for x, rows, cols, S, S8 in ((q, qs, qt, Sq, 16), (do, dos, dot, Sq, 16),
+                                 (k, ks, kt, Skv, 24), (v, vs, None, Skv, 24)):
+        x = x.reshape(-1, S, 64)
+        assert rows.shape == (2 * x.shape[0], S, 64)
+        hi, lo = rows.split(x.shape[0])
+        assert ((hi.view(torch.int32) & 0x1FFF) == 0).all()
+        assert ((lo.view(torch.int32) & 0x1FFF) == 0).all()
+        assert ((hi + lo - x).abs() <= 2.0 ** -22 * x.abs()).all()
+        assert ((hi - x).abs() <= 2.0 ** -11 * x.abs()).all()
+        if cols is None:
+            continue
+        assert cols.shape == (2 * x.shape[0], 64, S8)
+        inverse = torch.argsort(ref.value_key_order(S8))
+        t_hi, t_lo = (t[:, :, inverse] for t in cols.split(x.shape[0]))
+        assert torch.equal(t_hi[:, :, :S], hi.transpose(1, 2))
+        assert torch.equal(t_lo[:, :, :S], lo.transpose(1, 2))
+        assert (t_hi[:, :, S:] == 0).all() and (t_lo[:, :, S:] == 0).all()
+
+
+def test_tf32x3_bwd_fake_and_scratch_at_tspm_mlho():
+    """What a dry run of tspm-mlho's training step reads of the tf32x3
+    backward, on meta tensors standing for the card's at its training
+    layer (q [8, 12, 256, 64], k/v [8, 4, 256, 64], float32): the route
+    the launch takes (``_check_bwd``, which the fake implementation runs
+    too), the fake outputs, the FLOP count, and ``launch_scratch_bytes``
+    equal to the pre-pass's parts (``ref.tf32x3_bwd_operands`` at the
+    same shapes) with a contiguous copy of a transposed input beside them;
+    the fake refuses the grid the card refuses, in 32-row tiles."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config("tspm-mlho")
+    assert (cfg.dtype, cfg.hd) == ("float32", 64) and cfg.n_layers == 12
+    B, Hq, Hkv, S = 8, cfg.n_heads, cfg.n_kv_heads, 256
+    meta = [torch.empty(B, H, S, 64, device="meta") for H in (Hq, Hkv, Hkv, Hq, Hq)]
+    q, k, v, o, do = meta
+    lse = torch.empty(B, Hq, S, device="meta")
+    assert ops._check_bwd(q, k, v, o, do, lse) == "tf32x3"
+    with FlopCounterMode(display=False) as counter:
+        dq, dk, dv = ops.flash_attention_bwd(q, k, v, o, do, lse, True, None, None)
+    assert [t.shape for t in (dq, dk, dv)] == [q.shape, k.shape, v.shape]
+    assert dq.device.type == "meta" and counter.get_total_flops() == 10 * B * Hq * S * S * 64
+    small = [torch.zeros(B, H, S, 64) for H in (Hq, Hkv, Hkv, Hq, Hq)]
+    parts = ref.tf32x3_bwd_operands(*small, torch.zeros(B, Hq, S))
+    scratch = 4 * sum(p.numel() for p in parts)
+    bwd = torch.ops.repro_torch.flash_attention_bwd.default
+    args = (q, k, v, o, do, lse, True, None, None)
+    assert ops.launch_scratch_bytes(bwd, args) == scratch
+    strided = torch.empty(B, S, Hq, 64, device="meta").transpose(1, 2)
+    assert ops.launch_scratch_bytes(bwd, (strided, *args[1:])) == scratch + 4 * q.numel()
+    over = torch.empty(1, 2**21, 2**16, 64, device="meta")      # 2^32 tiles of 32 rows
+    kv = torch.empty(1, 1, 8, 64, device="meta")
+    with pytest.raises(ValueError, match="int32 grid") as card:
+        ops._check_bwd(over, kv, kv, over, over, torch.empty(over.shape[:3], device="meta"))
+    with pytest.raises(ValueError) as fake:
+        ops.flash_attention_bwd(over, kv, kv, over, over,
+                                torch.empty(over.shape[:3], device="meta"), True, None, None)
+    assert str(fake.value) == str(card.value)
 
 
 # ---- the forward's log-sum-exp (written by every route when asked)
